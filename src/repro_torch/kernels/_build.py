@@ -1,0 +1,127 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Every ``repro_torch/kernels/*/csrc/*.cu`` file is compiled for ``sm_90a``
+(one ``nvcc -c`` per source, all started together) and linked into one shared
+library with a plain C interface, ``build/repro_torch/kernels-<hash>.so`` at
+the repository root.  The hash covers the sources and the flags, so an edited
+source builds anew; a file lock keeps concurrent processes from building the
+same library twice.  The build happens at first use, never at import.  A
+missing ``nvcc`` or a failed build raises: there is no other way to a kernel.
+
+Each C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`check` turns a non-zero code into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
+
+_PKG = pathlib.Path(__file__).resolve().parent
+BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
+# name -> argtypes of every C entry point (pointers and the stream as c_void_p,
+# ints as c_int; every entry point returns a cudaError_t as int).
+SIGNATURES = {
+    # set, tag, tags, last, hits, B, L, TS, W, now0, stream
+    "tlb_sim_launch": [c_ptr, c_ptr, c_ptr, c_ptr, c_ptr,
+                       c_int, c_int, c_int, c_int, c_int, c_ptr],
+    # c_set, c_tag, a_set, a_tag, m_set, m_tag, flags,
+    # c_tags, c_last, a_tags, a_last, m_tags, m_last, hits,
+    # B, L, CS, CW, AS, AW, MS, MW, now0, stream
+    "system_sim_launch": [c_ptr] * 14 + [c_int] * 9 + [c_ptr],
+    # tags, seg, init, depths, final, L, C, W, stream
+    "stack_scan_launch": [c_ptr] * 5 + [c_int] * 3 + [c_ptr],
+    "cuda_error_string": [c_int],
+}
+
+
+class Library:
+    """The loaded kernels plus what their build printed."""
+
+    def __init__(self, path: pathlib.Path, log: str, build_s: float):
+        self.path = path
+        self.log = log            # nvcc / ptxas -v output of the build
+        self.build_s = build_s    # 0.0 when an earlier build was reused
+        self.cdll = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(self.cdll, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_char_p if name == "cuda_error_string" else ctypes.c_int
+
+    def check(self, err: int, what: str) -> None:
+        if err != 0:
+            msg = self.cdll.cuda_error_string(err).decode()
+            raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+_LIB: Optional[Library] = None
+
+
+def sources() -> list:
+    return sorted(_PKG.glob("*/csrc/*.cu"))
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    found = shutil.which("nvcc") or str(pathlib.Path(cuda_home) / "bin" / "nvcc")
+    if not os.access(found, os.X_OK):
+        raise RuntimeError(
+            "nvcc not found (looked on PATH and under CUDA_HOME); the CUDA kernels "
+            "are built from source at first use and need the CUDA toolkit")
+    return found
+
+
+def _run(cmd: list) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    return out
+
+
+def _build(nvcc: str, srcs: list, target: pathlib.Path) -> str:
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
+        objs = [pathlib.Path(tmp) / f"{s.parent.parent.name}_{s.stem}.o" for s in srcs]
+        with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
+            logs = list(pool.map(
+                _run, [[nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
+                       for s, o in zip(srcs, objs)]))
+        so = pathlib.Path(tmp) / target.name
+        logs.append(_run([nvcc, "-shared", "-o", str(so), *map(str, objs)]))
+        os.replace(so, target)
+    return "".join(f"== {s.relative_to(_PKG.parent)}\n{log}" for s, log in zip(srcs, logs))
+
+
+def load() -> Library:
+    """The kernels' library, built on first use (thread- and process-safe)."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    srcs = sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        digest.update(str(s.relative_to(_PKG)).encode() + b"\0" + s.read_bytes())
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target = BUILD_DIR / f"kernels-{digest.hexdigest()[:16]}.so"
+    log_path = target.with_suffix(".log")
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        build_s = 0.0
+        if not target.exists():
+            t0 = time.perf_counter()
+            log_path.write_text(_build(_nvcc(), srcs, target))
+            build_s = time.perf_counter() - t0
+        _LIB = Library(target, log_path.read_text() if log_path.exists() else "", build_s)
+    return _LIB

@@ -1,0 +1,102 @@
+"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py`` use
+neither JAX nor the JAX package, and an entry point left at its default
+device raises on a machine without a card instead of running on the CPU."""
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_importing_every_module_loads_no_jax():
+    proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 20
+
+
+_FORBIDDEN = [
+    re.compile(r"^\s*(import|from)\s+jax(lib)?\b", re.M),
+    re.compile(r"^\s*from\s+repro(\.|\s)", re.M),
+    re.compile(r"^\s*import\s+repro(\.|\s|$)", re.M),
+    re.compile(r"\brepro\.(core|kernels|runtime|models)\b"),
+]
+
+
+def test_source_scan_finds_no_jax_or_reference_imports():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 20
+    for f in files:
+        text = f.read_text()
+        for pat in _FORBIDDEN:
+            m = pat.search(text)
+            assert m is None, f"{f.relative_to(ROOT)}: {m.group(0)!r}"
+
+
+def test_default_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device is valid")
+    from repro_torch.bench import fig10
+    from repro_torch.core import sweep, tlbsim
+    from repro_torch.core.sparta import TLBConfig
+
+    lines = np.arange(100, dtype=np.int64)
+    with pytest.raises(RuntimeError, match="cuda"):
+        sweep.sweep_tlb(lines, [sweep.TLBSweepSpec(TLBConfig(), page_shift=12)])
+    with pytest.raises(RuntimeError, match="cuda"):
+        sweep.sweep_system(lines, [tlbsim.SystemSimConfig()])
+    with pytest.raises(RuntimeError, match="cuda"):
+        sweep.SystemSweepStream([tlbsim.SystemSimConfig()])
+    with pytest.raises(RuntimeError, match="cuda"):
+        tlbsim.simulate_tlb(lines, TLBConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        fig10.run(n_ops=10, verbose=False)
+
+
+def test_benchtime_measures_and_refuses_cpu_metadata():
+    from repro_torch.core import benchtime
+
+    calls = []
+    m = benchtime.measure(lambda x: calls.append(x) or x * 2, 21, reps=3, warmup=2)
+    assert len(calls) == 5 and m.result == 42 and len(m.times_s) == 3
+    assert m.best_s == min(m.times_s) and m.spread_frac >= 0.0
+    with pytest.raises(ValueError):
+        benchtime.measure(lambda: None, reps=0)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; device_metadata describes it")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        benchtime.device_metadata()
+
+
+def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; chip_smoke.py would run")
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+        proc = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
