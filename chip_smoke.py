@@ -4,30 +4,36 @@
     python3 chip_smoke.py
 
 Drives the port's main path — the Fig 10 joint-system sweep and the Fig 4 TLB
-sweep at full figure size, and their resumable streams — through the
-hand-written CUDA kernels K1 (``tlb_sim``), K2 (``system_sim``) and K3
-(``stackdist``'s stack scan), and fails (exit code 1, no result line) if
-anything is wrong.  One JSON line per phase:
+sweep, the Fig 11 and Fig 5 timeline figures, all at full figure size, and
+their resumable streams — through the hand-written CUDA kernels K1
+(``tlb_sim``), K2 (``system_sim``), K3 (``stackdist``'s stack scan) and K4
+(``timeline``), and fails (exit code 1, no result line) if anything is
+wrong.  One JSON line per phase:
 
 1. ``device``: the card, and its name and power limit from ``nvidia-smi``;
 2. ``build``: the kernels built for ``sm_90a`` from the sources in this
    checkout, with ptxas's register / stack / spill lines;
 3. ``kernel_vs_plain``: each op entry point on the card against its plain
-   PyTorch version on the same inputs (tolerance 0: hits, depths and carried
-   state bit-identical), and ``engines_agree``: the stack-distance sweep
-   equal to the sequential one;
-4. ``fig10`` / 5. ``fig4`` / 6. ``streams``: the main path.  The figure
-   drivers on the card, with wall times, claims, and every hit count held
-   against the JAX reference's golden file
-   ``tests/data/torch_golden_sweeps.json``; then the chunked sweep streams
-   over ``skip_list``, equal to the monolithic sweeps.  The kernels' launch
-   counters are set to 0 before Fig 10 and read after the streams
-   (``main_path``);
-7. ``timing``: kernel time with CUDA events at the shapes the main path gave
+   PyTorch version on the same inputs (tolerance 0: hits, depths, timeline
+   latency / overhead / done and carried state bit-identical), and
+   ``engines_agree``: the stack-distance sweep equal to the sequential one;
+4. the main path, with the kernels' launch counters set to 0 before it and
+   read after it (``main_path``): ``fig10`` and ``fig4``, every hit count
+   held against the JAX reference's golden file
+   ``tests/data/torch_golden_sweeps.json``; ``streams``, the chunked LRU
+   sweep streams over ``skip_list``, equal to the monolithic sweeps;
+   ``fig11`` and ``fig5``, every timeline spec's latency / overhead / done
+   held by sha256 of its float32 bytes, and the Fig 5 grid's hit counts,
+   against ``tests/data/torch_golden_timeline.json``; ``timeline_stream``,
+   the chunked timeline stream over Fig 11's specs, equal to the monolithic
+   sweep.  Each phase line has its wall times, claims and launches;
+5. ``timing``: kernel time with CUDA events at the shapes the main path gave
    each kernel, beside the least time the card could take (bytes over
-   3.35 TB/s, or 32-bit compares over 67 T/s), and the plain version's time
-   on the same calls over a 20,000-access prefix, where kernel and plain
-   outputs must again be bit-identical.
+   3.35 TB/s, or operations over 67 T/s), and the plain version's time on
+   the same calls over a prefix of each call (20,000 accesses; 2,000 for
+   K4), where kernel and plain outputs must again be bit-identical; and
+   ``timing_site``, the same for single call sites: K1 at B = 1, K2 at the
+   stream calls, K4 at the Fig 11, Fig 5 and stream calls and at B = 1.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
 and last ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing
@@ -45,11 +51,17 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 GOLDEN = ROOT / "tests" / "data" / "torch_golden_sweeps.json"
+GOLDEN_TIMELINE = ROOT / "tests" / "data" / "torch_golden_timeline.json"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 INT32_OPS_PER_S = 67e12        # 32-bit rate outside the tensor cores (data sheet, fp32)
 STREAM_CHUNK = 65_537          # accesses per stream chunk (odd on purpose)
 PREFIX = 20_000                # accesses of the plain-version timing prefix
 CHECK_ACCESSES = 20_037        # PREFIX plus an odd-length tail
+TL_BLOCK = 512                 # TimelineSweepStream's block
+TL_STREAM_CHUNK = 97 * TL_BLOCK  # timeline stream chunks: a block multiple
+TL_PREFIX = 2_000              # accesses of K4's plain-version timing prefix
+TL_BYTES = 44                  # K4 bytes per (sim, access): 8 x 4 in, 3 x 4 out
+SUMMARY_RTOL = 1e-12           # timeline summaries: numpy float64 reductions
 
 FAILURES = []
 
@@ -71,7 +83,7 @@ def main() -> int:
               "needs one CUDA card", file=sys.stderr)
         return 1
 
-    from repro_torch.bench import fig4, fig10
+    from repro_torch.bench import fig4, fig5, fig10, fig11
     from repro_torch.bench.common import trace
     from repro_torch.core.benchtime import device_metadata
     from repro_torch.kernels import _build
@@ -90,8 +102,10 @@ def main() -> int:
 
     errs = check_kernels_against_plain(torch, trace)
     golden = json.loads(GOLDEN.read_text())
-    launches, runs = run_main_path(torch, fig10, fig4, trace, golden)
-    kernels = time_kernels(torch, fig10, fig4, trace, errs, launches, runs)
+    golden_tl = json.loads(GOLDEN_TIMELINE.read_text())
+    figs = {"fig4": fig4, "fig5": fig5, "fig10": fig10, "fig11": fig11}
+    launches, runs = run_main_path(torch, figs, trace, golden, golden_tl)
+    kernels = time_kernels(torch, figs, trace, errs, launches, runs)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     if FAILURES:
@@ -144,13 +158,22 @@ def _system_check_cfgs():
     ]
 
 
-def _max_abs_err(torch, got, want) -> int:
-    """Largest absolute difference over matching tensors (bool as 0/1)."""
+def _max_abs_err(torch, got, want):
+    """Largest absolute difference over matching tensors (bool as 0/1).
+    Float tensors must also agree bit for bit: a difference the float64
+    subtraction cannot see (a sign of zero) counts as the least f32 step."""
     err = 0
     for g, w in zip(got, want):
-        if g.shape != w.shape:
+        if g.shape != w.shape or g.dtype != w.dtype:
             return 2**31
-        if g.numel():
+        if not g.numel():
+            continue
+        if g.is_floating_point():
+            diff = float((g.double() - w.double()).abs().max())
+            if diff == 0 and not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+                diff = 2.0**-149
+            err = max(err, diff)
+        else:
             err = max(err, int((g.to(torch.int64) - w.to(torch.int64)).abs().max()))
     return err
 
@@ -270,7 +293,90 @@ def check_kernels_against_plain(torch, trace) -> dict:
          equal=agree, **shape)
     if not agree:
         fail("sweep_tlb: the stack-distance engine differs from the sequential kernel")
+    errs["timeline"] = check_timeline_against_plain(torch, lines, cuts)
     return errs
+
+
+def _cut_events(ev, n: int):
+    """The events of a trace's first ``n`` accesses (the LRU sims are causal)."""
+    from repro_torch.core.tlbsim import SystemEvents
+
+    return SystemEvents(*(x[:n] for x in ev[:3]), n_warm=min(ev.n_warm, n))
+
+
+def _timeline_check_specs(lines, evs):
+    """Ten cells mixing every design, 1-16 accelerators, 0 or 8 MSHRs, 0, 1
+    or 3 ports, 0 or 16 banks, 1-32 partitions and three trace lengths: the
+    heterogeneous batch of tests/test_torch_timeline.py on this trace.
+    ``evs``: (conventional P=1, SPARTA P=32, SPARTA P=8, 2 MB SPARTA P=4)."""
+    from repro_torch.core.timeline import TimelineConfig as Q
+    from repro_torch.core.timeline import TimelineSpec as S
+
+    b, c = 15_001, 9_999
+    lb, eb = lines[:b], _cut_events(evs[2], b)
+    lc, ec = lines[:c], _cut_events(evs[3], c)
+    return [
+        S(lines, evs[0], "conventional", cfg=Q(8, 1, 16), num_accelerators=4),
+        S(lines, evs[1], "sparta", cfg=Q(8, 3, 16), num_partitions=32, num_accelerators=16),
+        S(lb, eb, "sparta", cfg=Q.unbounded(), num_partitions=8, num_accelerators=16),
+        S(lb, eb, "dipta", cfg=Q(0, 0, 16), workload="bst_internal"),
+        S(lc, ec, "ideal", cfg=Q(8, 0, 0), page_shift=21, num_accelerators=8),
+        S(lb, eb, "conventional", cfg=Q(0, 3, 0)),
+        S(lines, evs[1], "sparta", cfg=Q(0, 1, 0), num_partitions=32, num_accelerators=2),
+        S(lines, evs[0], "dipta", cfg=Q(8, 1, 16), way_accuracy=0.6, num_accelerators=2),
+        S(lc, ec, "sparta", cfg=Q(8, 3, 16), num_partitions=4, page_shift=21),
+        S(lb, eb, "ideal", cfg=Q.unbounded(), num_accelerators=16),
+    ]
+
+
+def check_timeline_against_plain(torch, lines, cuts) -> int:
+    """K4's three op entry points on the heterogeneous batch: the batched op,
+    the carry op split at ``cuts`` (outputs and carried state) and the
+    single-sim op (kernel B = 1 against the static-parameter oracle)."""
+    from repro_torch.core import timeline as ttl
+    from repro_torch.core.sparta import SystemLatencies, TLBConfig
+    from repro_torch.core.sweep import sweep_system
+    from repro_torch.core.tlbsim import SystemSimConfig
+    from repro_torch.kernels import timeline as tl
+
+    dev = torch.device("cuda")
+    lat = SystemLatencies(n_sockets=8)
+    cache, mem = TLBConfig(256, 4), TLBConfig(128, 4)
+    cfgs = [SystemSimConfig(cache=cache, accel_tlb=TLBConfig(128, 4), mem_tlb=mem),
+            SystemSimConfig(cache=cache, mem_tlb=mem, num_partitions=32),
+            SystemSimConfig(cache=cache, mem_tlb=mem, num_partitions=8),
+            SystemSimConfig(cache=cache, mem_tlb=mem, num_partitions=4, page_shift=21)]
+    evs = sweep_system(lines, cfgs, device=dev)
+    specs = _timeline_check_specs(lines.cpu().numpy(), [evs[i] for i in range(4)])
+    stacked, fp, ip, lens = ttl._prepare(specs, lat, "chip_smoke")
+    cols = [torch.from_numpy(s).to(dev) for s in stacked]
+    n = cols[0].shape[1]
+    shape = {"sims": len(specs), "accesses": n, "lengths": sorted(set(lens)),
+             "envelope": list(tl.envelope_of(ip))}
+    got, want = (tl.timeline_sim_batched(*cols, fp, ip, kernel_mode=m)
+                 for m in ("cuda", "reference"))
+    err = _compare(torch, "timeline_sim_batched", "timeline", got, want, **shape)
+
+    def carry(mode):
+        def step(lo, hi, carried):
+            st = carried or tl.timeline_init_state_batched(
+                len(specs), tl.envelope_of(ip), ip[:, 5], device=dev)
+            return tl.timeline_sim_batched_carry(
+                *(c[:, lo:hi].contiguous() for c in cols), fp, ip, st, kernel_mode=mode)
+        ys, state = _carry_chunks(step, n, cuts)
+        return [torch.cat([y[k] for y in ys], 1) for k in range(3)] + list(state)
+
+    err = max(err, _compare(torch, "timeline_sim_batched_carry", "timeline", carry("cuda"),
+                            carry("reference"), cuts=list(cuts), **shape))
+    i = 1   # SPARTA-32, 16 accelerators, 3 ports per partition TLB
+    inputs, params = ttl._timeline_inputs(
+        specs[i].lines, specs[i].events, specs[i].design, lat, specs[i].cfg,
+        specs[i].num_partitions, specs[i].page_shift, specs[i].num_accelerators,
+        None, "", None)
+    one = [torch.from_numpy(x).to(dev) for x in inputs]
+    got, want = (tl.timeline_sim(*one, params, kernel_mode=m) for m in ("cuda", "reference"))
+    return max(err, _compare(torch, "timeline_sim", "timeline", got, want,
+                             sims=1, accesses=len(inputs[0]), design=specs[i].design))
 
 
 def _scan_passes(torch, sd, stack_scan, set_b, tag_b, block: int, cap: int):
@@ -320,17 +426,138 @@ def _counters() -> dict:
     """Kernel name -> the wrapper module whose ``launches`` counts it."""
     from repro_torch.kernels.stackdist import kernel as k3
     from repro_torch.kernels.system_sim import kernel as k2
+    from repro_torch.kernels.timeline import kernel as k4
     from repro_torch.kernels.tlb_sim import kernel as k1
 
-    return {"tlb_sim": k1, "system_sim": k2, "stackdist": k3}
+    return {"tlb_sim": k1, "system_sim": k2, "stackdist": k3, "timeline": k4}
+
+
+def _f32_digest(x) -> str:
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(x, dtype=np.float32).tobytes()).hexdigest()
+
+
+def _header(lines) -> dict:
+    return {"num_accesses": int(lines.shape[0]),
+            "sha256": hashlib.sha256(lines.tobytes()).hexdigest()}
+
+
+def _close(a: float, b: float) -> bool:
+    return abs(a - b) <= SUMMARY_RTOL * abs(b)
+
+
+def _check_timeline_golden(fig: str, results, entries) -> int:
+    """Mismatches between timeline results and their golden records: the
+    length and the sha256 of each output's f32 bytes exactly, ``summary()``
+    to rtol 1e-12 (numpy float64 reductions)."""
+    bad = 0
+    if len(results) != len(entries):
+        fail(f"{fig}: {len(results)} timeline specs, golden {len(entries)}")
+        return 1
+    for i, (res, entry) in enumerate(zip(results, entries)):
+        got = {"n": int(res.latency.shape[0]),
+               **{k: _f32_digest(getattr(res, k)) for k in ("latency", "overhead", "done")}}
+        for k, v in got.items():
+            if v != entry[k]:
+                fail(f"{fig} spec {i}: {k} differs from golden")
+                bad += 1
+        summary = res.summary()
+        off = [k for k, v in entry["summary"].items() if not _close(summary[k], v)]
+        if off:
+            fail(f"{fig} spec {i}: summary {off} differ from golden")
+            bad += 1
+    return bad
+
+
+def _check_claims(fig: str, claims, golden: dict) -> int:
+    got = {c.name: c.value for c in claims}
+    off = [k for k, v in golden.items() if not _close(got[k], v)]
+    if off:
+        fail(f"{fig}: claims {off} differ from golden ({got} vs {golden})")
+    return len(off)
+
+
+def run_fig11(fig11, golden: dict, before: dict) -> dict:
+    """Full-size Fig 11 on the card against the golden file."""
+    res = fig11.run(device="cuda", verbose=False)
+    after = _launches()
+    bad, k = 0, 0
+    for w, lines in res["lines"].items():
+        if _header(lines) != golden["traces"][w]:
+            fail(f"fig11/{w}: trace differs from the golden trace")
+            bad += 1
+        n = len(golden["timeline"][w])
+        bad += _check_timeline_golden(f"fig11/{w}", res["results"][k:k + n],
+                                      golden["timeline"][w])
+        k += n
+    bad += _check_claims("fig11", res["claims"], golden["claims"])
+    emit("fig11", accesses=res["accesses"], seconds=res["seconds"],
+         total_seconds=sum(res["seconds"].values()), sims=len(res["specs"]),
+         claims=[c.row() for c in res["claims"]], golden_specs=k,
+         golden_mismatches=bad, launches={n: after[n] - before[n] for n in after})
+    return res
+
+
+def run_fig5(fig5, golden: dict, before: dict) -> dict:
+    """Full-size Fig 5 (grid + timeline half) on the card against the golden file."""
+    res = fig5.run(device="cuda", verbose=False)
+    after = _launches()
+    bad, rows = 0, 0
+    for w, per_t in golden["grid"].items():
+        for t, entry in per_t.items():
+            key = f"{w}/t{t}"
+            hits = res["hits"][key]
+            bad += _check_golden(f"fig5/{key}", entry, res["lines"][key],
+                                 {"tlb": _counts(hits.hits, hits.n_warm)})
+            rows += len(entry["tlb"])
+    k = 0
+    for w, entries in golden["timeline"].items():
+        bad += _check_timeline_golden(f"fig5/{w}", res["timeline"][k:k + len(entries)],
+                                      entries)
+        k += len(entries)
+    bad += _check_claims("fig5", res["claims"], golden["claims"])
+    emit("fig5", accesses=res["accesses"], seconds=res["seconds"],
+         total_seconds=sum(res["seconds"].values()),
+         claims=[c.row() for c in res["claims"]], timeline_p99=res["timeline_p99"],
+         golden_rows=rows, golden_specs=k, golden_mismatches=bad,
+         launches={n: after[n] - before[n] for n in after})
+    return res
+
+
+def check_timeline_stream(torch, res11: dict, before: dict) -> None:
+    """``TimelineSweepStream`` over Fig 11's specs in block-multiple chunks
+    equals the monolithic sweep."""
+    import numpy as np
+
+    from repro_torch.core.sparta import SystemLatencies
+    from repro_torch.core.timeline import TimelineSweepStream
+
+    t0 = time.perf_counter()
+    stream = TimelineSweepStream(res11["specs"], SystemLatencies(n_sockets=8),
+                                 block=TL_BLOCK)
+    bounds = list(range(0, stream.n, TL_STREAM_CHUNK)) + [stream.n]
+    parts = [stream.run_chunk(lo, hi) for lo, hi in zip(bounds, bounds[1:])]
+    got = stream.finalize(*(np.concatenate([p[k] for p in parts], 1) for k in range(3)))
+    equal = all(np.array_equal(getattr(g, k), getattr(w, k))
+                for g, w in zip(got, res11["results"]) for k in ("latency", "overhead", "done"))
+    launches = {k: v - before[k] for k, v in _launches().items()}
+    emit("timeline_stream", specs=len(got), chunk=TL_STREAM_CHUNK, chunks=len(parts),
+         groups=len(stream.groups), equal=equal, seconds=time.perf_counter() - t0,
+         launches=launches)
+    if not equal:
+        fail("the chunked timeline stream differs from the monolithic sweep")
+    if not launches["timeline"]:
+        fail("the timeline stream did not launch the timeline kernel")
 
 
 def _launches() -> dict:
     return {name: m.launches for name, m in _counters().items()}
 
 
-def run_main_path(torch, fig10, fig4, trace, golden):
-    """Phases 4-6 with the launch counters set to 0 before and read after."""
+def run_main_path(torch, figs, trace, golden, golden_tl):
+    """Phase 4 with the launch counters set to 0 before and read after."""
+    fig4, fig10 = figs["fig4"], figs["fig10"]
     for m in _counters().values():
         m.launches = 0
     res10 = fig10.run(device="cuda", verbose=False)
@@ -363,6 +590,11 @@ def run_main_path(torch, fig10, fig4, trace, golden):
 
     runs = {"fig10": res10, "fig4": res4}
     check_streams(torch, fig10, fig4, trace, runs, after4)
+    before = _launches()
+    runs["fig11"] = run_fig11(figs["fig11"], golden_tl["fig11"], before)
+    before = _launches()
+    runs["fig5"] = run_fig5(figs["fig5"], golden_tl["fig5"], before)
+    check_timeline_stream(torch, runs["fig11"], _launches())
     total = _launches()
     emit("main_path", launches=total)
     for k, v in total.items():
@@ -484,18 +716,8 @@ def _system_calls(torch, cfgs, lines_list, events_list):
                       for x in padded_tlb_state(len(cfgs), e[0], e[1], e[2], device=dev))
         B, L = streams[0].shape
         nbytes = B * L * (6 * 4 + 1) + 3 * 4 * B + 2 * sum(s.numel() * 4 for s in state)
-        # Compares the result needs: the cache probe where there is a cache,
-        # the accel probe where it runs (every access, or the cache misses of
-        # a virtual cache), the mem probe on cache misses.
-        ops = 0
-        for i, c in enumerate(cfgs):
-            misses = int((~ev.cache_hit[i]).sum())
-            ways = [x[i][1] for x in geos]
-            ops += 2 * ways[0] * L * (c.cache is not None)
-            ops += 2 * ways[1] * (c.accel_tlb is not None) * (
-                misses if c.accel_probe_on_miss_only else L)
-            ops += 2 * ways[2] * misses
-        calls.append(((streams, flags, state, 0), nbytes, ops))
+        calls.append(((streams, flags, state, 0), nbytes,
+                      _system_ops(cfgs, geos, ev.cache_hit)))
     return calls
 
 
@@ -545,10 +767,220 @@ def _outputs(torch, x) -> list:
     return [t for y in x for t in _outputs(torch, y)]
 
 
-def time_kernels(torch, fig10, fig4, trace, errs, launches, runs) -> list:
-    """Phase 7.  Each kernel is timed on the calls the main path gave it; its
-    plain version runs the same calls over a 20,000-access prefix of the
-    same trace, and the kernel's outputs there must equal the plain ones."""
+def _measure(torch, name: str, kernel, plain, calls, prefix_calls, prefix: int) -> dict:
+    """CUDA-event time of ``kernel`` over ``calls`` and over ``prefix_calls``
+    (the same calls cut to their first ``prefix`` accesses), the plain
+    version's host-clock time over ``prefix_calls``, where the outputs must
+    be bit-identical, and the bound of ``calls``.  Each call is ``(args,
+    bytes, operations)``."""
+    ms = _event_ms(torch, lambda: [kernel(*a) for a, _, _ in calls], reps=3)
+    ms_prefix = _event_ms(torch, lambda: [kernel(*a) for a, _, _ in prefix_calls], reps=3)
+    got = [kernel(*a) for a, _, _ in prefix_calls]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = [plain(*a) for a, _, _ in prefix_calls]
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = _compare(torch, f"{name} (main-path calls, first {prefix} accesses)", name,
+                   _outputs(torch, got), _outputs(torch, want), calls=len(prefix_calls))
+    nbytes, ops = sum(c[1] for c in calls), sum(c[2] for c in calls)
+    bound_ms, bound_by = _bound(nbytes, ops)
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "max_abs_err": err, "kernel_launches_timed": len(calls), "bytes": nbytes,
+            "operations": ops, "plain_shape": f"the same calls on the first {prefix} accesses",
+            "ms_at_plain_shape": ms_prefix}
+
+
+def _recorded(module, attr: str, fn) -> list:
+    """The argument tuples of every call of ``module.attr`` while ``fn()``
+    runs (the call itself goes through unchanged)."""
+    real, calls = getattr(module, attr), []
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    setattr(module, attr, record)
+    try:
+        fn()
+    finally:
+        setattr(module, attr, real)
+    return calls
+
+
+def _system_ops(cfgs, geos, cache_hit) -> int:
+    """Compares a K2 call needs: the cache probe where there is a cache, the
+    accel probe where it runs (every access, or the cache misses of a
+    virtual cache), the mem probe on cache misses; ``cache_hit`` bool [B, L]."""
+    L, ops = cache_hit.shape[1], 0
+    for i, c in enumerate(cfgs):
+        misses = int((~cache_hit[i]).sum())
+        ways = [x[i][1] for x in geos]
+        ops += 2 * ways[0] * L * (c.cache is not None)
+        ops += 2 * ways[1] * (c.accel_tlb is not None) * (
+            misses if c.accel_probe_on_miss_only else L)
+        ops += 2 * ways[2] * misses
+    return ops
+
+
+def _system_stream_calls(torch, cfgs, lines, chunk: int, events):
+    """The K2 launches of ``SystemSweepStream`` over ``lines`` in chunks of
+    ``chunk`` accesses, recorded from a run of the stream; ``events`` are the
+    monolithic sweep's hit bits of the same trace (for the compare count)."""
+    from repro_torch.core.sweep import SystemSweepStream, _system_layout
+    from repro_torch.kernels.system_sim import ops as k2ops
+
+    stream = SystemSweepStream(cfgs)
+    args = _recorded(k2ops, "system_sim_carry_cuda", lambda: [
+        stream.run_chunk(lines[i:i + chunk]) for i in range(0, len(lines), chunk)])
+    geos, _ = _system_layout(cfgs)
+    calls = []
+    for inputs, flags, state, now0 in args:
+        B, L = inputs[0].shape
+        nbytes = B * L * (6 * 4 + 1) + 3 * 4 * B + 2 * sum(s.numel() * 4 for s in state)
+        ops = _system_ops(cfgs, geos, events.cache_hit[:, now0:now0 + L])
+        calls.append(((inputs, flags, state, now0), nbytes, ops))
+    return calls
+
+
+def _timeline_call(args):
+    """(args, bytes, operations) of one K4 launch: 44 bytes per (sim,
+    access), the carried state read and written once, the parameter rows;
+    about 36 float32 additions, subtractions and maxima per (sim, access)
+    plus one compare per port column."""
+    cols, fp, ip, state = args
+    B, L = cols[0].shape
+    T = state[3].shape[2]
+    nbytes = B * L * TL_BYTES + 2 * sum(s.numel() * 4 for s in state) + B * 15 * 4
+    return args, nbytes, B * L * (36 + T)
+
+
+def _timeline_prefix(call, prefix: int):
+    (cols, fp, ip, state), _, _ = call
+    return _timeline_call(([c[:, :prefix].contiguous() for c in cols], fp, ip, state))
+
+
+def _timeline_calls(fn) -> list:
+    """The K4 launches ``fn()`` makes, recorded."""
+    from repro_torch.kernels.timeline import ops as k4ops
+
+    return [_timeline_call(a) for a in _recorded(k4ops, "timeline_carry_cuda", fn)]
+
+
+def time_timeline(torch, runs) -> dict:
+    """K4 at each of its main-path call sites (Fig 11, Fig 5, the stream) and
+    at B = 1, one ``timing_site`` line each.  Returns the sites."""
+    from repro_torch.core import timeline as ttl
+    from repro_torch.core.sparta import SystemLatencies
+    from repro_torch.kernels import timeline as tl
+    from repro_torch.kernels.timeline.kernel import timeline_carry_cuda
+    from repro_torch.kernels.timeline.ref import timeline_scan_batched_carry_ref
+
+    lat = SystemLatencies(n_sockets=8)
+    res11, res5 = runs["fig11"], runs["fig5"]
+
+    def plain(cols, fp, ip, state):
+        return timeline_scan_batched_carry_ref(*cols, fp, ip, state)
+
+    def stream_run():
+        stream = ttl.TimelineSweepStream(res11["specs"], lat, block=TL_BLOCK)
+        bounds = list(range(0, stream.n, TL_STREAM_CHUNK)) + [stream.n]
+        for lo, hi in zip(bounds, bounds[1:]):
+            stream.run_chunk(lo, hi)
+
+    sites = {
+        "K4b Fig 11": ("timeline_sim_batched_pallas", "src/repro/kernels/timeline/kernel.py:272",
+                       _timeline_calls(lambda: ttl.sweep_timeline(res11["specs"], lat)),
+                       f"Fig 11: {len(res11['specs'])} sims x up to {res11['cap']} accesses, "
+                       f"one launch"),
+        "K4b Fig 5": ("timeline_sim_batched_pallas", "src/repro/kernels/timeline/kernel.py:272",
+                      _timeline_calls(lambda: ttl.sweep_timeline(res5["timeline_specs"], lat)),
+                      f"Fig 5 timeline half: {len(res5['timeline_specs'])} sims x "
+                      f"{res5['tl_cap']} accesses, one launch"),
+        "K4c stream": ("timeline_sim_batched_pallas_carry",
+                       "src/repro/kernels/timeline/kernel.py:221", _timeline_calls(stream_run),
+                       f"TimelineSweepStream over Fig 11's specs, {TL_STREAM_CHUNK}-access "
+                       f"chunks (plain version: the first chunk)"),
+    }
+    out = {}
+    for site, (fn, replaces, calls, shape) in sites.items():
+        m = _measure(torch, "timeline", timeline_carry_cuda, plain, calls,
+                     [_timeline_prefix(c, TL_PREFIX) for c in calls[:1 if "stream" in site
+                                                                  else None]], TL_PREFIX)
+        out[site] = m
+        emit("timing_site", site=site, kernel="timeline", function=fn, replaces=replaces,
+             shape=shape, **m)
+        del calls
+
+    # K4a: one sim (SPARTA-32, 16 accelerators, bst_external) through the
+    # single-sim op, kernel (B = 1) against the static-parameter oracle that
+    # "auto" would otherwise take: the measurement behind the rule.
+    sp = res11["specs"][2 * len(res11["accels"]) - 1]
+    inputs, params = ttl._timeline_inputs(
+        sp.lines, sp.events, sp.design, lat, sp.cfg, sp.num_partitions, sp.page_shift,
+        sp.num_accelerators, sp.accel_ids, sp.workload, sp.way_accuracy)
+    one = tuple(torch.from_numpy(x).cuda() for x in inputs)
+    n = one[0].shape[0]
+    T = max(params.tlb_ports, 1)
+    state_bytes = 4 * (2 * params.num_accels + params.num_accels * max(params.mshrs, 1)
+                       + params.num_partitions * T + max(params.dram_banks, 1))
+
+    def call(x):
+        m = x[0].shape[0]
+        return x, m * TL_BYTES + 2 * state_bytes + 15 * 4, m * (36 + T)
+
+    m = _measure(torch, "timeline",
+                 lambda *x: tl.timeline_sim(*x, params, kernel_mode="cuda"),
+                 lambda *x: tl.timeline_sim(*x, params, kernel_mode="reference"),
+                 [call(one)], [call(tuple(x[:TL_PREFIX].contiguous() for x in one))], TL_PREFIX)
+    m["plain_over_kernel_at_plain_shape"] = m["plain_ms"] / m["ms_at_plain_shape"]
+    out["K4a B=1"] = m
+    emit("timing_site", site="K4a B=1", kernel="timeline", function="timeline_sim_pallas",
+         replaces="src/repro/kernels/timeline/kernel.py:316",
+         shape=f"timeline_sim: one Fig 11 sim (sparta, 16 accelerators, bst_external), "
+               f"{n} accesses; plain version: the static-parameter oracle", **m)
+    return out
+
+
+def time_sites(torch, figs, trace, runs) -> None:
+    """K1 at B = 1 (``tlb_sim``) and K2 at the stream calls, each on its own."""
+    from repro_torch.kernels.system_sim.kernel import system_sim_carry_cuda
+    from repro_torch.kernels.system_sim.ref import system_sim_batched_carry_ref
+    from repro_torch.kernels.tlb_sim.kernel import tlb_sim_carry_cuda
+    from repro_torch.kernels.tlb_sim.ref import tlb_sim_batched_carry_ref
+
+    skip4 = trace("skip_list", n_ops=40_000).lines
+    spec = figs["fig4"].specs()[9]   # conv-4K, 2048 entries: 512 sets x 4 ways
+
+    def k1a_calls(lines):
+        (set_b, tag_b, tags, last, now0), = _tlb_sweep_calls(torch, [spec], [lines])
+        N, W = set_b.shape[1], tags.shape[2]
+        return [((set_b, tag_b, tags, last, now0), N * 9 + 2 * 2 * tags.numel() * 4, 2 * N * W)]
+
+    m = _measure(torch, "tlb_sim", tlb_sim_carry_cuda, tlb_sim_batched_carry_ref,
+                 k1a_calls(skip4), k1a_calls(skip4[:PREFIX]), PREFIX)
+    emit("timing_site", site="K1a B=1", kernel="tlb_sim", function="tlb_sim_pallas",
+         replaces="src/repro/kernels/tlb_sim/kernel.py:85",
+         shape=f"tlb_sim: one config (conv-4K, 2048 entries, 4 ways), skip_list "
+               f"({skip4.shape[0]} accesses)", **m)
+
+    cfgs = figs["fig10"].system_configs()
+    skip10 = trace("skip_list", n_ops=25_000).lines
+    ev = runs["fig10"]["events"]["skip_list"]
+    m = _measure(torch, "system_sim", system_sim_carry_cuda, system_sim_batched_carry_ref,
+                 _system_stream_calls(torch, cfgs, skip10, STREAM_CHUNK, ev),
+                 _system_stream_calls(torch, cfgs, skip10[:PREFIX], PREFIX, ev), PREFIX)
+    emit("timing_site", site="K2b stream", kernel="system_sim",
+         function="system_sim_batched_pallas_carry",
+         replaces="src/repro/kernels/system_sim/kernel.py:220",
+         shape=f"SystemSweepStream over skip_list ({skip10.shape[0]} accesses) x 9 Fig 10 "
+               f"configs, {STREAM_CHUNK}-access chunks", **m)
+
+
+def time_kernels(torch, figs, trace, errs, launches, runs) -> list:
+    """Phase 5.  Each kernel is timed on the calls the main path gave it; its
+    plain version runs the same calls over a prefix, and the kernel's outputs
+    there must equal the plain ones."""
     from repro_torch.bench.common import W4
     from repro_torch.core.sweep import sweep_system
     from repro_torch.kernels.stackdist.kernel import stack_scan_cuda
@@ -558,7 +990,7 @@ def time_kernels(torch, fig10, fig4, trace, errs, launches, runs) -> list:
     from repro_torch.kernels.tlb_sim.kernel import tlb_sim_carry_cuda
     from repro_torch.kernels.tlb_sim.ref import tlb_sim_batched_carry_ref
 
-    specs, cfgs = fig4.specs(), fig10.system_configs()
+    specs, cfgs = figs["fig4"].specs(), figs["fig10"].system_configs()
     fig4_lines = [trace(w, n_ops=40_000).lines for w in W4]
     fig10_lines = [trace(w, n_ops=25_000).lines for w in W4]
     skip4 = trace("skip_list", n_ops=40_000).lines
@@ -589,34 +1021,37 @@ def time_kernels(torch, fig10, fig4, trace, errs, launches, runs) -> list:
     )
     out = []
     for name, kernel, plain, make_calls, make_prefix, shape, replaces in kernels:
-        calls = make_calls()
-        ms = _event_ms(torch, lambda: [kernel(*a) for a, _, _ in calls], reps=3)
-        prefix_calls = make_prefix()
-        ms_prefix = _event_ms(torch, lambda: [kernel(*a) for a, _, _ in prefix_calls],
-                              reps=3)
-        got = [kernel(*a) for a, _, _ in prefix_calls]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = [plain(*a) for a, _, _ in prefix_calls]
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        err = _compare(torch, f"{name} (main-path calls, first {PREFIX} accesses)", name,
-                       _outputs(torch, got), _outputs(torch, want), calls=len(prefix_calls))
-        nbytes, ops = sum(c[1] for c in calls), sum(c[2] for c in calls)
-        bound_ms, bound_by = _bound(nbytes, ops)
+        m = _measure(torch, name, kernel, plain, make_calls(), make_prefix(), PREFIX)
         row = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
                "replaces": replaces[0], "also_replaces": replaces[1:],
-               "launches": launches[name], "max_abs_err": max(errs[name], err),
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": None,
-               "shape": shape, "kernel_launches_timed": len(calls),
-               "bytes": nbytes, "operations": ops,
-               "plain_shape": f"the same calls on the first {PREFIX} accesses",
-               "ms_at_plain_shape": ms_prefix}
-        del calls, prefix_calls, got, want
+               "launches": launches[name], "library_ms": None, "shape": shape,
+               **m, "max_abs_err": max(errs[name], m["max_abs_err"])}
         emit("timing", **row)
         out.append(row)
+
+    # K4: the row sums its two monolithic main-path sites, Fig 11 and Fig 5.
+    sites = time_timeline(torch, runs)
+    parts = [sites["K4b Fig 11"], sites["K4b Fig 5"]]
+    nbytes, ops = sum(p["bytes"] for p in parts), sum(p["operations"] for p in parts)
+    bound_ms, bound_by = _bound(nbytes, ops)
+    row = {"name": "timeline", "route": "cuda",
+           "source": "src/repro_torch/kernels/timeline/csrc/timeline.cu",
+           "replaces": "src/repro/kernels/timeline/kernel.py:272",
+           "also_replaces": ["src/repro/kernels/timeline/kernel.py:221",
+                             "src/repro/kernels/timeline/kernel.py:316"],
+           "launches": launches["timeline"],
+           "max_abs_err": max([errs["timeline"]] + [s["max_abs_err"] for s in sites.values()]),
+           "ms": sum(p["ms"] for p in parts), "plain_ms": sum(p["plain_ms"] for p in parts),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "shape": "Fig 11 (40 sims x up to 400,000 accesses) and the Fig 5 timeline "
+                    "half (16 sims x 40,000), one launch each",
+           "kernel_launches_timed": 2, "bytes": nbytes, "operations": ops,
+           "plain_shape": f"the same calls on the first {TL_PREFIX} accesses",
+           "ms_at_plain_shape": sum(p["ms_at_plain_shape"] for p in parts)}
+    emit("timing", **row)
+    out.append(row)
+    time_sites(torch, figs, trace, runs)
 
     # Fig 4's specs on K1 in one launch per trace, for comparison with the
     # stack-distance engine that "auto" gives them.

@@ -1,4 +1,4 @@
-"""Carry configuration and LRU state across from the JAX package.
+"""Carry configuration and sweep-stream state across from the JAX package.
 
 The simulator has no weights: what crosses between the two packages is
 configuration (frozen dataclasses, passed as ``dataclasses.asdict`` of the
@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.sparta import SystemLatencies, TLBConfig
+from repro_torch.core.timeline import TimelineConfig
 from repro_torch.core.tlbsim import Device, SystemSimConfig
 from repro_torch.kernels.common import as_device
 
@@ -41,10 +42,16 @@ def latencies_from_fields(fields: dict) -> SystemLatencies:
     return SystemLatencies(**fields)
 
 
+def timeline_config_from_fields(fields: dict) -> TimelineConfig:
+    """The port's :class:`TimelineConfig` from ``asdict`` of the JAX one."""
+    return TimelineConfig(**fields)
+
+
 def stream_state_from_numpy(arrays: dict, device: Device = "cuda") -> dict:
     """A JAX sweep stream's ``export_state()`` dict as tensors on ``device``,
-    the input of the port stream's ``import_state`` (state arrays int32, the
-    access counter ``now`` int64)."""
+    the input of the port stream's ``import_state``.  Every array keeps its
+    dtype (int32 LRU state and MSHR counts, float32 timeline times); the
+    access counter ``now`` is int64."""
     dev = as_device(device)
-    return {k: torch.from_numpy(np.array(v, dtype=np.int64 if k == "now" else np.int32))
+    return {k: torch.from_numpy(np.array(v, dtype=np.int64) if k == "now" else np.array(v))
             .to(dev) for k, v in arrays.items()}

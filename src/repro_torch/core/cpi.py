@@ -29,10 +29,9 @@ dipta         set-associative VM with way prediction: correct prediction
 ideal         zero translation overhead.
 
 Every ``AccessTimes`` here is the exact mean of a per-access composition, so
-the cycle-approximate timeline engine (the JAX package's
-``src/repro/core/timeline.py``, not ported yet) degrades to this module when
-its queueing is disabled; use the timeline engine for latency
-*distributions* and contention in time.
+the cycle-approximate timeline engine (:mod:`repro_torch.core.timeline`)
+degrades to this module when its queueing is disabled; use the timeline
+engine for latency *distributions* and contention in time.
 
 The port's copy of the JAX package's ``src/repro/core/cpi.py``: pure Python
 over :class:`~repro_torch.core.tlbsim.SystemEvents`, whose ratios equal the

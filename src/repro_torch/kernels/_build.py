@@ -43,6 +43,10 @@ SIGNATURES = {
     "system_sim_launch": [c_ptr] * 14 + [c_int] * 9 + [c_ptr],
     # tags, seg, init, depths, final, L, C, W, stream
     "stack_scan_launch": [c_ptr] * 5 + [c_int] * 3 + [c_ptr],
+    # accel, part, bank_d, bank_p, cache_hit, tlb_hit, mem_hit, pen, fparams,
+    # iparams, acc, mshr, cnt, port, bank, lat, ov, done, B, L, A, M, P, T, D,
+    # stream
+    "timeline_launch": [c_ptr] * 18 + [c_int] * 7 + [c_ptr],
     "cuda_error_string": [c_int],
 }
 

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1, K2 and K3 on a card against their plain PyTorch versions
-on the same inputs: hits and carried state bit-identical (tolerance 0).
+"""The CUDA kernels K1, K2, K3 and K4 on a card against their plain PyTorch
+versions on the same inputs: hits, depths, timeline latency / overhead / done
+and carried state bit-identical (tolerance 0).
 
 These tests need a card and skip without one (``-m cuda`` selects them):
 
@@ -136,3 +137,131 @@ def test_sweeps_and_streams_on_card_match_the_cpu():
         tcard = sweep.sweep_tlb(lines, specs, kernel_mode=mode, device=dev)
         assert torch.equal(tcard.hits.cpu(), tcpu.hits), mode
         assert np.array_equal(tcard.miss_ratios, tcpu.miss_ratios)
+
+
+def _timeline_batch(dev, n: int, params):
+    """Seeded per-access columns ([B, n], ids within each sim's own counts)
+    and the packed rows of a heterogeneous batch of sims."""
+    from repro_torch.kernels.timeline import pack_params
+
+    rng = np.random.default_rng(len(params) * n)
+    B = len(params)
+    cols = [np.zeros((B, n), np.int32) for _ in range(7)] + [np.zeros((B, n), np.float32)]
+    for i, p in enumerate(params):
+        for k, hi in enumerate((p.num_accels, p.num_partitions, max(p.dram_banks, 1),
+                                max(p.dram_banks, 1))):
+            cols[k][i] = rng.integers(0, hi, n)
+        for k, frac in zip((4, 5, 6), (0.4, 0.6, 0.7)):
+            cols[k][i] = rng.random(n) < frac
+        if not (p.serial_walk or p.mem_tlb):
+            cols[7][i] = 24.0 * (i % 2)
+    fp = np.stack([pack_params(p)[0] for p in params])
+    ip = np.stack([pack_params(p)[1] for p in params])
+    return [torch.from_numpy(c).to(dev) for c in cols], fp, ip
+
+
+def _timeline_params():
+    from repro_torch.kernels.timeline import TimelineParams as P
+
+    return [P(True, False, 4, 8, 1, 1, 16), P(False, True, 16, 8, 32, 3, 16),
+            P(False, True, 2, 0, 8, 0, 0), P(False, False, 1, 0, 1, 0, 16),
+            P(False, False, 8, 8, 1, 0, 0), P(True, False, 1, 0, 1, 3, 0),
+            P(False, True, 2, 0, 32, 1, 0), P(False, True, 1, 8, 4, 3, 16)]
+
+
+def test_timeline_kernel_matches_plain_on_card():
+    """K4's three op entry points: the batched op, the carry op split at odd
+    points (outputs and state), and the single-sim op against the
+    static-parameter oracle."""
+    from repro_torch.kernels import timeline as tl
+    from repro_torch.kernels.timeline import kernel as k4
+
+    dev = _card()
+    params = _timeline_params()
+    cols, fp, ip = _timeline_batch(dev, 2003, params)
+    n0 = k4.launches
+    got = tl.timeline_sim_batched(*cols, fp, ip, kernel_mode="cuda")
+    assert k4.launches == n0 + 1
+    want = tl.timeline_sim_batched(*cols, fp, ip, kernel_mode="reference")
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+    env = tl.envelope_of(ip)
+    runs = {}
+    for mode in ("cuda", "reference"):
+        st = tl.timeline_init_state_batched(len(params), env, ip[:, 5], device=dev)
+        outs = []
+        for lo, hi in ((0, 701), (701, 1999), (1999, 2003)):
+            ys, st = tl.timeline_sim_batched_carry(
+                *(c[:, lo:hi].contiguous() for c in cols), fp, ip, st, kernel_mode=mode)
+            outs.append(ys)
+        runs[mode] = [torch.cat([o[k] for o in outs], 1) for k in range(3)] + list(st)
+    for x, y in zip(runs["cuda"], runs["reference"]):
+        assert torch.equal(x, y)
+    for x, y in zip(runs["cuda"], want):
+        assert torch.equal(x, y)
+
+    for i in (0, 1, 3):
+        one = [c[i].contiguous() for c in cols]
+        for x, y in zip(tl.timeline_sim(*one, params[i], kernel_mode="cuda"),
+                        tl.timeline_sim(*one, params[i], kernel_mode="reference")):
+            assert torch.equal(x, y)
+
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.timeline_carry_cuda([c[:, ::2] for c in cols], *(
+            torch.from_numpy(x).to(dev) for x in (fp, ip)),
+            tl.timeline_init_state_batched(len(params), env, ip[:, 5], device=dev))
+    bad = [c.clone() for c in cols]
+    bad[2][0, 5] = env[4]
+    with pytest.raises(ValueError, match="bank_data"):
+        tl.timeline_sim_batched(*bad, fp, ip, kernel_mode="cuda")
+    with pytest.raises(ValueError, match="int32"):
+        tl.timeline_sim_batched(cols[0].long(), *cols[1:], fp, ip, kernel_mode="cuda")
+
+
+def test_timeline_kernel_device_memory_state_on_card():
+    """A state envelope above the kernel's 48 KB of shared memory per sim
+    (1,024 partitions x 16 ports) takes its device-memory variant."""
+    from repro_torch.kernels import timeline as tl
+    from repro_torch.kernels.timeline import TimelineParams as P
+
+    dev = _card()
+    params = [P(False, True, 16, 8, 1024, 16, 64), P(False, True, 3, 2, 900, 5, 7),
+              P(True, False, 2, 4, 1, 1, 16)]
+    cols, fp, ip = _timeline_batch(dev, 1500, params)
+    got = tl.timeline_sim_batched(*cols, fp, ip, kernel_mode="cuda")
+    want = tl.timeline_sim_batched(*cols, fp, ip, kernel_mode="reference")
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+def test_timeline_sweeps_on_card_match_the_cpu():
+    from repro_torch.core import timeline as ttl
+    from repro_torch.core.sparta import SystemLatencies
+
+    dev = _card()
+    lat = SystemLatencies()
+    lines = _lines(9, 1800)
+    cfgs = [tlbsim.SystemSimConfig(cache=TLBConfig(256, 4), accel_tlb=TLBConfig(128, 4)),
+            tlbsim.SystemSimConfig(cache=TLBConfig(256, 4), num_partitions=32)]
+    for device in ("cpu", dev):
+        evs = sweep.sweep_system(lines, cfgs, device=device)
+        specs = [ttl.TimelineSpec(lines[:n], tlbsim.SystemEvents(
+                     *(x[:n] for x in evs[k][:3]), n_warm=evs[k].n_warm - (1800 - n)),
+                     d, num_partitions=32 if d == "sparta" else 1, num_accelerators=a)
+                 for n, k, d, a in ((1800, 0, "conventional", 4), (1800, 1, "sparta", 16),
+                                    (1100, 1, "dipta", 2), (1799, 1, "ideal", 1))]
+        res = ttl.sweep_timeline(specs, lat, device=device)
+        stream = ttl.TimelineSweepStream(specs, lat, block=256, device=device)
+        parts = [stream.run_chunk(lo, min(lo + 768, stream.n)) for lo in range(0, 1800, 768)]
+        got = stream.finalize(*(np.concatenate([p[k] for p in parts], 1) for k in range(3)))
+        single = ttl.simulate_timeline(lines, specs[1].events, "sparta", lat,
+                                       num_partitions=32, num_accelerators=16, device=device)
+        if device == "cpu":
+            cpu = (res, got, single)
+            continue
+        for a, b in zip(res + got + [single], cpu[0] + cpu[1] + [cpu[2]]):
+            for k in ("latency", "overhead", "done"):
+                assert np.array_equal(getattr(a, k), getattr(b, k))
