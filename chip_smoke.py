@@ -3,23 +3,26 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the Fig 10 joint-system sweep and the Fig 4 TLB
-sweep, the Fig 11 and Fig 5 timeline figures, all at full figure size, and
-their resumable streams — through the hand-written CUDA kernels K1
-(``tlb_sim``), K2 (``system_sim``), K3 (``stackdist``'s stack scan) and K4
-(``timeline``), and fails (exit code 1, no result line) if anything is
-wrong.  One JSON line per phase:
+Drives the port's two main paths through its hand-written CUDA kernels and
+fails (exit code 1, no result line) if anything is wrong.  The simulator's:
+the Fig 10 joint-system sweep and the Fig 4 TLB sweep, the Fig 11 and Fig 5
+timeline figures, all at full figure size, and their resumable streams,
+through K1 (``tlb_sim``), K2 (``system_sim``), K3 (``stackdist``'s stack
+scan) and K4 (``timeline``).  The serving engine's: qwen3-14b at its
+published width (40 layers, bf16 weights from a seeded generator on the
+card) served by ``SpartaEngine``, through K5 (``flash_attention``, prefill)
+and K6 (``paged_attention``, decode).  One JSON line per phase:
 
 1. ``device``: the card, and its name and power limit from ``nvidia-smi``;
 2. ``build``: the kernels built for ``sm_90a`` from the sources in this
    checkout, with ptxas's register / stack / spill lines;
-3. ``kernel_vs_plain``: each op entry point on the card against its plain
-   PyTorch version on the same inputs (tolerance 0: hits, depths, timeline
-   latency / overhead / done and carried state bit-identical), and
+3. ``kernel_vs_plain``: each simulator op entry point on the card against
+   its plain PyTorch version on the same inputs (tolerance 0: hits, depths,
+   timeline latency / overhead / done and carried state bit-identical), and
    ``engines_agree``: the stack-distance sweep equal to the sequential one;
-4. the main path, with the kernels' launch counters set to 0 before it and
-   read after it (``main_path``): ``fig10`` and ``fig4``, every hit count
-   held against the JAX reference's golden file
+4. the simulator's main path, with the kernels' launch counters set to 0
+   before it and read after it (``main_path``): ``fig10`` and ``fig4``,
+   every hit count held against the JAX reference's golden file
    ``tests/data/torch_golden_sweeps.json``; ``streams``, the chunked LRU
    sweep streams over ``skip_list``, equal to the monolithic sweeps;
    ``fig11`` and ``fig5``, every timeline spec's latency / overhead / done
@@ -33,11 +36,40 @@ wrong.  One JSON line per phase:
    the same calls over a prefix of each call (20,000 accesses; 2,000 for
    K4), where kernel and plain outputs must again be bit-identical; and
    ``timing_site``, the same for single call sites: K1 at B = 1, K2 at the
-   stream calls, K4 at the Fig 11, Fig 5 and stream calls and at B = 1.
+   stream calls, K4 at the Fig 11, Fig 5 and stream calls and at B = 1;
+6. ``kernel_vs_plain`` for K5 and K6 through their op entry points, within
+   2e-5 in float32 and 2e-2 in bfloat16 (the JAX package's tolerances): the
+   JAX test shapes and head dims 64, 128, 160 and 256, ragged prompts,
+   Tq = 1, Tq < Tk, unmapped pages, a context of 0 and contexts that end
+   mid-page;
+7. ``serve_exact``: qwen3-14b's width cut to 2 layers in float32, the same
+   prompts through the engine with the kernels and with the plain versions:
+   the generated tokens must be equal (continuous batching and a fork with
+   copy-on-write included);
+8. ``serve``, the serving main path with every launch counter set to 0
+   just before it and read just after: 8 numpy-seeded prompts of 256-2,048
+   tokens, 32 new tokens each, batch 4, 4 SPARTA partitions x 32 slots of
+   256-token pages (a 10.7 GB float32 pool), then a fork of a finished
+   request.  Every request must finish with its token count, the KV
+   manager's invariants must hold after the run and after the fork, the
+   logits of the first prefill and the first three decode steps must agree
+   with the plain versions' on identical inputs (max difference over the
+   logits' scale, at most 5e-2 in bf16), and K5 must have launched 40 times
+   per prefill and K6 40 times per decode step.  The line has the prefill
+   and decode wall times and tokens per second;
+9. ``timing`` for K5 and K6 at the serving path's shapes: CUDA-event time,
+   the plain version's time on the same calls, the bound (the larger of
+   bytes over 3.35 TB/s and operations over 989 TFLOP/s in bf16 for K5, over
+   67 TFLOP/s in float32 for K6), and for K5 the time of
+   ``torch.nn.functional.scaled_dot_product_attention`` on the same calls,
+   a yardstick only (the port never calls it);
+10. ``profile``: ``torch.profiler`` over a decode step at the run's largest
+   batch and a prefill of its longest prompt: the device's busy time, its
+   idle share of the wall time, and the kernels that take the most.
 
-Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power limit,
-and last ``{"ok": true, "device": {...}}``.  Needs one card; imports nothing
-of JAX or of the JAX package.
+Then the ``{"kernels": [...]}`` line (K1-K6), the ``nvidia-smi`` name and
+power limit, and last ``{"ok": true, "device": {...}}``.  Needs one card;
+imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -62,6 +94,7 @@ TL_STREAM_CHUNK = 97 * TL_BLOCK  # timeline stream chunks: a block multiple
 TL_PREFIX = 2_000              # accesses of K4's plain-version timing prefix
 TL_BYTES = 44                  # K4 bytes per (sim, access): 8 x 4 in, 3 x 4 out
 SUMMARY_RTOL = 1e-12           # timeline summaries: numpy float64 reductions
+SIM_KERNELS = ("tlb_sim", "system_sim", "stackdist", "timeline")
 
 FAILURES = []
 
@@ -106,6 +139,10 @@ def main() -> int:
     figs = {"fig4": fig4, "fig5": fig5, "fig10": fig10, "fig11": fig11}
     launches, runs = run_main_path(torch, figs, trace, golden, golden_tl)
     kernels = time_kernels(torch, figs, trace, errs, launches, runs)
+    del runs
+    torch.cuda.empty_cache()
+
+    kernels += run_serving(torch)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     if FAILURES:
@@ -424,12 +461,15 @@ def _check_golden(fig: str, entry: dict, lines, counts: dict) -> int:
 
 def _counters() -> dict:
     """Kernel name -> the wrapper module whose ``launches`` counts it."""
+    from repro_torch.kernels.flash_attention import kernel as k5
+    from repro_torch.kernels.paged_attention import kernel as k6
     from repro_torch.kernels.stackdist import kernel as k3
     from repro_torch.kernels.system_sim import kernel as k2
     from repro_torch.kernels.timeline import kernel as k4
     from repro_torch.kernels.tlb_sim import kernel as k1
 
-    return {"tlb_sim": k1, "system_sim": k2, "stackdist": k3, "timeline": k4}
+    return {"tlb_sim": k1, "system_sim": k2, "stackdist": k3, "timeline": k4,
+            "flash_attention": k5, "paged_attention": k6}
 
 
 def _f32_digest(x) -> str:
@@ -597,14 +637,14 @@ def run_main_path(torch, figs, trace, golden, golden_tl):
     check_timeline_stream(torch, runs["fig11"], _launches())
     total = _launches()
     emit("main_path", launches=total)
-    for k, v in total.items():
-        if v <= 0:
-            fail(f"the main path launched the {k} kernel {v} times")
+    for k in SIM_KERNELS:
+        if total[k] <= 0:
+            fail(f"the main path launched the {k} kernel {total[k]} times")
     return total, runs
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: chunked streams equal the monolithic sweeps.
+# Phase 4: chunked streams equal the monolithic sweeps.
 # ---------------------------------------------------------------------------
 
 def check_streams(torch, fig10, fig4, trace, runs, before: dict) -> None:
@@ -637,7 +677,7 @@ def check_streams(torch, fig10, fig4, trace, runs, before: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: kernel times, bounds and the plain version's time.
+# Phase 5: kernel times, bounds and the plain version's time.
 # ---------------------------------------------------------------------------
 
 def _event_ms(torch, fn, reps: int) -> float:
@@ -1060,6 +1100,486 @@ def time_kernels(torch, figs, trace, errs, launches, runs) -> list:
          ms=_event_ms(torch, lambda: [tlb_sim_carry_cuda(*a) for a in calls], reps=1),
          shape="Fig 4: 4 traces (4.06 M accesses) x 60 specs, one launch per trace")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 6-10: the serving engine on qwen3-14b through K5 and K6.
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "qwen3-14b"
+SERVE_SEED = 13
+SERVE_REQUESTS = 8
+SERVE_PROMPT_TOKENS = (256, 2048)  # numpy-seeded prompt lengths, inclusive
+SERVE_NEW_TOKENS = 32
+SERVE_FORK_TOKENS = 8
+SERVE_PARTITIONS, SERVE_SLOTS, SERVE_BATCH = 4, 32, 4
+SERVE_CHECKED_DECODES = 3          # decode steps held against the plain versions
+EXACT_LAYERS = 2                   # serve_exact: qwen3-14b's width, 2 layers, float32
+LOGITS_TOL_BF16 = 5e-2             # max |kernel - plain| / max |plain| of bf16 logits
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX package's kernel tolerances
+BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores (data sheet)
+F32_FLOPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores (data sheet)
+
+# (B, Hq, Hkv, Tq, Tk, D, causal, dtype): the JAX test shapes
+# (tests/test_kernels.py), then head dims 64, 128 (qwen3), 160 (stablelm) and
+# 256 (gemma) with ragged prompts, Tq < Tk and Tq = 1.
+FLASH_CHECKS = [
+    (1, 4, 2, 64, 64, 32, True, "float32"),
+    (2, 8, 8, 96, 96, 64, True, "float32"),
+    (1, 4, 1, 33, 80, 64, False, "float32"),
+    (2, 2, 2, 128, 128, 128, True, "bfloat16"),
+    (1, 4, 2, 1, 96, 32, True, "float32"),
+    (1, 8, 2, 77, 77, 64, True, "bfloat16"),
+    (1, 40, 8, 1000, 1000, 128, True, "bfloat16"),
+    (1, 40, 8, 333, 333, 128, True, "float32"),
+    (1, 32, 8, 45, 45, 160, True, "bfloat16"),
+    (2, 16, 16, 50, 50, 256, True, "float32"),
+    (1, 5, 1, 20, 70, 128, True, "float32"),
+    (1, 16, 16, 1, 300, 256, True, "bfloat16"),
+]
+# (B, Hq, Hkv, D, page, pages, slots, q dtype): the JAX test shapes, then
+# qwen3-14b's serving shape and the other dense head dims; every case has
+# unmapped pages inside a context, a sequence of ctx 0 and contexts that
+# end mid-page.
+PAGED_CHECKS = [
+    (2, 8, 2, 64, 16, 4, 32, "float32"),
+    (3, 4, 4, 32, 8, 6, 64, "float32"),
+    (1, 16, 8, 128, 32, 3, 16, "float32"),
+    (4, 40, 8, 128, 256, 9, 40, "bfloat16"),
+    (4, 40, 8, 128, 256, 9, 40, "float32"),
+    (3, 32, 8, 160, 64, 5, 32, "bfloat16"),
+    (2, 16, 16, 256, 16, 4, 32, "float32"),
+    (3, 36, 4, 128, 32, 4, 32, "float32"),
+]
+
+
+def _allclose_err(torch, got, want, tol: float):
+    """(max abs error, every element within atol = rtol = tol) over tensors."""
+    err, ok = 0.0, True
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return float("inf"), False
+        d = (g.double() - w.double()).abs()
+        if d.numel():
+            err = max(err, float(d.max()))
+            ok = ok and bool((d <= tol + tol * w.double().abs()).all())
+    return err, ok
+
+
+def _compare_tol(torch, op: str, kernel: str, got, want, tol: float, **shape) -> float:
+    err, ok = _allclose_err(torch, got, want, tol)
+    emit("kernel_vs_plain", op=op, kernel=kernel, within=ok, max_abs_err=err,
+         tolerance=tol, **shape)
+    if not ok:
+        fail(f"{op}: kernel differs from its plain version beyond {tol} (max abs err {err})")
+    return err
+
+
+def _paged_case(torch, rng, B, Hq, Hkv, D, page, pages, slots, q_dtype):
+    dev = torch.device("cuda")
+    q = torch.from_numpy(rng.standard_normal((B, Hq, D)).astype("float32")).to(
+        dev, getattr(torch, q_dtype))
+    kp, vp = (torch.from_numpy(rng.standard_normal((slots, page, Hkv, D)).astype("float32"))
+              .to(dev) for _ in range(2))
+    tbl = [[-1] * pages for _ in range(B)]
+    ctx = [0] * B
+    for b in range(B):
+        n = int(rng.integers(1, pages + 1))
+        tbl[b][:n] = rng.choice(slots, n, replace=False).tolist()
+        ctx[b] = (n - 1) * page + int(rng.integers(1, page))      # ends mid-page
+        if n > 2 and b % 2:
+            tbl[b][1] = -1                                         # an unmapped page
+    if B > 1:
+        ctx[-1] = 0
+    i32 = dict(dtype=torch.int32, device=dev)
+    return q, kp, vp, torch.tensor(tbl, **i32), torch.tensor(ctx, **i32)
+
+
+def check_attention_against_plain(torch) -> dict:
+    """Phase 6: K5 and K6 through their op entry points on the card against
+    their plain versions on the same inputs."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+
+    dev = torch.device("cuda")
+    errs = {"flash_attention": 0.0, "paged_attention": 0.0}
+    for i, (B, Hq, Hkv, Tq, Tk, D, causal, dt) in enumerate(FLASH_CHECKS):
+        rng = np.random.default_rng(100 + i)
+        q, k, v = (torch.from_numpy(rng.standard_normal(s).astype("float32")).to(
+            dev, getattr(torch, dt)) for s in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D)))
+        got, want = (fa.flash_attention(q, k, v, causal=causal, kernel_mode=m)
+                     for m in ("cuda", "reference"))
+        errs["flash_attention"] = max(errs["flash_attention"], _compare_tol(
+            torch, "flash_attention", "flash_attention", [got.float()], [want.float()],
+            ATTN_TOL[dt], B=B, Hq=Hq, Hkv=Hkv, Tq=Tq, Tk=Tk, D=D, causal=causal, dtype=dt))
+    for i, (B, Hq, Hkv, D, page, pages, slots, dt) in enumerate(PAGED_CHECKS):
+        args = _paged_case(torch, np.random.default_rng(200 + i), B, Hq, Hkv, D, page, pages,
+                           slots, dt)
+        shape = dict(B=B, Hq=Hq, Hkv=Hkv, D=D, page=page, pages=pages, q_dtype=dt,
+                     ctx=args[4].tolist())
+        got, want = (pa.paged_attention_partial(*args, kernel_mode=m)
+                     for m in ("cuda", "reference"))
+        errs["paged_attention"] = max(errs["paged_attention"], _compare_tol(
+            torch, "paged_attention_partial", "paged_attention", list(got), list(want),
+            ATTN_TOL["float32"], **shape))
+        got, want = (pa.paged_attention(*args, kernel_mode=m) for m in ("cuda", "reference"))
+        errs["paged_attention"] = max(errs["paged_attention"], _compare_tol(
+            torch, "paged_attention", "paged_attention", [got.float()], [want.float()],
+            ATTN_TOL[dt], **shape))
+    return errs
+
+
+def _prompts(cfg, lengths, seed: int):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab, int(n)).tolist() for n in lengths]
+
+
+def run_serve_exact(torch) -> None:
+    """Phase 7: qwen3-14b's width cut to 2 layers, float32: the same prompts
+    through SpartaEngine with the kernels and with the plain versions give
+    equal tokens (continuous batching and a fork with copy-on-write)."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import registry
+    from repro_torch.serve.engine import SpartaEngine
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(registry.get_config(SERVE_ARCH), num_layers=EXACT_LAYERS,
+                              dtype="float32")
+    params = models.init(cfg, seed=SERVE_SEED, device="cuda")
+    lengths = (300, 37, 513, 1, 256)             # ragged, one token, a page multiple
+    prompts = _prompts(cfg, lengths, SERVE_SEED)
+    out, launches = {}, {}
+    for mode in ("cuda", "reference"):
+        before = _launches()
+        eng = SpartaEngine(cfg, params, num_partitions=4, slots_per_partition=8, max_batch=2,
+                           kernel_mode=mode)
+        rids = [eng.submit(p, max_new_tokens=8) for p in prompts]
+        eng.run_to_completion()
+        eng.fork_request(rids[0], max_new_tokens=4)
+        eng.run_to_completion()
+        eng.kv.check_invariants()
+        torch.cuda.synchronize()
+        out[mode] = {rid: r.generated for rid, r in eng.finished.items()}
+        launches[mode] = {k: v - before[k] for k, v in _launches().items()
+                          if k in ("flash_attention", "paged_attention")}
+        del eng
+    equal = out["cuda"] == out["reference"]
+    emit("serve_exact", arch=SERVE_ARCH, layers=EXACT_LAYERS, dtype="float32",
+         prompt_tokens=list(lengths), requests=len(out["cuda"]), equal_tokens=equal,
+         tokens={str(k): v for k, v in out["cuda"].items()}, launches=launches,
+         seconds=time.perf_counter() - t0, parameters=cfg.param_count())
+    if not equal:
+        fail("serve_exact: the engine's tokens through K5/K6 differ from the plain versions'")
+    if not (launches["cuda"]["flash_attention"] == EXACT_LAYERS * len(prompts)
+            and launches["cuda"]["paged_attention"] > 0
+            and not any(launches["reference"].values())):
+        fail(f"serve_exact: unexpected kernel launches {launches}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def _rel_err(torch, got, want) -> float:
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def run_serve(torch):
+    """Phase 8, the serving main path: qwen3-14b's full CONFIG (40 layers,
+    bf16 weights, 256-token pages) served by SpartaEngine at its default
+    kernel mode, with every launch counter set to 0 just before and read just
+    after.  The first prefill and the first decode steps are also run through
+    the plain versions on identical inputs (the plain run of a decode step
+    goes first: it writes the new token's KV where the kernel run, which
+    reads the pool before that position, writes it again)."""
+    from repro_torch import models
+    from repro_torch.configs import registry
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import SpartaEngine
+
+    cfg = registry.get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = models.init(cfg, seed=SERVE_SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eng = SpartaEngine(cfg, params, num_partitions=SERVE_PARTITIONS,
+                       slots_per_partition=SERVE_SLOTS, max_batch=SERVE_BATCH)
+    import numpy as np
+
+    lengths = np.random.default_rng(SERVE_SEED).integers(
+        SERVE_PROMPT_TOKENS[0], SERVE_PROMPT_TOKENS[1] + 1, SERVE_REQUESTS)
+    prompts = _prompts(cfg, lengths, SERVE_SEED + 1)
+    rec = {"prefill_s": [], "prefill_T": [], "decode_s": [], "decode_B": [],
+           "decode_calls": [], "checks": []}
+    real_prefill, real_decode = tfm.prefill_with_kv, tfm.decode_step
+
+    def timed(fn, *args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t
+
+    def prefill(params, tokens, cfg, *, kernel_mode):
+        want = None
+        if not rec["prefill_s"]:
+            want = real_prefill(params, tokens, cfg, kernel_mode="reference")[0]
+        res, dt = timed(real_prefill, params, tokens, cfg, kernel_mode=kernel_mode)
+        if want is not None:
+            rec["checks"].append(("prefill", tokens.shape[1], _rel_err(torch, res[0], want)))
+        rec["prefill_s"].append(dt)
+        rec["prefill_T"].append(int(tokens.shape[1]))
+        return res
+
+    def decode(params, tokens, cfg, k_pools, v_pools, table, ctx_len, *, kernel_mode):
+        want = None
+        if len(rec["decode_s"]) < SERVE_CHECKED_DECODES:
+            want = real_decode(params, tokens, cfg, k_pools, v_pools, table, ctx_len,
+                               kernel_mode="reference")[0]
+        res, dt = timed(real_decode, params, tokens, cfg, k_pools, v_pools, table, ctx_len,
+                        kernel_mode=kernel_mode)
+        if want is not None:
+            rec["checks"].append(("decode", int(tokens.shape[0]), _rel_err(torch, res[0], want)))
+        rec["decode_s"].append(dt)
+        rec["decode_B"].append(int(tokens.shape[0]))
+        rec["decode_calls"].append((table.clone(), ctx_len.clone()))
+        return res
+
+    for m in _counters().values():
+        m.launches = 0
+    tfm.prefill_with_kv, tfm.decode_step = prefill, decode
+    try:
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, max_new_tokens=SERVE_NEW_TOKENS) for p in prompts]
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        eng.kv.check_invariants()
+        n_decode_before_fork = len(rec["decode_s"])
+        fork_rid = eng.fork_request(rids[0], max_new_tokens=SERVE_FORK_TOKENS)
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        eng.kv.check_invariants()
+    finally:
+        tfm.prefill_with_kv, tfm.decode_step = real_prefill, real_decode
+    launches = _launches()
+
+    counts = {rid: len(eng.finished[rid].generated) for rid in rids + [fork_rid]}
+    want_counts = {**{rid: SERVE_NEW_TOKENS for rid in rids}, fork_rid: SERVE_FORK_TOKENS}
+    prefill_s, decode_s = sum(rec["prefill_s"]), sum(rec["decode_s"])
+    decode_tokens = sum(rec["decode_B"])
+    worst = max((c[2] for c in rec["checks"]), default=float("inf"))
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    emit("serve", arch=SERVE_ARCH, layers=cfg.num_layers, d_model=cfg.d_model,
+         parameters=cfg.param_count(), weight_gb=weight_bytes / 1e9,
+         kv_pool_gb=2 * eng.k_pool.numel() * 4 / 1e9, page=cfg.kv_page_size,
+         partitions=SERVE_PARTITIONS, slots_per_partition=SERVE_SLOTS, max_batch=SERVE_BATCH,
+         requests=len(rids), prompt_tokens=[int(x) for x in lengths],
+         new_tokens=SERVE_NEW_TOKENS, fork_new_tokens=SERVE_FORK_TOKENS,
+         finished=len(eng.finished), token_counts_ok=counts == want_counts,
+         invariants_after_run=True, invariants_after_fork=True,
+         init_s=init_s, serve_s=serve_s, prefill_s=prefill_s, prefill_calls=len(rec["prefill_s"]),
+         prefill_tok_per_s=sum(rec["prefill_T"]) / prefill_s, decode_s=decode_s,
+         decode_steps=len(rec["decode_s"]), decode_steps_before_fork=n_decode_before_fork,
+         decode_tokens=decode_tokens, decode_tok_per_s=decode_tokens / decode_s,
+         decode_step_ms_mean=decode_s / len(rec["decode_s"]) * 1e3,
+         decode_step_ms_min=min(rec["decode_s"]) * 1e3,
+         weights_read_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+         logits_checks=[{"call": c[0], "size": c[1], "max_rel_err": c[2]} for c in rec["checks"]],
+         logits_tolerance=LOGITS_TOL_BF16,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+    if counts != want_counts:
+        fail(f"serve: token counts {counts}, expected {want_counts}")
+    if len(rec["checks"]) != 1 + SERVE_CHECKED_DECODES or worst > LOGITS_TOL_BF16:
+        fail(f"serve: logits through K5/K6 differ from the plain versions' by {worst} "
+             f"of their scale (tolerance {LOGITS_TOL_BF16})")
+    want_launches = {"flash_attention": cfg.num_layers * len(rec["prefill_s"]),
+                     "paged_attention": cfg.num_layers * len(rec["decode_s"])}
+    for k, n in want_launches.items():
+        if launches[k] != n or n <= 0:
+            fail(f"serve: {k} launched {launches[k]} times, expected {n}")
+    return eng, rec, launches
+
+
+def _flash_bytes_flops(Hq, Hkv, T, D, elem: int = 2):
+    """K5 on one prompt of T tokens: q, k, v read once and o written once;
+    causal QK^T and PV over the T(T+1)/2 visible pairs, 2 FLOPs a MAC."""
+    return (2 * Hq + 2 * Hkv) * T * D * elem, 4 * Hq * D * T * (T + 1) // 2
+
+
+def time_attention(torch, eng, rec, launches, errs) -> list:
+    """Phase 9: K5 and K6 at the main path's shapes, against their plain
+    versions on the same calls, with K5's library yardstick
+    ``scaled_dot_product_attention`` (timed here only; the port never calls
+    it)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    cfg = eng.cfg
+    L, Hq, Hkv, D = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    rows = []
+
+    # K5: every prefill of the run, one call per layer, bf16 inputs.
+    inputs = [tuple(torch.randn(s, generator=gen, device=dev, dtype=torch.bfloat16)
+                    for s in ((1, Hq, T, D), (1, Hkv, T, D), (1, Hkv, T, D)))
+              for T in rec["prefill_T"]]
+    calls = [x for x in inputs for _ in range(L)]
+    nbytes = flops = 0
+    for T in rec["prefill_T"]:
+        b, f = _flash_bytes_flops(Hq, Hkv, T, D)
+        nbytes, flops = nbytes + L * b, flops + L * f
+    err = errs["flash_attention"]
+    for q, k, v in inputs:
+        err = max(err, _compare_tol(torch, "flash_attention (main-path shape)", "flash_attention",
+                                    [flash_attention_cuda(q, k, v).float()],
+                                    [flash_attention_ref(q, k, v).float()], ATTN_TOL["bfloat16"],
+                                    Hq=Hq, Hkv=Hkv, T=q.shape[2], D=D))
+    ms = _event_ms(torch, lambda: [flash_attention_cuda(*c) for c in calls], reps=1)
+    plain_ms = _event_ms(torch, lambda: [flash_attention_ref(*c) for c in calls], reps=1)
+    lib_ms = _event_ms(torch, lambda: [F.scaled_dot_product_attention(
+        *c, is_causal=True, enable_gqa=True) for c in calls], reps=1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:133",
+           "launches": launches["flash_attention"], "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
+           "library": "torch.nn.functional.scaled_dot_product_attention(is_causal=True, "
+                      "enable_gqa=True)",
+           "shape": f"{SERVE_ARCH} prefill: {len(inputs)} prompts of {rec['prefill_T']} tokens "
+                    f"x {L} layers, Hq {Hq}, Hkv {Hkv}, D {D}, bf16, causal",
+           "kernel_launches_timed": len(calls), "bytes": nbytes, "operations": flops,
+           "ms_per_prompt_all_layers": ms / len(inputs),
+           "tflops": flops / ms / 1e9}
+    emit("timing", **row)
+    rows.append(row)
+    del inputs, calls
+
+    # K6: every decode step of the run on every layer's pool, bf16 queries,
+    # the pool as it stood before the step's new token (ctx - 1).
+    qs = {B: torch.randn((B, Hq, D), generator=gen, device=dev, dtype=torch.bfloat16)
+          for B in set(rec["decode_B"])}
+    calls, nbytes, flops = [], 0, 0
+    for table, ctx in rec["decode_calls"]:
+        c1 = (ctx - 1).to(torch.int32)
+        B, tokens = table.shape[0], int(c1.sum())
+        for i in range(L):
+            calls.append((qs[B], eng.k_pool[i], eng.v_pool[i], table, c1))
+        nbytes += L * (2 * tokens * Hkv * D * 4 + B * Hq * D * 2 + table.numel() * 4 + B * 4
+                       + B * Hq * (D + 2) * 4)
+        flops += L * 4 * tokens * Hq * D
+    err = errs["paged_attention"]
+    for c in (calls[0], calls[-1]):
+        err = max(err, _compare_tol(torch, "paged_attention_partial (main-path call)",
+                                    "paged_attention", list(paged_attention_cuda(*c)),
+                                    list(paged_attention_ref(*c, return_residuals=True)),
+                                    ATTN_TOL["float32"], B=c[0].shape[0], ctx=c[4].tolist()))
+    ms = _event_ms(torch, lambda: [paged_attention_cuda(*c) for c in calls], reps=1)
+    plain_ms = _event_ms(torch, lambda: [paged_attention_ref(*c, return_residuals=True)
+                                         for c in calls], reps=1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    steps = len(rec["decode_calls"])
+    row = {"name": "paged_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu",
+           "replaces": "src/repro/kernels/paged_attention/kernel.py:146",
+           "launches": launches["paged_attention"], "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+           "shape": f"{SERVE_ARCH} decode: {steps} steps (batch {min(rec['decode_B'])}-"
+                    f"{max(rec['decode_B'])}) x {L} layers, f32 pool of {cfg.kv_page_size}-token "
+                    f"pages, "
+                    f"bf16 queries",
+           "kernel_launches_timed": len(calls), "bytes": nbytes, "operations": flops,
+           "ms_per_step_all_layers": ms / steps, "gb_per_s": nbytes / ms / 1e6}
+    emit("timing", **row)
+    rows.append(row)
+    return rows
+
+
+PROFILE_STEPS = 3                  # decode steps under torch.profiler
+
+
+def profile_serving(torch, eng, rec) -> None:
+    """Phase 10: where a decode step's and a prefill's time goes, from
+    ``torch.profiler`` (CUPTI) over the run's largest-batch decode step and
+    its longest prompt, after the counted run: the device's busy time (the
+    kernels' summed time; one stream, so they do not overlap), its idle share
+    of the wall time, and the kernels that take the most.  The profiled wall
+    time is longer than the plain one (the tracer's own cost); the idle share
+    is given against both (kernel durations do not change under the
+    tracer)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as tfm
+
+    B = max(rec["decode_B"])
+    table, ctx = next((t, c) for t, c in rec["decode_calls"] if t.shape[0] == B)
+    tokens = torch.zeros(B, dtype=torch.int32, device="cuda")
+    T = max(rec["prefill_T"])
+    prompt = torch.zeros((1, T), dtype=torch.int32, device="cuda")
+    work = {
+        "decode_step": (PROFILE_STEPS, lambda: tfm.decode_step(
+            eng.params, tokens, eng.cfg, eng.k_pool, eng.v_pool, table, ctx)),
+        "prefill": (1, lambda: tfm.prefill_with_kv(eng.params, prompt, eng.cfg)),
+    }
+    for what, (n, fn) in work.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        # Kernel rows only: an operator's row repeats its kernels' device time.
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+        top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+        emit("profile", what=what, batch=B if what == "decode_step" else 1,
+             tokens=int(ctx.sum()) if what == "decode_step" else T, runs=n,
+             wall_ms=wall_ms, wall_ms_profiled=prof_wall_ms, device_busy_ms=busy_ms,
+             device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
+             device_idle_share_profiled=(1 - busy_ms / prof_wall_ms) if busy_ms else None,
+             device_ops_per_run=sum(e.count for e in events) / n,
+             top=[{"name": e.key[:80], "ms": e.self_device_time_total / 1e3 / n,
+                   "calls": e.count / n} for e in top])
+        if not busy_ms:
+            print(f"profile: torch.profiler recorded no device time for {what}",
+                  file=sys.stderr, flush=True)
+
+
+def run_serving(torch) -> list:
+    """Phases 6-10; returns the K5 and K6 rows of the kernels line."""
+    t0 = time.perf_counter()
+    errs = check_attention_against_plain(torch)
+    torch.cuda.empty_cache()
+    run_serve_exact(torch)
+    torch.cuda.reset_peak_memory_stats()
+    eng, rec, launches = run_serve(torch)
+    rows = time_attention(torch, eng, rec, launches, errs)
+    profile_serving(torch, eng, rec)
+    del eng
+    torch.cuda.empty_cache()
+    emit("serving_phases", seconds=time.perf_counter() - t0)
+    return rows
 
 
 if __name__ == "__main__":

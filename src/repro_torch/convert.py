@@ -1,13 +1,15 @@
-"""Carry configuration and sweep-stream state across from the JAX package.
+"""Carry configuration, sweep-stream state and model weights across from the
+JAX package.
 
-The simulator has no weights: what crosses between the two packages is
-configuration (frozen dataclasses, passed as ``dataclasses.asdict`` of the
-JAX objects) and the carried state of a sweep stream (its ``export_state()``
-dict of numpy arrays).  Nothing here imports the JAX package.
+What crosses between the two packages is configuration (frozen dataclasses,
+passed as ``dataclasses.asdict`` of the JAX objects), the carried state of a
+sweep stream (its ``export_state()`` dict of numpy arrays) and a model's
+parameter pytree as numpy arrays (``jax.tree_util.tree_map(np.asarray,
+params)``).  Nothing here imports the JAX package.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,3 +57,55 @@ def stream_state_from_numpy(arrays: dict, device: Device = "cuda") -> dict:
     dev = as_device(device)
     return {k: torch.from_numpy(np.array(v, dtype=np.int64) if k == "now" else np.array(v))
             .to(dev) for k, v in arrays.items()}
+
+
+# -- model parameters ----------------------------------------------------------
+
+def _flatten(tree: dict, prefix: str = "") -> Iterator[Tuple[str, object]]:
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", value
+
+
+def port_param_leaves(tree: dict) -> Iterator[Tuple[str, object]]:
+    """``(port parameter name, (leaf, layer index or None))`` for each leaf
+    of a JAX dense-transformer parameter pytree (nested dicts; leaves are
+    arrays or anything with ``shape``).  The layer leaves, stacked on a
+    leading [L] axis in the JAX package, are split per layer:
+    ``layers/attn/wq[i]`` becomes ``layers.i.attn.wq``."""
+    for name, leaf in _flatten(tree):
+        if name.startswith("layers."):
+            for i in range(leaf.shape[0]):
+                yield f"layers.{i}.{name[len('layers.'):]}", (leaf, i)
+        else:
+            yield name, (leaf, None)
+
+
+def _tensor_of(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    a = np.array(a, order="C")      # a writable copy the tensor owns
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, as JAX hands it to numpy
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_numpy(tree: dict, cfg, device: Device = "cuda"):
+    """The port's parameter module (:class:`repro_torch.models.transformer.
+    Transformer`) holding the JAX parameter pytree ``tree`` of numpy arrays,
+    so both packages compute the same function.  Every leaf must match the
+    port's parameter of the same name in shape and dtype."""
+    from repro_torch.models import transformer
+
+    dev = as_device(device)
+    model = transformer.init(cfg, device="meta")
+    state = {}
+    for name, (leaf, i) in port_param_leaves(tree):
+        state[name] = _tensor_of(np.asarray(leaf if i is None else leaf[i]), dev)
+    want = model.state_dict()
+    for name, t in state.items():
+        if name in want and (t.shape != want[name].shape or t.dtype != want[name].dtype):
+            raise ValueError(f"{name}: {tuple(t.shape)} {t.dtype} does not match the port's "
+                             f"{tuple(want[name].shape)} {want[name].dtype}")
+    model.load_state_dict(state, strict=True, assign=True)
+    return model.requires_grad_(False)

@@ -30,9 +30,10 @@ BUILD_DIR = _PKG.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-c_int, c_ptr = ctypes.c_int, ctypes.c_void_p
+c_int, c_ptr, c_float = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 # name -> argtypes of every C entry point (pointers and the stream as c_void_p,
-# ints as c_int; every entry point returns a cudaError_t as int).
+# ints as c_int, floats as c_float; every entry point returns a cudaError_t
+# as int).
 SIGNATURES = {
     # set, tag, tags, last, hits, B, L, TS, W, now0, stream
     "tlb_sim_launch": [c_ptr, c_ptr, c_ptr, c_ptr, c_ptr,
@@ -47,6 +48,11 @@ SIGNATURES = {
     # iparams, acc, mshr, cnt, port, bank, lat, ov, done, B, L, A, M, P, T, D,
     # stream
     "timeline_launch": [c_ptr] * 18 + [c_int] * 7 + [c_ptr],
+    # q, k, v, o, B, Hq, Hkv, Tq, Tk, D, scale, causal, dtype, stream
+    "flash_attention_launch": [c_ptr] * 4 + [c_int] * 6 + [c_float, c_int, c_int, c_ptr],
+    # q, k_pool, v_pool, table, ctx, acc, m, l, B, Hq, Hkv, D, page, pages,
+    # scale, q_dtype, stream
+    "paged_attention_launch": [c_ptr] * 8 + [c_int] * 6 + [c_float, c_int, c_ptr],
     "cuda_error_string": [c_int],
 }
 

@@ -1,0 +1,87 @@
+"""Attention block: GQA + RoPE + optional qk-norm, the port of
+``src/repro/models/attention.py`` (prefill through K5, decode through K6)."""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models.layers import Device, apply_rope, dense_init, param, rmsnorm
+
+
+class Attention(nn.Module):
+    """``wq``/``wk``/``wv``/``wo`` ([d_in, d_out]) and, with qk-norm,
+    ``q_norm``/``k_norm`` (float32 zeros, the rmsnorm scale)."""
+
+    def __init__(self, gen, cfg: ModelConfig, dtype=torch.float32, device: Device = "cuda"):
+        super().__init__()
+        self.wq = param(dense_init(gen, cfg.d_model, cfg.q_dim, dtype, device))
+        self.wk = param(dense_init(gen, cfg.d_model, cfg.kv_dim, dtype, device))
+        self.wv = param(dense_init(gen, cfg.d_model, cfg.kv_dim, dtype, device))
+        self.wo = param(dense_init(gen, cfg.q_dim, cfg.d_model, dtype, device))
+        if cfg.qk_norm:
+            self.q_norm = param(torch.zeros(cfg.head_dim, dtype=torch.float32, device=device))
+            self.k_norm = param(torch.zeros(cfg.head_dim, dtype=torch.float32, device=device))
+
+
+def attention_params(gen, cfg: ModelConfig, dtype=torch.float32,
+                     device: Device = "cuda") -> Attention:
+    """The attention block's parameters, initialised from ``gen``."""
+    return Attention(gen, cfg, dtype, device)
+
+
+def _project_qkv(
+    p: Attention, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: [B, T, D] -> q [B, T, Hq, hd], k/v [B, T, Hkv, hd]; qk-norm before
+    RoPE, as in the JAX package."""
+    B, T, _ = x.shape
+    q = (x @ p.wq).reshape(B, T, cfg.num_heads, cfg.head_dim)
+    k = (x @ p.wk).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = (x @ p.wv).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p.q_norm)
+        k = rmsnorm(k, p.k_norm)
+    if cfg.rope_theta > 0:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def heads_first(x: torch.Tensor) -> torch.Tensor:
+    """[B, T, H, hd] -> contiguous [B, H, T, hd], the kernels' layout."""
+    return x.transpose(1, 2).contiguous()
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, *,
+           causal: bool, kernel_mode: str) -> torch.Tensor:
+    """q [B, T, Hq, hd], k/v [B, S, Hkv, hd] -> flash attention -> [B, T, q_dim]."""
+    B, T = q.shape[:2]
+    o = flash_attention(heads_first(q), heads_first(k), heads_first(v), causal=causal,
+                        kernel_mode=kernel_mode)                  # [B, Hq, T, hd]
+    return o.transpose(1, 2).reshape(B, T, cfg.q_dim)
+
+
+def attention_forward(
+    p: Attention,
+    x: torch.Tensor,  # [B, T, D]
+    cfg: ModelConfig,
+    *,
+    causal: bool = True,
+    positions: Optional[torch.Tensor] = None,
+    kernel_mode: str = "auto",
+) -> torch.Tensor:
+    """Full-sequence attention (training / prefill)."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    return attend(q, k, v, cfg, causal=causal, kernel_mode=kernel_mode) @ p.wo
+
+
+def finish_decode_attention(p: Attention, merged: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """merged: [B, Hq, hd] -> output projection -> [B, 1, D]."""
+    B = merged.shape[0]
+    return merged.reshape(B, 1, cfg.q_dim).to(p.wo.dtype) @ p.wo

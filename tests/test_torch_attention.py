@@ -1,0 +1,187 @@
+"""The port's attention kernels' plain versions (K5 flash attention, K6 paged
+attention) against the JAX package: its naive oracles, its blocked jnp scan
+and its Pallas kernels run by the interpreter, on the shapes of
+tests/test_kernels.py, within 2e-5 in float32 (2e-2 in bfloat16), the JAX
+package's own tolerances.  Inputs come from numpy seeds."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
+from repro.kernels.paged_attention import merge_partials as jax_merge
+from repro.kernels.paged_attention import paged_attention as jax_paged
+from repro.kernels.paged_attention import paged_attention_partial as jax_paged_partial
+from repro.models.flash_ref import flash_attention_jnp
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import attention_ref, flash_attention_ref
+from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
+from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+F32_TOL, BF16_TOL = 2e-5, 2e-2
+
+# tests/test_kernels.py's flash shapes, plus a ragged GQA prefill and Tq < Tk.
+FLASH_CASES = [
+    (1, 4, 2, 64, 64, 32, True, "float32"),
+    (2, 8, 8, 96, 96, 64, True, "float32"),
+    (1, 4, 1, 33, 80, 64, False, "float32"),
+    (2, 2, 2, 128, 128, 128, True, "bfloat16"),
+    (1, 4, 2, 1, 96, 32, True, "float32"),
+    (1, 10, 2, 37, 37, 24, True, "float32"),
+    (1, 6, 3, 17, 50, 16, True, "float32"),
+]
+
+
+def _qkv(B, Hq, Hkv, Tq, Tk, D, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D))]
+    jx = [jnp.asarray(a, getattr(jnp, dtype)) for a in arrs]
+    tx = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    return jx, tx
+
+
+def _close(got: torch.Tensor, want, tol: float):
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("oracle", ["attention_ref", "pallas_interpret", "jnp_scan"])
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal,dtype", FLASH_CASES)
+def test_flash_plain_matches_jax(B, Hq, Hkv, Tq, Tk, D, causal, dtype, oracle):
+    (jq, jk, jv), (tq, tk, tv) = _qkv(B, Hq, Hkv, Tq, Tk, D, dtype)
+    if oracle == "attention_ref":
+        want = jax_attention_ref(jq, jk, jv, causal=causal)
+    elif oracle == "pallas_interpret":
+        want = jax_flash(jq, jk, jv, causal=causal, block_q=32, block_k=32,
+                         kernel_mode="pallas_interpret")
+    else:
+        want = flash_attention_jnp(jq, jk, jv, causal=causal)
+    got = fa.flash_attention(tq, tk, tv, causal=causal, kernel_mode="reference")
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    _close(got, want, F32_TOL if dtype == "float32" else BF16_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_ref_and_block_sizes_match_jax(causal):
+    (jq, jk, jv), (tq, tk, tv) = _qkv(2, 4, 2, 50, 70, 32, "float32", seed=1)
+    want = jax_attention_ref(jq, jk, jv, causal=causal)
+    _close(attention_ref(tq, tk, tv, causal=causal), want, F32_TOL)
+    for block_k in (16, 33, 512):
+        _close(flash_attention_ref(tq, tk, tv, causal=causal, block_k=block_k), want, F32_TOL)
+    # an explicit scale reaches both
+    _close(flash_attention_ref(tq, tk, tv, causal=causal, sm_scale=0.3),
+           jax_attention_ref(jq, jk, jv, causal=causal, sm_scale=0.3), F32_TOL)
+
+
+def _paged_np(seed, B, Hq, Hkv, D, page, pages, slots, holes=False):
+    """Pools, a table with -1 past each sequence's pages (and, with ``holes``,
+    an unmapped page inside a context and a sequence of ctx 0), contexts that
+    end mid-page."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Hq, D)).astype(np.float32)
+    kp = rng.standard_normal((slots, page, Hkv, D)).astype(np.float32)
+    vp = rng.standard_normal((slots, page, Hkv, D)).astype(np.float32)
+    tbl = np.full((B, pages), -1, np.int32)
+    ctx = np.zeros(B, np.int32)
+    for b in range(B):
+        n = int(rng.integers(1, pages + 1))
+        tbl[b, :n] = rng.choice(slots, n, replace=False)
+        ctx[b] = (n - 1) * page + int(rng.integers(1, page + 1))
+        if holes and n > 2:
+            tbl[b, 1] = -1
+    if holes and B > 1:
+        ctx[-1] = 0
+    return q, kp, vp, tbl, ctx
+
+
+PAGED_CASES = [  # tests/test_kernels.py's shapes, with and without holes
+    (2, 8, 2, 64, 16, 4, 32, False),
+    (3, 4, 4, 32, 8, 6, 64, False),
+    (1, 16, 8, 128, 32, 3, 16, False),
+    (3, 8, 2, 16, 4, 7, 32, True),
+    (4, 10, 2, 24, 8, 5, 40, True),
+]
+
+
+@pytest.mark.parametrize("oracle", ["reference", "pallas_interpret"])
+@pytest.mark.parametrize("B,Hq,Hkv,D,page,pages,slots,holes", PAGED_CASES)
+def test_paged_plain_matches_jax(B, Hq, Hkv, D, page, pages, slots, holes, oracle):
+    arrs = _paged_np(D * page, B, Hq, Hkv, D, page, pages, slots, holes)
+    jargs = [jnp.asarray(a) for a in arrs]
+    targs = [torch.from_numpy(a) for a in arrs]
+    want = jax_paged_partial(*jargs, kernel_mode=oracle)
+    got = pa.paged_attention_partial(*targs, kernel_mode="reference")
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        _close(g, w, F32_TOL)
+    _close(pa.paged_attention(*targs, kernel_mode="reference"),
+           jax_paged(*jargs, kernel_mode=oracle), F32_TOL)
+    if holes:   # ctx 0: the initial residuals, which the hot-tail merge needs
+        assert float(got[1][-1].max()) == float(np.float32(-1e30))
+        assert float(got[2][-1].abs().max()) == 0.0 and float(got[0][-1].abs().max()) == 0.0
+
+
+def test_paged_bf16_query_matches_jax():
+    q, kp, vp, tbl, ctx = _paged_np(5, 3, 8, 2, 32, 8, 4, 16, holes=True)
+    jq = jnp.asarray(q, jnp.bfloat16)
+    want = jax_paged_partial(jq, *(jnp.asarray(a) for a in (kp, vp, tbl, ctx)),
+                             kernel_mode="reference")
+    got = paged_attention_ref(torch.from_numpy(q).bfloat16(),
+                              *(torch.from_numpy(a) for a in (kp, vp, tbl, ctx)),
+                              return_residuals=True)
+    for g, w in zip(got, want):
+        _close(g, w, F32_TOL)
+
+
+@pytest.mark.parametrize("empty", [False, True])
+def test_merge_partials_matches_jax(empty):
+    rng = np.random.default_rng(3)
+    P, B, Hq, D = 3, 2, 4, 16
+    accs = rng.standard_normal((P, B, Hq, D)).astype(np.float32)
+    ms = rng.standard_normal((P, B, Hq)).astype(np.float32)
+    ls = rng.uniform(0.5, 4.0, (P, B, Hq)).astype(np.float32)
+    if empty:   # one partial saw nothing: m = -1e30, l = 0, acc = 0
+        accs[1], ms[1], ls[1] = 0.0, -1e30, 0.0
+    want = jax_merge(jnp.asarray(accs), jnp.asarray(ms), jnp.asarray(ls))
+    got = pa.merge_partials(*(torch.from_numpy(a) for a in (accs, ms, ls)))
+    _close(got, want, F32_TOL)
+
+
+def test_merge_of_split_pages_equals_whole_attention():
+    """Two partials over disjoint halves of the table merge to the one-shot
+    attention (the JAX package's partition property, in the port)."""
+    q, kp, vp, tbl, ctx = (torch.from_numpy(a) for a in _paged_np(9, 2, 4, 2, 32, 8, 4, 16))
+    tbl = torch.from_numpy(np.random.default_rng(9).choice(16, (2, 4), replace=False)
+                           .astype(np.int32))
+    ctx = torch.full((2,), 32, dtype=torch.int32)
+    full = pa.paged_attention(q, kp, vp, tbl, ctx, kernel_mode="reference")
+    parts = []
+    for half in range(2):
+        t = tbl.clone()
+        t[:, half::2] = -1
+        parts.append(pa.paged_attention_partial(q, kp, vp, t, ctx, kernel_mode="reference"))
+    merged = pa.merge_partials(*(torch.stack([p[i] for p in parts]) for i in range(3)))
+    torch.testing.assert_close(merged, full, atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_cuda_mode_raises_on_cpu_tensors_and_wrappers_take_the_plain_version():
+    (_, _, _), (tq, tk, tv) = _qkv(1, 4, 2, 8, 8, 16, "float32")
+    with pytest.raises(ValueError, match="cuda"):
+        fa.flash_attention(tq, tk, tv, kernel_mode="cuda")
+    arrs = [torch.from_numpy(a) for a in _paged_np(1, 2, 4, 2, 16, 4, 3, 8)]
+    with pytest.raises(ValueError, match="cuda"):
+        pa.paged_attention_partial(*arrs, kernel_mode="cuda")
+    with pytest.raises(ValueError, match="cuda"):
+        pa.paged_attention(*arrs, kernel_mode="cuda")
+    with pytest.raises(ValueError, match="kernel_mode"):
+        fa.flash_attention(tq, tk, tv, kernel_mode="pallas")
+    # On CPU tensors the kernel wrappers run the plain versions.
+    torch.testing.assert_close(flash_attention_cuda(tq, tk, tv),
+                               flash_attention_ref(tq, tk, tv), atol=0, rtol=0)
+    for g, w in zip(paged_attention_cuda(*arrs),
+                    paged_attention_ref(*arrs, return_residuals=True)):
+        torch.testing.assert_close(g, w, atol=0, rtol=0)

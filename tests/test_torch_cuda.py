@@ -1,6 +1,9 @@
 """The CUDA kernels K1, K2, K3 and K4 on a card against their plain PyTorch
 versions on the same inputs: hits, depths, timeline latency / overhead / done
-and carried state bit-identical (tolerance 0).
+and carried state bit-identical (tolerance 0).  The attention kernels K5
+(flash attention) and K6 (paged attention) within 2e-5 in float32 and 2e-2
+in bfloat16 (the JAX package's own tolerances, tests/test_kernels.py), and
+the serving engine at its default mode through both.
 
 These tests need a card and skip without one (``-m cuda`` selects them):
 
@@ -265,3 +268,167 @@ def test_timeline_sweeps_on_card_match_the_cpu():
         for a, b in zip(res + got + [single], cpu[0] + cpu[1] + [cpu[2]]):
             for k in ("latency", "overhead", "done"):
                 assert np.array_equal(getattr(a, k), getattr(b, k))
+
+
+# ---------------------------------------------------------------------------
+# K5 and K6: the attention kernels.
+# ---------------------------------------------------------------------------
+
+_ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+# (B, Hq, Hkv, Tq, Tk, D, causal, dtype): the JAX test shapes, then the head
+# dims of qwen3 / starcoder2 (128), stablelm (160) and gemma (256) with
+# ragged lengths, Tq < Tk and Tq = 1.
+_FLASH_CASES = [
+    (1, 4, 2, 64, 64, 32, True, torch.float32),
+    (2, 8, 8, 96, 96, 64, True, torch.float32),
+    (1, 4, 1, 33, 80, 64, False, torch.float32),
+    (2, 2, 2, 128, 128, 128, True, torch.bfloat16),
+    (1, 4, 2, 1, 96, 32, True, torch.float32),
+    (1, 8, 2, 77, 77, 64, True, torch.bfloat16),
+    (1, 10, 2, 130, 130, 128, True, torch.float32),
+    (1, 8, 2, 45, 45, 160, True, torch.bfloat16),
+    (2, 4, 4, 50, 50, 256, True, torch.float32),
+    (1, 5, 1, 20, 70, 128, True, torch.float32),
+    (1, 4, 2, 1, 300, 256, True, torch.bfloat16),
+    (1, 9, 1, 37, 37, 128, False, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal,dtype", _FLASH_CASES)
+def test_flash_attention_kernel_matches_plain_on_card(B, Hq, Hkv, Tq, Tk, D, causal, dtype):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.flash_attention import kernel as k5
+
+    dev = _card()
+    rng = np.random.default_rng(Tq * 1000 + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
+               for s in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D)))
+    n0 = k5.launches
+    got = fa.flash_attention(q, k, v, causal=causal, kernel_mode="cuda")
+    assert k5.launches == n0 + 1
+    want = fa.flash_attention(q, k, v, causal=causal, kernel_mode="reference")
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    tol = _ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _paged_inputs(rng, dev, B, Hq, Hkv, D, page, pages, slots, q_dtype):
+    """Tables with unmapped holes, a sequence with ctx 0 and contexts that end
+    mid-page."""
+    q = torch.from_numpy(rng.standard_normal((B, Hq, D)).astype(np.float32)).to(dev, q_dtype)
+    kp, vp = (torch.from_numpy(rng.standard_normal((slots, page, Hkv, D)).astype(np.float32))
+              .to(dev) for _ in range(2))
+    tbl = np.full((B, pages), -1, np.int32)
+    ctx = np.zeros(B, np.int32)
+    for b in range(B):
+        n = int(rng.integers(1, pages + 1))
+        tbl[b, :n] = rng.choice(slots, n, replace=False)
+        ctx[b] = (n - 1) * page + int(rng.integers(1, page + 1))
+        if n > 2 and b % 2:
+            tbl[b, 1] = -1                       # an unmapped page inside the context
+    ctx[-1] = 0 if B > 1 else ctx[-1]
+    return q, kp, vp, torch.from_numpy(tbl).to(dev), torch.from_numpy(ctx).to(dev)
+
+
+# (B, Hq, Hkv, D, page, pages, slots, q dtype): the JAX test shapes, then
+# qwen3-14b's serving shape and the other dense head dims and groups.
+_PAGED_CASES = [
+    (2, 8, 2, 64, 16, 4, 32, torch.float32),
+    (3, 4, 4, 32, 8, 6, 64, torch.float32),
+    (1, 16, 8, 128, 32, 3, 16, torch.float32),
+    (4, 40, 8, 128, 256, 9, 40, torch.bfloat16),
+    (4, 40, 8, 128, 256, 9, 40, torch.float32),
+    (3, 32, 8, 160, 64, 5, 32, torch.bfloat16),
+    (2, 16, 16, 256, 16, 4, 32, torch.float32),
+    (3, 36, 4, 128, 32, 4, 32, torch.float32),
+    (2, 8, 1, 64, 4, 7, 32, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,D,page,pages,slots,q_dtype", _PAGED_CASES)
+def test_paged_attention_kernel_matches_plain_on_card(B, Hq, Hkv, D, page, pages, slots, q_dtype):
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.paged_attention import kernel as k6
+
+    dev = _card()
+    args = _paged_inputs(np.random.default_rng(D + page), dev, B, Hq, Hkv, D, page, pages,
+                         slots, q_dtype)
+    n0 = k6.launches
+    got = pa.paged_attention_partial(*args, kernel_mode="cuda")
+    assert k6.launches == n0 + 1
+    want = pa.paged_attention_partial(*args, kernel_mode="reference")
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=2e-5)
+    # A sequence with no valid position keeps the initial residuals.
+    if B > 1:
+        assert float(got[1][-1].max()) == float(np.float32(-1e30)) and float(got[2][-1].abs().max()) == 0.0
+    out = pa.paged_attention(*args, kernel_mode="cuda")
+    torch.testing.assert_close(out.float(), pa.paged_attention(*args, kernel_mode="reference")
+                               .float(), atol=_ATTN_TOL[q_dtype], rtol=_ATTN_TOL[q_dtype])
+
+
+def test_attention_kernels_refuse_what_they_do_not_take():
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
+
+    dev = _card()
+    q = torch.zeros((1, 4, 8, 64), device=dev)
+    kv = torch.zeros((1, 2, 8, 64), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q.transpose(2, 3).contiguous().transpose(2, 3), kv, kv)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_cuda(q.half(), kv.half(), kv.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_cuda(q[..., :60].contiguous(), kv[..., :60].contiguous(),
+                             kv[..., :60].contiguous())
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention_cuda(q[:, :3].contiguous(), kv, kv)
+    pool = torch.zeros((4, 8, 2, 64), device=dev)
+    tbl = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    ctx = torch.ones(1, dtype=torch.int32, device=dev)
+    qd = torch.zeros((1, 4, 64), device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        paged_attention_cuda(qd, pool.bfloat16(), pool, tbl, ctx)
+    with pytest.raises(ValueError, match="int32"):
+        paged_attention_cuda(qd, pool, pool, tbl.long(), ctx)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        paged_attention_cuda(torch.zeros((1, 34, 64), device=dev),
+                             torch.zeros((4, 8, 2, 64), device=dev)[:, :, :1].contiguous(),
+                             torch.zeros((4, 8, 1, 64), device=dev), tbl, ctx)
+
+
+def test_engine_default_mode_launches_both_kernels():
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import kernel as k5
+    from repro_torch.kernels.paged_attention import kernel as k6
+    from repro_torch.serve.engine import SpartaEngine
+
+    dev = _card()
+    cfg = dataclasses.replace(registry.get_smoke("qwen3-14b"), kv_page_size=4)
+    params = models.init(cfg, seed=3, device=dev)
+    out = {}
+    for mode in ("auto", "reference"):
+        kw = {} if mode == "auto" else {"kernel_mode": mode}
+        eng = SpartaEngine(cfg, params, num_partitions=2, slots_per_partition=32,
+                           max_batch=2, device=dev, **kw)
+        n5, n6 = k5.launches, k6.launches
+        rids = [eng.submit(p, max_new_tokens=5) for p in ([1, 2, 3, 4, 5], [7, 8, 9], [4] * 9)]
+        eng.run_to_completion()
+        eng.fork_request(rids[0], max_new_tokens=3)
+        steps = 0
+        while eng.step():
+            steps += 1
+        eng.kv.check_invariants()
+        out[mode] = ({r: q.generated for r, q in eng.finished.items()},
+                     k5.launches - n5, k6.launches - n6)
+    tokens, n5, n6 = out["auto"]
+    assert tokens == out["reference"][0]
+    assert n5 == cfg.num_layers * 3 and n6 > 0 and n6 % cfg.num_layers == 0
+    assert out["reference"][1:] == (0, 0)

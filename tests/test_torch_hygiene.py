@@ -74,6 +74,32 @@ def test_default_device_raises_without_a_card():
         fig10.run(n_ops=10, verbose=False)
 
 
+def test_serving_entry_points_default_to_the_card():
+    """``SpartaEngine``, ``models.init`` and ``launch.serve`` left at their
+    default device raise without a card; the serving modules load no JAX."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device is valid")
+    from repro_torch import models
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import SpartaEngine
+
+    cfg = registry.get_smoke("qwen3-14b")
+    params = models.init(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        SpartaEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="cuda"):
+        models.init(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--requests", "1"])
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, repro_torch.launch.serve, repro_torch.serve.engine; "
+         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))"],
+        cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "[]", proc.stdout + proc.stderr
+
+
 def test_benchtime_measures_and_refuses_cpu_metadata():
     from repro_torch.core import benchtime
 
