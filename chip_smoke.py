@@ -3,15 +3,19 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths through its hand-written CUDA kernels and
-fails (exit code 1, no result line) if anything is wrong.  The simulator's:
+Drives the port's three main paths through its hand-written CUDA kernels
+and fails (exit code 1, no result line) if anything is wrong.  The simulator's:
 the Fig 10 joint-system sweep and the Fig 4 TLB sweep, the Fig 11 and Fig 5
 timeline figures, all at full figure size, and their resumable streams,
 through K1 (``tlb_sim``), K2 (``system_sim``), K3 (``stackdist``'s stack
 scan) and K4 (``timeline``).  The serving engine's: qwen3-14b at its
 published width (40 layers, bf16 weights from a seeded generator on the
 card) served by ``SpartaEngine``, through K5 (``flash_attention``, prefill)
-and K6 (``paged_attention``, decode).  One JSON line per phase:
+and K6 (``paged_attention``, decode).  The state-space families': rwkv6-1.6b
+and zamba2-7b at their published widths (bf16 weights from a seeded
+generator), ``make_prefill_step`` and the recurrent decode steps, through K7
+(``rwkv6_scan``), K8 (``mamba2_scan``) and, for zamba2's shared attention,
+K5 and K6.  One JSON line per phase:
 
 1. ``device``: the card, and its name and power limit from ``nvidia-smi``;
 2. ``build``: the kernels built for ``sm_90a`` from the sources in this
@@ -39,7 +43,8 @@ and K6 (``paged_attention``, decode).  One JSON line per phase:
    stream calls, K4 at the Fig 11, Fig 5 and stream calls and at B = 1;
 6. ``kernel_vs_plain`` for K5 and K6 through their op entry points, within
    2e-5 in float32 and 2e-2 in bfloat16 (the JAX package's tolerances): the
-   JAX test shapes and head dims 64, 128, 160 and 256, ragged prompts,
+   JAX test shapes and head dims 64, 128, 160, 256 and 112 (zamba2, group
+   1), ragged prompts,
    Tq = 1, Tq < Tk, unmapped pages, a context of 0 and contexts that end
    mid-page;
 7. ``serve_exact``: qwen3-14b's width cut to 2 layers in float32, the same
@@ -65,9 +70,39 @@ and K6 (``paged_attention``, decode).  One JSON line per phase:
    a yardstick only (the port never calls it);
 10. ``profile``: ``torch.profiler`` over a decode step at the run's largest
    batch and a prefill of its longest prompt: the device's busy time, its
-   idle share of the wall time, and the kernels that take the most.
+   idle share of the wall time, and the kernels that take the most;
+11. ``kernel_vs_plain`` for K7 and K8 through their op entry points, outputs
+   within 5e-4 in float32 (the JAX package's scan tolerance) and 2e-2 in
+   bf16 (one bf16 rounding of the output), final states within 5e-4, all
+   finite: the JAX test shapes, rwkv6's and zamba2's head shapes (zamba2 at
+   its decays, where the TPU kernel gives NaN), T < chunk; and
+   ``scan_chunk_rule``: T % chunk != 0 raises;
+12. ``ssm_exact``: both families at full width in float32, rwkv6 cut to 2
+   layers and zamba2 to 2 groups (6 Mamba2 layers): ``make_prefill_step``
+   through the kernels equals its run through the plain versions, and
+   ``forward`` at every position equals a decode loop from
+   ``init_decode_state``, within 1e-3 of the logits' scale with equal greedy
+   tokens; ``ssm_full_depth``: the same decode-against-prefill check at full
+   depth in float32; ``ssm_bf16``: at 2 layers / 2 groups in bf16, the
+   decode loop's last-position logits within 1.5 times the JAX package's
+   own decode-against-forward gap at that configuration
+   (``tests/ssm_bf16_gap.py``);
+13. ``ssm_serve``, the state-space main path, for each family with every
+   launch counter set to 0 just before and read just after: full width in
+   bf16, ``make_prefill_step`` on 4 prompts of 2,048 tokens (K7 24 times;
+   K8 81 and K5 27 times), the same on 256 (rwkv6) / 128 (zamba2) tokens,
+   and a decode loop over those tokens plus 32 greedy tokens at batch 4
+   (zamba2: 64-token pages in float32 pools [27, 12, 64, 32, 112], K6 27
+   times a step); prefill tokens per second, decode step time, the device's
+   idle share of a decode step (``torch.profiler``), and the bf16 gap
+   between the decode loop's and the prefill's last-position logits
+   (reported: the JAX package's gap at full depth is not read on the CPU);
+14. ``timing`` for K7 and K8 at the long prefill's calls (CUDA events, the
+   plain version on the same calls, the bound: bytes over 3.35 TB/s or the
+   recurrence's own float32 operations over 67 TFLOP/s), and ``timing_site`` for K5 and K6
+   at zamba2's calls.
 
-Then the ``{"kernels": [...]}`` line (K1-K6), the ``nvidia-smi`` name and
+Then the ``{"kernels": [...]}`` line (K1-K8), the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Needs one card;
 imports nothing of JAX or of the JAX package.
 """
@@ -143,6 +178,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     kernels += run_serving(torch)
+    kernels += run_ssm(torch)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     if FAILURES:
@@ -462,14 +498,17 @@ def _check_golden(fig: str, entry: dict, lines, counts: dict) -> int:
 def _counters() -> dict:
     """Kernel name -> the wrapper module whose ``launches`` counts it."""
     from repro_torch.kernels.flash_attention import kernel as k5
+    from repro_torch.kernels.mamba2_scan import kernel as k8
     from repro_torch.kernels.paged_attention import kernel as k6
+    from repro_torch.kernels.rwkv6_scan import kernel as k7
     from repro_torch.kernels.stackdist import kernel as k3
     from repro_torch.kernels.system_sim import kernel as k2
     from repro_torch.kernels.timeline import kernel as k4
     from repro_torch.kernels.tlb_sim import kernel as k1
 
     return {"tlb_sim": k1, "system_sim": k2, "stackdist": k3, "timeline": k4,
-            "flash_attention": k5, "paged_attention": k6}
+            "flash_attention": k5, "paged_attention": k6, "rwkv6_scan": k7,
+            "mamba2_scan": k8}
 
 
 def _f32_digest(x) -> str:
@@ -834,18 +873,27 @@ def _measure(torch, name: str, kernel, plain, calls, prefix_calls, prefix: int) 
 def _recorded(module, attr: str, fn) -> list:
     """The argument tuples of every call of ``module.attr`` while ``fn()``
     runs (the call itself goes through unchanged)."""
-    real, calls = getattr(module, attr), []
-
-    def record(*args):
-        calls.append(args)
-        return real(*args)
-
-    setattr(module, attr, record)
+    calls = []
+    undo = _recording(module, attr, calls)
     try:
         fn()
     finally:
-        setattr(module, attr, real)
-    return calls
+        undo()
+    return [args for args, _ in calls]
+
+
+def _recording(module, attr: str, calls: list):
+    """Wrap ``module.attr`` so that every call's ``(args, kwargs)`` is
+    appended to ``calls`` (the call itself goes through unchanged); returns
+    the function that undoes it."""
+    real = getattr(module, attr)
+
+    def record(*args, **kw):
+        calls.append((args, kw))
+        return real(*args, **kw)
+
+    setattr(module, attr, record)
+    return lambda: setattr(module, attr, real)
 
 
 def _system_ops(cfgs, geos, cache_hit) -> int:
@@ -1121,8 +1169,9 @@ BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores (data shee
 F32_FLOPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores (data sheet)
 
 # (B, Hq, Hkv, Tq, Tk, D, causal, dtype): the JAX test shapes
-# (tests/test_kernels.py), then head dims 64, 128 (qwen3), 160 (stablelm) and
-# 256 (gemma) with ragged prompts, Tq < Tk and Tq = 1.
+# (tests/test_kernels.py), then head dims 64, 128 (qwen3), 160 (stablelm),
+# 256 (gemma) and 112 (zamba2, group 1) with ragged prompts, Tq < Tk and
+# Tq = 1.
 FLASH_CHECKS = [
     (1, 4, 2, 64, 64, 32, True, "float32"),
     (2, 8, 8, 96, 96, 64, True, "float32"),
@@ -1136,9 +1185,12 @@ FLASH_CHECKS = [
     (2, 16, 16, 50, 50, 256, True, "float32"),
     (1, 5, 1, 20, 70, 128, True, "float32"),
     (1, 16, 16, 1, 300, 256, True, "bfloat16"),
+    (1, 32, 32, 1000, 1000, 112, True, "bfloat16"),   # zamba2: head_dim 112, group 1
+    (2, 32, 32, 96, 96, 112, True, "float32"),
 ]
 # (B, Hq, Hkv, D, page, pages, slots, q dtype): the JAX test shapes, then
-# qwen3-14b's serving shape and the other dense head dims; every case has
+# qwen3-14b's serving shape, the other dense head dims and zamba2's shared
+# attention (head_dim 112, group 1, 64-token pages); every case has
 # unmapped pages inside a context, a sequence of ctx 0 and contexts that
 # end mid-page.
 PAGED_CHECKS = [
@@ -1150,6 +1202,8 @@ PAGED_CHECKS = [
     (3, 32, 8, 160, 64, 5, 32, "bfloat16"),
     (2, 16, 16, 256, 16, 4, 32, "float32"),
     (3, 36, 4, 128, 32, 4, 32, "float32"),
+    (4, 32, 32, 112, 64, 5, 32, "bfloat16"),          # zamba2: head_dim 112, group 1
+    (4, 32, 32, 112, 64, 5, 32, "float32"),
 ]
 
 
@@ -1519,9 +1573,6 @@ def profile_serving(torch, eng, rec) -> None:
     time is longer than the plain one (the tracer's own cost); the idle share
     is given against both (kernel durations do not change under the
     tracer)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.models import transformer as tfm
 
     B = max(rec["decode_B"])
@@ -1529,41 +1580,52 @@ def profile_serving(torch, eng, rec) -> None:
     tokens = torch.zeros(B, dtype=torch.int32, device="cuda")
     T = max(rec["prefill_T"])
     prompt = torch.zeros((1, T), dtype=torch.int32, device="cuda")
-    work = {
-        "decode_step": (PROFILE_STEPS, lambda: tfm.decode_step(
-            eng.params, tokens, eng.cfg, eng.k_pool, eng.v_pool, table, ctx)),
-        "prefill": (1, lambda: tfm.prefill_with_kv(eng.params, prompt, eng.cfg)),
-    }
-    for what, (n, fn) in work.items():
+    profile_line(torch, "decode_step", PROFILE_STEPS, lambda: tfm.decode_step(
+        eng.params, tokens, eng.cfg, eng.k_pool, eng.v_pool, table, ctx),
+        batch=B, tokens=int(ctx.sum()))
+    profile_line(torch, "prefill", 1, lambda: tfm.prefill_with_kv(eng.params, prompt, eng.cfg),
+                 batch=1, tokens=T)
+
+
+def profile_line(torch, what: str, n: int, fn, **fields) -> dict:
+    """One ``profile`` line: the wall time of ``fn()`` (mean of ``n`` runs
+    after a warm-up, host clock ending in a synchronise), the same under
+    ``torch.profiler``, the device's busy time (the kernels' summed time; one
+    stream, so they do not overlap), its idle share of both wall times, and
+    the kernels that take the most.  Returns the line's fields."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
         fn()
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / n
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-            prof_wall_ms = (time.perf_counter() - t0) * 1e3 / n
-        # Kernel rows only: an operator's row repeats its kernels' device time.
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-        busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
-        top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
-        emit("profile", what=what, batch=B if what == "decode_step" else 1,
-             tokens=int(ctx.sum()) if what == "decode_step" else T, runs=n,
-             wall_ms=wall_ms, wall_ms_profiled=prof_wall_ms, device_busy_ms=busy_ms,
-             device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
-             device_idle_share_profiled=(1 - busy_ms / prof_wall_ms) if busy_ms else None,
-             device_ops_per_run=sum(e.count for e in events) / n,
-             top=[{"name": e.key[:80], "ms": e.self_device_time_total / 1e3 / n,
-                   "calls": e.count / n} for e in top])
-        if not busy_ms:
-            print(f"profile: torch.profiler recorded no device time for {what}",
-                  file=sys.stderr, flush=True)
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    # Kernel rows only: an operator's row repeats its kernels' device time.
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    line = dict(what=what, **fields, runs=n, wall_ms=wall_ms, wall_ms_profiled=prof_wall_ms,
+                device_busy_ms=busy_ms,
+                device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
+                device_idle_share_profiled=(1 - busy_ms / prof_wall_ms) if busy_ms else None,
+                device_ops_per_run=sum(e.count for e in events) / n,
+                top=[{"name": e.key[:80], "ms": e.self_device_time_total / 1e3 / n,
+                      "calls": e.count / n} for e in top])
+    emit("profile", **line)
+    if not busy_ms:
+        print(f"profile: torch.profiler recorded no device time for {what}",
+              file=sys.stderr, flush=True)
+    return line
 
 
 def run_serving(torch) -> list:
@@ -1581,6 +1643,591 @@ def run_serving(torch) -> list:
     emit("serving_phases", seconds=time.perf_counter() - t0)
     return rows
 
+
+
+# ---------------------------------------------------------------------------
+# Phases 11-14: the state-space families through K7 and K8.
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ("rwkv6-1.6b", "zamba2-7b")
+SSM_SEED = 14
+SCAN_TOL = {"float32": 5e-4, "bfloat16": 2e-2}   # bf16: one output rounding (2^-8)
+SSM_EXACT_LAYERS = {"rwkv6-1.6b": 2, "zamba2-7b": 6}   # rwkv6 2 layers, zamba2 2 groups
+SSM_EXACT_TOKENS = 128
+SSM_EXACT_TOL = 1e-3               # max |a - b| / max |b| of float32 logits
+# ssm_bf16: the bf16 decode loop's last-position logits against the
+# prefill's at ssm_exact's width, depth, batch and prompt length, within 1.5
+# times the largest gap of the JAX package's own decode loop against its
+# forward there (tests/ssm_bf16_gap.py --no-excess-precision on the CPU,
+# weight seeds 0-2 for rwkv6, 0-1 for zamba2: XLA then rounds each op to its
+# dtype, as the port does).
+SSM_BF16_LIMIT = {"rwkv6-1.6b": 1.5 * 0.01429, "zamba2-7b": 1.5 * 0.01474}
+SSM_BATCH, SSM_PREFILL_TOKENS = 4, 2048
+SSM_DECODE_PROMPT = {"rwkv6-1.6b": 256, "zamba2-7b": 128}   # multiples of K7's / K8's chunk
+SSM_NEW_TOKENS = 32
+SSM_PAGE = 64                      # zamba2's shared-attention KV pages
+SSM_KERNELS = {"rwkv6-1.6b": ("rwkv6_scan",), "zamba2-7b": ("mamba2_scan", "flash_attention")}
+
+# (B, H, T, N, chunk, dtype, w range): the JAX test shapes, rwkv6-1.6b's
+# head shape, decays fast enough that the TPU kernel's k exp(-logd) form
+# overflows, and T < chunk.
+RWKV6_CHECKS = [
+    (2, 2, 64, 32, 32, "float32", (0.75, 0.999)),
+    (1, 4, 96, 16, 16, "float32", (0.75, 0.999)),
+    (2, 32, 256, 64, 32, "bfloat16", (0.75, 0.999)),
+    (2, 32, 256, 64, 32, "float32", (1e-3, 0.05)),
+    (1, 4, 20, 64, 32, "float32", (0.75, 0.999)),
+]
+# (B, H, T, P, N, chunk, dtype, zamba2 decays): the JAX test shapes, then
+# zamba2-7b's head shape at its decays (A = -linspace(1, 8, H), dt =
+# softplus(N(0, 0.63^2))), where the TPU kernel gives NaN, and T < chunk.
+MAMBA2_CHECKS = [
+    (2, 2, 64, 32, 16, 32, "float32", False),
+    (1, 4, 96, 16, 32, 16, "float32", False),
+    (2, 112, 256, 64, 64, 64, "bfloat16", True),
+    (2, 112, 256, 64, 64, 64, "float32", True),
+    (1, 8, 40, 64, 64, 64, "float32", True),
+]
+
+
+def _scan_compare(torch, op: str, kernel: str, got, want, dtype: str, **shape) -> float:
+    """Outputs within the dtype's tolerance, states within float32's, all
+    finite; one ``kernel_vs_plain`` line."""
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in got)
+    err_o, ok_o = _allclose_err(torch, [got[0].float()], [want[0].float()], SCAN_TOL[dtype])
+    err_s, ok_s = _allclose_err(torch, [got[1]], [want[1]], SCAN_TOL["float32"])
+    ok = finite and ok_o and ok_s
+    emit("kernel_vs_plain", op=op, kernel=kernel, within=ok, finite=finite,
+         max_abs_err=max(err_o, err_s), max_abs_err_out=err_o, max_abs_err_state=err_s,
+         tolerance=SCAN_TOL[dtype], state_tolerance=SCAN_TOL["float32"], dtype=dtype, **shape)
+    if not ok:
+        fail(f"{op}: kernel differs from its plain version (finite {finite}, out err {err_o}, "
+             f"state err {err_s})")
+    return max(err_o, err_s)
+
+
+def check_scans_against_plain(torch) -> dict:
+    """Phase 11: K7 and K8 through their op entry points on the card against
+    their plain versions on the same inputs, and the chunk rule."""
+    import numpy as np
+
+    from repro_torch.kernels import mamba2_scan as m2
+    from repro_torch.kernels import rwkv6_scan as r6
+
+    dev = torch.device("cuda")
+    errs = {"rwkv6_scan": 0.0, "mamba2_scan": 0.0}
+
+    def t(a, dtype="float32"):
+        return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(dev, getattr(torch, dtype))
+
+    for i, (B, H, T, N, chunk, dt, wr) in enumerate(RWKV6_CHECKS):
+        rng = np.random.default_rng(300 + i)
+        r, k, v = (t(rng.standard_normal((B, H, T, N)) * 0.5, dt) for _ in range(3))
+        w, u = t(rng.uniform(*wr, (B, H, T, N))), t(rng.standard_normal((H, N)) * 0.5)
+        got = r6.rwkv6_scan(r, k, v, w, u, chunk=chunk, kernel_mode="cuda")
+        want = r6.rwkv6_scan(r, k, v, w, u, kernel_mode="reference")
+        errs["rwkv6_scan"] = max(errs["rwkv6_scan"], _scan_compare(
+            torch, "rwkv6_scan", "rwkv6_scan", got, want, dt, B=B, H=H, T=T, N=N, chunk=chunk,
+            w_range=list(wr)))
+    for i, (B, H, T, P, N, chunk, dt, zamba2) in enumerate(MAMBA2_CHECKS):
+        rng = np.random.default_rng(400 + i)
+        x = t(rng.standard_normal((B, H, T, P)) * 0.5, dt)
+        if zamba2:
+            dts = torch.nn.functional.softplus(t(rng.normal(0.0, 0.63, (B, H, T))))
+            A = -torch.linspace(1.0, 8.0, H, device=dev)
+        else:
+            dts, A = t(rng.uniform(0.001, 0.1, (B, H, T))), t(-rng.uniform(0.5, 4.0, H))
+        Bm, C = (t(rng.standard_normal((B, T, N)) * 0.5) for _ in range(2))
+        D = t(rng.standard_normal(H))
+        got = m2.mamba2_scan(x, dts, A, Bm, C, D, chunk=chunk, kernel_mode="cuda")
+        want = m2.mamba2_scan(x, dts, A, Bm, C, D, kernel_mode="reference")
+        errs["mamba2_scan"] = max(errs["mamba2_scan"], _scan_compare(
+            torch, "mamba2_scan", "mamba2_scan", got, want, dt, B=B, H=H, T=T, P=P, N=N, chunk=chunk,
+            zamba2_decays=zamba2))
+    refused = []
+    for name, call in (
+            ("rwkv6_scan", lambda: r6.rwkv6_scan(*(torch.zeros((1, 2, 48, 16), device=dev),) * 3,
+                                                 torch.full((1, 2, 48, 16), 0.5, device=dev),
+                                                 torch.zeros((2, 16), device=dev), chunk=32,
+                                                 kernel_mode="cuda")),
+            ("mamba2_scan", lambda: m2.mamba2_scan(
+                torch.zeros((1, 2, 96, 16), device=dev), torch.full((1, 2, 96), 0.1, device=dev),
+                -torch.ones(2, device=dev), *(torch.zeros((1, 96, 16), device=dev),) * 2,
+                torch.ones(2, device=dev), chunk=64, kernel_mode="cuda"))):
+        try:
+            call()
+        except ValueError:
+            refused.append(name)
+    emit("scan_chunk_rule", refused_T_not_a_multiple_of_chunk=refused)
+    if len(refused) != 2:
+        fail(f"scan_chunk_rule: only {refused} refused T % chunk != 0")
+    return errs
+
+
+def _ssm_cfg(arch: str, **overrides):
+    import dataclasses
+
+    from repro_torch.configs import registry
+
+    cfg = registry.get_config(arch)
+    if cfg.family == "hybrid":
+        overrides.setdefault("kv_page_size", SSM_PAGE)
+    return dataclasses.replace(cfg, **overrides)
+
+
+def _decode_loop(torch, cfg, params, prompts, new_tokens: int, *, keep_all: bool,
+                 step_s=None):
+    """Feed ``prompts`` [B, T] one token at a time through the family's
+    ``decode_step`` from ``init_decode_state`` (zamba2: paged pools and a
+    shuffled block table), then ``new_tokens`` greedy tokens.  Returns (the
+    logits at every prompt position [B, T, V] when ``keep_all``, else at the
+    last, float32; the greedy tokens [B, new_tokens]; the pools or None).
+    ``step_s`` collects each step's host time, ending in a synchronise."""
+    import numpy as np
+
+    from repro_torch import models
+
+    mod = models.get_family_module(cfg)
+    dev = torch.device("cuda")
+    B, T = prompts.shape
+    state = mod.init_decode_state(cfg, B, device=dev)
+    pools = None
+    if cfg.family == "hybrid":
+        G, _ = mod.group_dims(cfg)
+        pages = -(-(T + new_tokens) // cfg.kv_page_size)
+        shape = (G, B * pages, cfg.kv_page_size, cfg.num_kv_heads, cfg.head_dim)
+        pools = (torch.zeros(shape, device=dev), torch.zeros(shape, device=dev))
+        table = torch.from_numpy(np.random.default_rng(SSM_SEED).permutation(B * pages)
+                                 .reshape(B, pages).astype(np.int32)).to(dev)
+    logits, gen, tok = [], [], None
+    for t in range(T + new_tokens):
+        tok = prompts[:, t] if t < T else gen[-1]
+        if step_s is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        if pools is None:
+            lg, state = mod.decode_step(params, tok, cfg, state)
+        else:
+            ctx = torch.full((B,), t + 1, dtype=torch.int32, device=dev)
+            lg, state, _, _ = mod.decode_step(params, tok, cfg, state, *pools, table, ctx)
+        if step_s is not None:
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        if keep_all and t < T or t == T - 1:
+            logits.append(lg.float())
+        if t >= T - 1:
+            gen.append(lg.argmax(-1).to(torch.int32))
+    out = torch.stack(logits, 1) if keep_all else logits[-1]
+    return out, torch.stack(gen[:new_tokens], 1) if new_tokens else None, (pools, state)
+
+
+def _family_launches(torch, before: dict) -> dict:
+    return {k: v - before[k] for k, v in _launches().items()
+            if k in ("rwkv6_scan", "mamba2_scan", "flash_attention", "paged_attention")}
+
+
+def run_ssm_exact(torch) -> None:
+    """Phase 12: both families at full width, cut in depth, float32:
+    ``make_prefill_step`` through the kernels equals its run through the
+    plain versions, and ``forward``'s logits at every position equal a
+    decode loop from ``init_decode_state`` over the same tokens (JAX's own
+    decode-consistency property), both within 1e-3 of the logits' scale
+    with equal greedy tokens."""
+    from repro_torch import models
+    from repro_torch.train.train_step import make_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # float32 products in full float32
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in SSM_ARCHS:
+        t0 = time.perf_counter()
+        cfg = _ssm_cfg(arch, num_layers=SSM_EXACT_LAYERS[arch], dtype="float32")
+        params = models.init(cfg, seed=SSM_SEED, device="cuda")
+        prompts = torch.tensor(_prompts(cfg, [SSM_EXACT_TOKENS] * 2, SSM_SEED),
+                               dtype=torch.int32, device="cuda")
+        batch = {"tokens": prompts}
+        before = _launches()
+        kern = make_prefill_step(cfg)(params, batch)
+        l_kern = _family_launches(torch, before)
+        before = _launches()
+        plain = make_prefill_step(cfg, kernel_mode="reference")(params, batch)
+        l_plain = _family_launches(torch, before)
+        full = models.forward(params, batch, cfg)[0].float()
+        dec, _, _ = _decode_loop(torch, cfg, params, prompts, 0, keep_all=True)
+        torch.cuda.synchronize()
+        prefill_err = _rel_err(torch, kern, plain)
+        decode_err = _rel_err(torch, dec, full)
+        prefill_tokens_equal = torch.equal(kern.argmax(-1), plain.argmax(-1))
+        decode_tokens_equal = torch.equal(dec.argmax(-1), full.argmax(-1))
+        want = {k: 0 for k in l_kern}
+        if cfg.family == "ssm":
+            want["rwkv6_scan"] = cfg.num_layers
+        else:
+            G = cfg.num_layers // cfg.hybrid_period
+            want.update(mamba2_scan=cfg.num_layers, flash_attention=G)
+        emit("ssm_exact", arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+             dtype="float32", prompts=2, prompt_tokens=SSM_EXACT_TOKENS,
+             prefill_max_rel_err=prefill_err, decode_vs_forward_max_rel_err=decode_err,
+             tolerance=SSM_EXACT_TOL, prefill_tokens_equal=prefill_tokens_equal,
+             decode_tokens_equal=decode_tokens_equal, launches_kernels=l_kern,
+             launches_plain=l_plain, seconds=time.perf_counter() - t0,
+             parameters=sum(p.numel() for p in params.parameters()))
+        if not (prefill_err <= SSM_EXACT_TOL and decode_err <= SSM_EXACT_TOL
+                and prefill_tokens_equal and decode_tokens_equal):
+            fail(f"ssm_exact {arch}: prefill err {prefill_err}, decode err {decode_err}, "
+                 f"tokens equal {prefill_tokens_equal}/{decode_tokens_equal}")
+        if l_kern != want or any(l_plain.values()):
+            fail(f"ssm_exact {arch}: launches {l_kern} (expected {want}), plain {l_plain}")
+        del params, full, dec
+        torch.cuda.empty_cache()
+
+
+def run_ssm_full_depth(torch) -> None:
+    """Phase 12b: both families at full width and full depth in float32: the
+    decode loop's logits at the last prompt position equal
+    ``make_prefill_step``'s (through the kernels) within 1e-3 of their scale,
+    with the same greedy token.  This is where the decode path is held to
+    the prefill at full depth.  In bf16 it is held to it at ``ssm_exact``'s
+    depth (phase 12c), where the JAX package's own gap is read on the CPU
+    (``tests/ssm_bf16_gap.py``); phase 13 reports the full-depth bf16 gap."""
+    from repro_torch import models
+    from repro_torch.train.train_step import make_prefill_step
+
+    for arch in SSM_ARCHS:
+        t0 = time.perf_counter()
+        cfg = _ssm_cfg(arch, dtype="float32")
+        params = models.init(cfg, seed=SSM_SEED, device="cuda")
+        prompts = torch.tensor(_prompts(cfg, [SSM_EXACT_TOKENS] * 2, SSM_SEED + 2),
+                               dtype=torch.int32, device="cuda")
+        want = make_prefill_step(cfg)(params, {"tokens": prompts}).float()
+        last, _, _ = _decode_loop(torch, cfg, params, prompts, 0, keep_all=False)
+        torch.cuda.synchronize()
+        rel = _rel_err(torch, last, want)
+        equal = torch.equal(last.argmax(-1), want.argmax(-1))
+        emit("ssm_full_depth", arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+             dtype="float32", prompts=2, prompt_tokens=SSM_EXACT_TOKENS,
+             decode_vs_prefill_max_rel_err=rel, tolerance=SSM_EXACT_TOL,
+             greedy_tokens_equal=equal, seconds=time.perf_counter() - t0,
+             peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        if rel > SSM_EXACT_TOL or not equal:
+            fail(f"ssm_full_depth {arch}: decode logits differ from the prefill's by {rel} "
+                 f"of their scale (tolerance {SSM_EXACT_TOL}), tokens equal {equal}")
+        del params
+        torch.cuda.empty_cache()
+
+
+def run_ssm_bf16(torch) -> None:
+    """Phase 12c: both families at ``ssm_exact``'s width and depth in bf16,
+    their serving dtype: the decode loop's logits at the last prompt
+    position against ``make_prefill_step``'s (through the kernels), finite
+    and within ``SSM_BF16_LIMIT`` of their scale, 1.5 times the JAX
+    package's own gap at the same configuration."""
+    from repro_torch import models
+    from repro_torch.train.train_step import make_prefill_step
+
+    for arch in SSM_ARCHS:
+        t0 = time.perf_counter()
+        cfg = _ssm_cfg(arch, num_layers=SSM_EXACT_LAYERS[arch])
+        params = models.init(cfg, seed=SSM_SEED, device="cuda")
+        prompts = torch.tensor(_prompts(cfg, [SSM_EXACT_TOKENS] * 2, SSM_SEED),
+                               dtype=torch.int32, device="cuda")
+        want = make_prefill_step(cfg)(params, {"tokens": prompts}).float()
+        last, _, _ = _decode_loop(torch, cfg, params, prompts, 0, keep_all=False)
+        torch.cuda.synchronize()
+        rel = _rel_err(torch, last, want)
+        finite = bool(torch.isfinite(last).all()) and bool(torch.isfinite(want).all())
+        limit = SSM_BF16_LIMIT[arch]
+        emit("ssm_bf16", arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+             dtype=cfg.dtype, prompts=2, prompt_tokens=SSM_EXACT_TOKENS,
+             decode_vs_prefill_max_rel_err=rel, tolerance=limit, finite=finite,
+             greedy_tokens_equal=torch.equal(last.argmax(-1), want.argmax(-1)),
+             seconds=time.perf_counter() - t0)
+        if not finite or rel > limit:
+            fail(f"ssm_bf16 {arch}: decode logits differ from the prefill's by {rel} of "
+                 f"their scale (limit {limit}), finite {finite}")
+        del params
+        torch.cuda.empty_cache()
+
+
+def run_ssm_serve(torch, arch: str) -> dict:
+    """Phase 13 for one family, the main path at full width in bf16 with
+    every launch counter set to 0 just before and read just after:
+    ``make_prefill_step`` on 4 numpy-seeded prompts of 2,048 tokens, then
+    the same step on the first 256 (rwkv6) / 128 (zamba2) tokens of each and
+    a decode loop over those tokens from ``init_decode_state`` plus 32
+    greedy tokens at batch 4.  The decode loop's logits at the last prompt
+    position must be finite; their gap to the short prefill's is reported
+    (phase 12b holds the two paths together at full depth in float32, phase
+    12c in bf16 at the depth where the JAX package's gap is known).  The
+    kernels' calls of the long prefill and the decode loop are recorded for
+    the timing phase."""
+    from repro_torch import models
+    from repro_torch.kernels.flash_attention import ops as k5ops
+    from repro_torch.kernels.mamba2_scan import ops as k8ops
+    from repro_torch.kernels.paged_attention import ops as k6ops
+    from repro_torch.kernels.rwkv6_scan import ops as k7ops
+    from repro_torch.train.train_step import make_prefill_step
+
+    cfg = _ssm_cfg(arch)
+    t0 = time.perf_counter()
+    params = models.init(cfg, seed=SSM_SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.tensor(_prompts(cfg, [SSM_PREFILL_TOKENS] * SSM_BATCH, SSM_SEED + 1),
+                           dtype=torch.int32, device="cuda")
+    T_dec = SSM_DECODE_PROMPT[arch]
+    short = prompts[:, :T_dec].contiguous()
+    step = make_prefill_step(cfg)
+    calls = {"rwkv6_scan": [], "mamba2_scan": [], "flash_attention": [], "paged_attention": []}
+    torch.cuda.reset_peak_memory_stats()
+
+    for m in _counters().values():
+        m.launches = 0
+    undo = [_recording(k7ops, "rwkv6_scan_cuda", calls["rwkv6_scan"]),
+            _recording(k8ops, "mamba2_scan_cuda", calls["mamba2_scan"]),
+            _recording(k5ops, "flash_attention_cuda", calls["flash_attention"])]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    finally:
+        for u in undo:
+            u()
+    l_prefill = _launches()
+    want_last = step(params, {"tokens": short})
+    l_short = _family_launches(torch, l_prefill)
+    before = _launches()
+    step_s = []
+    undo = _recording(k6ops, "paged_attention_cuda", calls["paged_attention"])
+    try:
+        last, gen, (pools, _) = _decode_loop(torch, cfg, params, short, SSM_NEW_TOKENS,
+                                             keep_all=False, step_s=step_s)
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    l_decode = _family_launches(torch, before)
+    launches = _launches()
+
+    rel = _rel_err(torch, last, want_last)
+    l_prefill = {k: v for k, v in l_prefill.items() if k in l_short}
+    n_steps = len(step_s)
+    G = cfg.num_layers // max(cfg.hybrid_period, 1)
+    if cfg.family == "ssm":
+        want_prefill = dict(rwkv6_scan=cfg.num_layers, mamba2_scan=0, flash_attention=0,
+                            paged_attention=0)
+        want_decode = {k: 0 for k in want_prefill}
+    else:
+        want_prefill = dict(rwkv6_scan=0, mamba2_scan=cfg.num_layers, flash_attention=G,
+                            paged_attention=0)
+        want_decode = dict(rwkv6_scan=0, mamba2_scan=0, flash_attention=0,
+                           paged_attention=G * n_steps)
+    mod = models.get_family_module(cfg)
+    prof_tokens = gen[:, -1].contiguous()
+    if pools is None:
+        state = mod.init_decode_state(cfg, SSM_BATCH, device="cuda")
+        prof = profile_line(torch, f"{arch} decode_step", PROFILE_STEPS,
+                            lambda: mod.decode_step(params, prof_tokens, cfg, state),
+                            batch=SSM_BATCH, tokens=SSM_BATCH)
+    else:
+        state = mod.init_decode_state(cfg, SSM_BATCH, device="cuda")
+        table = torch.arange(pools[0].shape[1], dtype=torch.int32, device="cuda").reshape(
+            SSM_BATCH, -1)
+        ctx = torch.full((SSM_BATCH,), T_dec + SSM_NEW_TOKENS, dtype=torch.int32, device="cuda")
+        prof = profile_line(torch, f"{arch} decode_step", PROFILE_STEPS,
+                            lambda: mod.decode_step(params, prof_tokens, cfg, state, *pools,
+                                                    table, ctx),
+                            batch=SSM_BATCH, tokens=int(ctx.sum()))
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    emit("ssm_serve", arch=arch, family=cfg.family, layers=cfg.num_layers,
+         d_model=cfg.d_model, dtype=cfg.dtype,
+         parameters=sum(p.numel() for p in params.parameters()),
+         weight_gb=weight_bytes / 1e9, init_s=init_s,
+         prefill_batch=SSM_BATCH, prefill_tokens=SSM_PREFILL_TOKENS, prefill_s=prefill_s,
+         prefill_tok_per_s=SSM_BATCH * SSM_PREFILL_TOKENS / prefill_s,
+         decode_batch=SSM_BATCH, decode_prompt_tokens=T_dec, new_tokens=SSM_NEW_TOKENS,
+         decode_steps=n_steps, decode_s=sum(step_s),
+         decode_step_ms_mean=sum(step_s) / n_steps * 1e3, decode_step_ms_min=min(step_s) * 1e3,
+         decode_tok_per_s=SSM_BATCH * n_steps / sum(step_s),
+         kv_page=cfg.kv_page_size if pools else None,
+         kv_pool_gb=2 * pools[0].numel() * 4 / 1e9 if pools else None,
+         kv_pool_shape=list(pools[0].shape) if pools else None,
+         weights_read_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+         decode_vs_prefill_max_rel_err_bf16=rel,
+         greedy_tokens=gen[0].tolist(),
+         decode_step_device_idle_share=prof["device_idle_share"],
+         decode_step_device_busy_ms=prof["device_busy_ms"],
+         launches_prefill=l_prefill, launches_short_prefill=l_short,
+         launches_decode=l_decode, launches=launches,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if not (bool(torch.isfinite(last).all()) and bool(torch.isfinite(want_last).all())):
+        fail(f"ssm_serve {arch}: non-finite logits")
+    for what, got, want in (("prefill", l_prefill, want_prefill),
+                            ("short prefill", l_short, want_prefill),
+                            ("decode", l_decode, want_decode)):
+        if got != want:
+            fail(f"ssm_serve {arch}: {what} launches {got}, expected {want}")
+    for k in SSM_KERNELS[arch]:
+        if launches[k] <= 0:
+            fail(f"ssm_serve {arch}: the main path launched {k} {launches[k]} times")
+    del params, pools
+    return {"calls": calls, "launches": launches, "cfg": cfg}
+
+
+def _scan_work(kind: str, B: int, H: int, T: int, N: int, P: int, esize: int):
+    """(bytes, operations) of one scan call: each input read once, the output
+    and the final state written once; the operations the recurrence itself
+    needs per token and head (``ref.py``), whatever form computes it.  K7:
+    o = r S + (r . u k) v and S = diag(w) S + k v^T, 5 N^2 + 5 N (w is an
+    input, no exponential).  K8: S = exp(A dt) S + (dt B) x^T and
+    y = C S + D x, 5 N P + N + 2 P, plus A dt and its exponential."""
+    if kind == "rwkv6_scan":       # r, k, v, o in esize; w f32; u; S [N, N]
+        nbytes = 4 * B * H * T * N * esize + B * H * T * N * 4 + H * N * 4 + B * H * N * N * 4
+        ops = B * H * T * (5 * N * N + 5 * N)
+    else:                          # x, y in esize; dt; Bm, C; S [N, P]
+        nbytes = (2 * B * H * T * P * esize + B * H * T * 4 + 2 * B * T * N * 4 + 2 * H * 4
+                  + B * H * N * P * 4)
+        ops = B * H * T * (5 * N * P + N + 2 * P + 2)
+    return nbytes, ops
+
+
+def _once_ms(torch, fn) -> float:
+    """Milliseconds of one run of ``fn()``, CUDA events."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def time_scans(torch, serve: dict, errs: dict) -> list:
+    """Phase 14: K7 and K8 at the long prefill's calls (CUDA events, every
+    call), their plain versions on the same calls, the bound; then K5 and K6
+    at zamba2's prefill and decode calls as ``timing_site`` lines.  No single
+    PyTorch call computes a scan, so the scans have no library time."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.mamba2_scan.kernel import mamba2_scan_cuda
+    from repro_torch.kernels.mamba2_scan.ref import mamba2_scan_ref
+    from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
+
+    rows = []
+    specs = (("rwkv6_scan", "rwkv6-1.6b", rwkv6_scan_cuda, rwkv6_scan_ref,
+              "src/repro/kernels/rwkv6_scan/kernel.py:112"),
+             ("mamba2_scan", "zamba2-7b", mamba2_scan_cuda, mamba2_scan_ref,
+              "src/repro/kernels/mamba2_scan/kernel.py:99"))
+    for name, arch, kernel, plain, replaces in specs:
+        calls = serve[arch]["calls"][name]
+        nbytes = ops = 0
+        for args, kw in calls:
+            x = args[0]
+            B, H, T, P = x.shape
+            N = args[3].shape[-1] if name == "mamba2_scan" else P
+            b, o = _scan_work(name, B, H, T, N, P, x.element_size())
+            nbytes, ops = nbytes + b, ops + o
+        err = errs[name]
+        for args, kw in (calls[0], calls[-1]):
+            dt = "bfloat16" if args[0].dtype == torch.bfloat16 else "float32"
+            err = max(err, _scan_compare(torch, f"{name} (main-path call)", name,
+                                         kernel(*args, **kw), plain(*args), dt,
+                                         shape=list(args[0].shape)))
+        ms = _event_ms(torch, lambda: [kernel(*a, **kw) for a, kw in calls], reps=1)
+        plain_ms = _once_ms(torch, lambda: [plain(*a) for a, kw in calls])
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
+        cfg = serve[arch]["cfg"]
+        row = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
+               "replaces": replaces, "launches": serve[arch]["launches"][name],
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+               "shape": f"{arch} prefill: {SSM_BATCH} prompts of {SSM_PREFILL_TOKENS} tokens, "
+                        f"{len(calls)} calls (one per layer), {list(calls[0][0][0].shape)} "
+                        f"{calls[0][0][0].dtype}, chunk {calls[0][1].get('chunk')}",
+               "kernel_launches_timed": len(calls), "bytes": nbytes, "operations": ops,
+               "ms_per_call": ms / len(calls), "plain_shape": "the same calls in full",
+               "gflops_per_s": ops / ms / 1e6, "layers": cfg.num_layers}
+        emit("timing", **row)
+        rows.append(row)
+        del calls
+
+    # K5 and K6 at zamba2's shared-attention calls.
+    calls = serve["zamba2-7b"]["calls"]
+    k5 = calls["flash_attention"]
+    nbytes = flops = 0
+    for (q, k, v), _ in k5:
+        b, f = _flash_bytes_flops(q.shape[1], k.shape[1], q.shape[2], q.shape[3])
+        nbytes, flops = nbytes + q.shape[0] * b, flops + q.shape[0] * f
+    q, k, v = k5[0][0]
+    err = _compare_tol(torch, "flash_attention (zamba2 prefill call)", "flash_attention",
+                       [flash_attention_cuda(q, k, v, **k5[0][1]).float()],
+                       [flash_attention_ref(q, k, v, **k5[0][1]).float()],
+                       ATTN_TOL["bfloat16"], shape=list(q.shape))
+    ms = _event_ms(torch, lambda: [flash_attention_cuda(*a, **kw) for a, kw in k5], reps=1)
+    plain_ms = _once_ms(torch, lambda: [flash_attention_ref(*a, **kw) for a, kw in k5])
+    lib_ms = _event_ms(torch, lambda: [F.scaled_dot_product_attention(
+        *a, is_causal=True, enable_gqa=True) for a, _ in k5], reps=1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    emit("timing_site", site="K5 zamba2 prefill", kernel="flash_attention",
+         function="flash_attention_pallas",
+         replaces="src/repro/kernels/flash_attention/kernel.py:133",
+         shape=f"zamba2-7b prefill: {len(k5)} calls {list(q.shape)} bf16, causal, group 1",
+         launches=len(k5), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+         bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+         library_ms=lib_ms, bytes=nbytes, operations=flops, tflops=flops / ms / 1e9)
+    k6 = calls["paged_attention"]
+    nbytes = flops = 0
+    for (q, kp, vp, table, ctx), _ in k6:
+        B, Hq, D = q.shape
+        Hkv, tokens = kp.shape[2], int(ctx.sum())
+        nbytes += (2 * tokens * Hkv * D * 4 + B * Hq * D * q.element_size() + table.numel() * 4
+                   + B * 4 + B * Hq * (D + 2) * 4)
+        flops += 4 * tokens * Hq * D
+    err = 0.0
+    for a, kw in (k6[len(k6) // 2], k6[-1]):
+        err = max(err, _compare_tol(torch, "paged_attention_partial (zamba2 decode call)",
+                                    "paged_attention", list(paged_attention_cuda(*a, **kw)),
+                                    list(paged_attention_ref(*a, return_residuals=True, **kw)),
+                                    ATTN_TOL["float32"], ctx=a[4].tolist()))
+    ms = _event_ms(torch, lambda: [paged_attention_cuda(*a, **kw) for a, kw in k6], reps=1)
+    plain_ms = _once_ms(torch, lambda: [paged_attention_ref(*a, return_residuals=True, **kw)
+                                        for a, kw in k6])
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    emit("timing_site", site="K6 zamba2 decode", kernel="paged_attention",
+         function="paged_attention_pallas",
+         replaces="src/repro/kernels/paged_attention/kernel.py:146",
+         shape=f"zamba2-7b decode: {len(k6)} calls (27 per step), batch {SSM_BATCH}, "
+               f"{SSM_PAGE}-token f32 pages, head_dim 112, group 1, bf16 queries",
+         launches=len(k6), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+         bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+         library_ms=None, bytes=nbytes, operations=flops)
+    return rows
+
+
+def run_ssm(torch) -> list:
+    """Phases 11-14 (12b and 12c included); returns the K7 and K8 rows of the kernels
+    line."""
+    t0 = time.perf_counter()
+    errs = check_scans_against_plain(torch)
+    run_ssm_exact(torch)
+    run_ssm_full_depth(torch)
+    run_ssm_bf16(torch)
+    serve = {}
+    for arch in SSM_ARCHS:
+        serve[arch] = run_ssm_serve(torch, arch)
+        torch.cuda.empty_cache()
+    rows = time_scans(torch, serve, errs)
+    del serve
+    torch.cuda.empty_cache()
+    emit("ssm_phases", seconds=time.perf_counter() - t0)
+    return rows
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -3,9 +3,10 @@ JAX package.
 
 What crosses between the two packages is configuration (frozen dataclasses,
 passed as ``dataclasses.asdict`` of the JAX objects), the carried state of a
-sweep stream (its ``export_state()`` dict of numpy arrays) and a model's
+sweep stream (its ``export_state()`` dict of numpy arrays), a model's
 parameter pytree as numpy arrays (``jax.tree_util.tree_map(np.asarray,
-params)``).  Nothing here imports the JAX package.
+params)``) and a recurrent model's decode state the same way.  Nothing here
+imports the JAX package.
 """
 from __future__ import annotations
 
@@ -70,15 +71,20 @@ def _flatten(tree: dict, prefix: str = "") -> Iterator[Tuple[str, object]]:
 
 
 def port_param_leaves(tree: dict) -> Iterator[Tuple[str, object]]:
-    """``(port parameter name, (leaf, layer index or None))`` for each leaf
-    of a JAX dense-transformer parameter pytree (nested dicts; leaves are
-    arrays or anything with ``shape``).  The layer leaves, stacked on a
-    leading [L] axis in the JAX package, are split per layer:
-    ``layers/attn/wq[i]`` becomes ``layers.i.attn.wq``."""
+    """``(port parameter name, (leaf, index or None))`` for each leaf of a
+    JAX parameter pytree (nested dicts; leaves are arrays or anything with
+    ``shape``).  The leaves the JAX package stacks are split: ``layers/...``
+    on a leading [L] axis (dense, rwkv6) becomes ``layers.i....`` with index
+    i, and zamba2's ``mamba/...`` on [G, per] becomes ``mamba.g.j....`` with
+    index (g, j)."""
     for name, leaf in _flatten(tree):
         if name.startswith("layers."):
             for i in range(leaf.shape[0]):
                 yield f"layers.{i}.{name[len('layers.'):]}", (leaf, i)
+        elif name.startswith("mamba."):
+            for g in range(leaf.shape[0]):
+                for j in range(leaf.shape[1]):
+                    yield f"mamba.{g}.{j}.{name[len('mamba.'):]}", (leaf, (g, j))
         else:
             yield name, (leaf, None)
 
@@ -91,14 +97,14 @@ def _tensor_of(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: dict, cfg, device: Device = "cuda"):
-    """The port's parameter module (:class:`repro_torch.models.transformer.
-    Transformer`) holding the JAX parameter pytree ``tree`` of numpy arrays,
-    so both packages compute the same function.  Every leaf must match the
+    """The port's parameter module of ``cfg``'s family (dense, ssm or
+    hybrid) holding the JAX parameter pytree ``tree`` of numpy arrays, so
+    both packages compute the same function.  Every leaf must match the
     port's parameter of the same name in shape and dtype."""
-    from repro_torch.models import transformer
+    from repro_torch import models
 
     dev = as_device(device)
-    model = transformer.init(cfg, device="meta")
+    model = models.init(cfg, device="meta")
     state = {}
     for name, (leaf, i) in port_param_leaves(tree):
         state[name] = _tensor_of(np.asarray(leaf if i is None else leaf[i]), dev)
@@ -109,3 +115,27 @@ def params_from_numpy(tree: dict, cfg, device: Device = "cuda"):
                              f"{tuple(want[name].shape)} {want[name].dtype}")
     model.load_state_dict(state, strict=True, assign=True)
     return model.requires_grad_(False)
+
+
+def decode_state_from_numpy(tree: dict, cfg, device: Device = "cuda") -> dict:
+    """A JAX recurrent decode state (``init_decode_state`` / ``decode_step``
+    of rwkv6 or zamba2, as a dict of numpy arrays) as the port's state dict
+    on ``device``, every array's dtype kept.  Each leaf must have the shape
+    and dtype of the port's ``init_decode_state`` for ``cfg`` at the same
+    batch."""
+    from repro_torch import models
+
+    dev = as_device(device)
+    if cfg.family not in ("ssm", "hybrid"):
+        raise ValueError(f"{cfg.name} ({cfg.family}) keeps no recurrent decode state")
+    state = {k: _tensor_of(np.asarray(v), dev) for k, v in tree.items()}
+    batch = state["wkv" if cfg.family == "ssm" else "ssm"].shape[
+        1 if cfg.family == "ssm" else 2]
+    want = models.get_family_module(cfg).init_decode_state(cfg, batch, device="meta")
+    if sorted(state) != sorted(want):
+        raise ValueError(f"decode state keys {sorted(state)}, expected {sorted(want)}")
+    for k, t in state.items():
+        if t.shape != want[k].shape or t.dtype != want[k].dtype:
+            raise ValueError(f"{k}: {tuple(t.shape)} {t.dtype} does not match the port's "
+                             f"{tuple(want[k].shape)} {want[k].dtype}")
+    return state

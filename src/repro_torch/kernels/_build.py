@@ -53,6 +53,10 @@ SIGNATURES = {
     # q, k_pool, v_pool, table, ctx, acc, m, l, B, Hq, Hkv, D, page, pages,
     # scale, q_dtype, stream
     "paged_attention_launch": [c_ptr] * 8 + [c_int] * 6 + [c_float, c_int, c_ptr],
+    # r, k, v, w, u, o, s, B, H, T, N, chunk, dtype, stream
+    "rwkv6_scan_launch": [c_ptr] * 7 + [c_int] * 6 + [c_ptr],
+    # x, dt, A, Bm, C, D, y, s, B, H, T, P, N, chunk, dtype, stream
+    "mamba2_scan_launch": [c_ptr] * 8 + [c_int] * 7 + [c_ptr],
     "cuda_error_string": [c_int],
 }
 

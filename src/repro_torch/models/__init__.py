@@ -1,7 +1,9 @@
-"""Model zoo, the port of ``src/repro/models/__init__.py``: family dispatch.
+"""Model zoo, the port of ``src/repro/models/__init__.py``: family dispatch
+for init and forward.
 
-Only the dense family is ported (the decoder-only transformer of
-:mod:`repro_torch.models.transformer`); every other family raises
+Ported families: ``dense`` (:mod:`repro_torch.models.transformer`), ``ssm``
+(:mod:`repro_torch.models.rwkv6`) and ``hybrid``
+(:mod:`repro_torch.models.zamba2`); every other family raises
 ``NotImplementedError`` naming its roadmap item.
 """
 from __future__ import annotations
@@ -10,8 +12,6 @@ from repro_torch.configs.base import ModelConfig
 
 _NOT_PORTED = {
     "moe": "ROADMAP.md, section 1, item 9.2 (moe.py)",
-    "hybrid": "ROADMAP.md, section 1, item 9.3 (mamba2.py, zamba2.py, kernel K8)",
-    "ssm": "ROADMAP.md, section 1, item 9.4 (rwkv6.py, kernel K7)",
     "encdec": "ROADMAP.md, section 1, item 9.5 (whisper.py)",
     "vlm": "ROADMAP.md, section 1, item 9.5 (vlm.py)",
 }
@@ -21,6 +21,12 @@ def get_family_module(cfg: ModelConfig):
     if cfg.family == "dense":
         from repro_torch.models import transformer
         return transformer
+    if cfg.family == "ssm":
+        from repro_torch.models import rwkv6
+        return rwkv6
+    if cfg.family == "hybrid":
+        from repro_torch.models import zamba2
+        return zamba2
     where = _NOT_PORTED.get(cfg.family, "no roadmap item")
     raise NotImplementedError(f"model family {cfg.family!r} ({cfg.name}) is not ported "
                               f"yet: {where}")
@@ -28,3 +34,14 @@ def get_family_module(cfg: ModelConfig):
 
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
     return get_family_module(cfg).init(cfg, seed=seed, device=device)
+
+
+def forward(params, batch: dict, cfg: ModelConfig, **kw):
+    """batch: a dict with ``tokens`` [B, T] (every ported family takes
+    tokens); returns (logits, aux)."""
+    return get_family_module(cfg).forward(params, batch["tokens"], cfg, **kw)
+
+
+def forward_hidden(params, batch: dict, cfg: ModelConfig, **kw):
+    """(final-normed hidden, unembedding matrix, aux)."""
+    return get_family_module(cfg).forward_hidden(params, batch["tokens"], cfg, **kw)

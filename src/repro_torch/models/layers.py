@@ -27,6 +27,16 @@ def param(x: torch.Tensor) -> nn.Parameter:
 
 # -- initialisers -----------------------------------------------------------
 
+def generator(device: torch.device, seed: int) -> Optional[torch.Generator]:
+    """A ``torch.Generator`` seeded with ``seed`` on ``device`` (None on
+    ``meta``, where nothing is drawn)."""
+    if device.type == "meta":
+        return None
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return gen
+
+
 def _normal(gen: Optional[torch.Generator], shape, device: Device) -> torch.Tensor:
     device = torch.device(device)
     if device.type == "meta":

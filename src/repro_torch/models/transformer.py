@@ -10,7 +10,8 @@ package's sharding constraints are identities off a mesh and are left out;
 decode is single-device (one SPARTA partition, no cross-partition merge).
 
 Entry points:
-* :func:`forward`          — full-sequence logits.
+* :func:`forward` / :func:`forward_hidden` — full-sequence logits / the
+  final hidden states with the unembedding matrix.
 * :func:`prefill_with_kv`  — prefill (attention through K5) that also emits
   page-layout KV.
 * :func:`decode_block` / :func:`decode_step` — single-token decode against a
@@ -30,7 +31,8 @@ from repro_torch.kernels.common import as_device
 from repro_torch.kernels.paged_attention import merge_partials, paged_attention_partial
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
-    MLP, Device, Norm, apply_norm, dense_init, dtype_of, embed_init, mlp_forward, param,
+    MLP, Device, Norm, apply_norm, dense_init, dtype_of, embed_init, generator, mlp_forward,
+    param,
 )
 
 MOE_NOT_PORTED = ("the MoE layers are not ported yet (ROADMAP.md, section 1, "
@@ -64,11 +66,7 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: Device = "cuda") -> Transfo
     """Random parameters from a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (on ``meta`` nothing is allocated)."""
     dev = as_device(device)
-    gen = None
-    if dev.type != "meta":
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
-    return Transformer(cfg, gen, dev)
+    return Transformer(cfg, generator(dev, seed), dev)
 
 
 def _block(cfg: ModelConfig, kernel_mode: str, x: torch.Tensor, lp: Layer) -> torch.Tensor:
@@ -106,6 +104,14 @@ def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
     """Returns (logits [B, T, V], aux loss 0 — the dense family has none)."""
     x = backbone(params, embed_tokens(params, cfg, tokens), cfg, kernel_mode=kernel_mode)
     return unembed(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward_hidden(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
+                   kernel_mode: str = "auto"):
+    """(final-normed hidden [B, T, D], unembedding matrix [D, V], aux loss 0)."""
+    x = backbone(params, embed_tokens(params, cfg, tokens), cfg, kernel_mode=kernel_mode)
+    return (apply_norm(params.final_norm, x, cfg.norm), head_matrix(params, cfg),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 # ---------------------------------------------------------------------------

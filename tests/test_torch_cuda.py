@@ -3,7 +3,11 @@ versions on the same inputs: hits, depths, timeline latency / overhead / done
 and carried state bit-identical (tolerance 0).  The attention kernels K5
 (flash attention) and K6 (paged attention) within 2e-5 in float32 and 2e-2
 in bfloat16 (the JAX package's own tolerances, tests/test_kernels.py), and
-the serving engine at its default mode through both.
+the serving engine at its default mode through both.  The state-space scans
+K7 (rwkv6) and K8 (mamba2) within 5e-4 in float32 (the JAX package's scan
+tolerance) and 2e-2 for bfloat16 outputs (one bfloat16 rounding, 2^-8 of
+the value, after float32 sums taken in another order), zamba2's decays
+included, and both state-space models at their default mode through them.
 
 These tests need a card and skip without one (``-m cuda`` selects them):
 
@@ -11,6 +15,8 @@ These tests need a card and skip without one (``-m cuda`` selects them):
 
 They import nothing of JAX, so they run on a machine without it.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -292,6 +298,8 @@ _FLASH_CASES = [
     (1, 5, 1, 20, 70, 128, True, torch.float32),
     (1, 4, 2, 1, 300, 256, True, torch.bfloat16),
     (1, 9, 1, 37, 37, 128, False, torch.bfloat16),
+    (1, 32, 32, 200, 200, 112, True, torch.bfloat16),     # zamba2: head_dim 112, group 1
+    (2, 8, 8, 96, 96, 112, True, torch.float32),
 ]
 
 
@@ -344,6 +352,8 @@ _PAGED_CASES = [
     (2, 16, 16, 256, 16, 4, 32, torch.float32),
     (3, 36, 4, 128, 32, 4, 32, torch.float32),
     (2, 8, 1, 64, 4, 7, 32, torch.bfloat16),
+    (4, 32, 32, 112, 64, 5, 32, torch.bfloat16),          # zamba2: head_dim 112, group 1
+    (4, 32, 32, 112, 64, 5, 32, torch.float32),
 ]
 
 
@@ -432,3 +442,161 @@ def test_engine_default_mode_launches_both_kernels():
     assert tokens == out["reference"][0]
     assert n5 == cfg.num_layers * 3 and n6 > 0 and n6 % cfg.num_layers == 0
     assert out["reference"][1:] == (0, 0)
+
+
+_SCAN_TOL = {torch.float32: 5e-4, torch.bfloat16: 2e-2}
+
+
+def _close(got, want, tol):
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+# (B, H, T, N, chunk, dtype, w range): the JAX test shapes, rwkv6-1.6b's head
+# shape, T < chunk, and decays fast enough that the TPU kernel's
+# k exp(-logd) form would overflow (w in [1e-3, 0.05] over 32 tokens).
+_RWKV6_CASES = [
+    (2, 2, 64, 32, 32, torch.float32, (0.75, 0.999)),
+    (1, 4, 96, 16, 16, torch.float32, (0.75, 0.999)),
+    (2, 32, 256, 64, 32, torch.bfloat16, (0.75, 0.999)),
+    (1, 2, 20, 16, 32, torch.float32, (0.75, 0.999)),
+    (2, 4, 64, 64, 32, torch.float32, (1e-3, 0.05)),
+]
+
+
+@pytest.mark.parametrize("B,H,T,N,chunk,dtype,wr", _RWKV6_CASES)
+def test_rwkv6_scan_kernel_matches_plain_on_card(B, H, T, N, chunk, dtype, wr):
+    from repro_torch.kernels import rwkv6_scan as k7ops
+    from repro_torch.kernels.rwkv6_scan import kernel as k7
+
+    dev = _card()
+    rng = np.random.default_rng(T * 100 + N)
+    r, k, v = (torch.from_numpy(rng.standard_normal((B, H, T, N)).astype(np.float32) * 0.5)
+               .to(dev, dtype) for _ in range(3))
+    w = torch.from_numpy(rng.uniform(*wr, (B, H, T, N)).astype(np.float32)).to(dev)
+    u = torch.from_numpy(rng.standard_normal((H, N)).astype(np.float32) * 0.5).to(dev)
+    n0 = k7.launches
+    o, s = k7ops.rwkv6_scan(r, k, v, w, u, chunk=chunk, kernel_mode="cuda")
+    assert k7.launches == n0 + 1
+    o_ref, s_ref = k7ops.rwkv6_scan(r, k, v, w, u, kernel_mode="reference")
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and s.dtype == torch.float32
+    assert bool(torch.isfinite(o.float()).all()) and bool(torch.isfinite(s).all())
+    _close(o, o_ref, _SCAN_TOL[dtype])
+    _close(s, s_ref, _SCAN_TOL[torch.float32])
+
+
+# (B, H, T, P, N, chunk, dtype, zamba2 decays): the JAX test shapes, then
+# zamba2-7b's head shape at its decays, A = -linspace(1, 8, H) and
+# dt = softplus(N(0, 0.63^2)), where the TPU kernel gives NaN.
+_MAMBA2_CASES = [
+    (2, 2, 64, 32, 16, 32, torch.float32, False),
+    (1, 4, 96, 16, 32, 16, torch.float32, False),
+    (2, 112, 256, 64, 64, 64, torch.bfloat16, True),
+    (1, 8, 128, 16, 16, 64, torch.float32, True),
+    (1, 3, 40, 16, 16, 64, torch.float32, True),
+]
+
+
+@pytest.mark.parametrize("B,H,T,P,N,chunk,dtype,zamba2", _MAMBA2_CASES)
+def test_mamba2_scan_kernel_matches_plain_on_card(B, H, T, P, N, chunk, dtype, zamba2):
+    from repro_torch.kernels import mamba2_scan as k8ops
+    from repro_torch.kernels.mamba2_scan import kernel as k8
+
+    dev = _card()
+    rng = np.random.default_rng(T * 100 + P)
+    x = torch.from_numpy(rng.standard_normal((B, H, T, P)).astype(np.float32) * 0.5).to(dev, dtype)
+    if zamba2:
+        dt = torch.nn.functional.softplus(torch.from_numpy(
+            rng.normal(0.0, 0.63, (B, H, T)).astype(np.float32)))
+        A = -torch.linspace(1.0, 8.0, H)
+    else:
+        dt = torch.from_numpy(rng.uniform(0.001, 0.1, (B, H, T)).astype(np.float32))
+        A = torch.from_numpy(-rng.uniform(0.5, 4.0, H).astype(np.float32))
+    Bm, C = (torch.from_numpy(rng.standard_normal((B, T, N)).astype(np.float32) * 0.5)
+             for _ in range(2))
+    D = torch.from_numpy(rng.standard_normal(H).astype(np.float32))
+    dt, A, Bm, C, D = (t.to(dev) for t in (dt, A, Bm, C, D))
+    n0 = k8.launches
+    y, s = k8ops.mamba2_scan(x, dt, A, Bm, C, D, chunk=chunk, kernel_mode="cuda")
+    assert k8.launches == n0 + 1
+    y_ref, s_ref = k8ops.mamba2_scan(x, dt, A, Bm, C, D, kernel_mode="reference")
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and s.dtype == torch.float32
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(s).all())
+    _close(y, y_ref, _SCAN_TOL[dtype])
+    _close(s, s_ref, _SCAN_TOL[torch.float32])
+
+
+def test_scan_kernels_refuse_what_they_do_not_take():
+    from repro_torch.kernels.mamba2_scan import mamba2_scan
+    from repro_torch.kernels.rwkv6_scan import rwkv6_scan
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
+
+    dev = _card()
+    r = torch.zeros((1, 2, 48, 16), device=dev)
+    u = torch.zeros((2, 16), device=dev)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        rwkv6_scan(r, r, r, r + 0.5, u, chunk=32, kernel_mode="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        rwkv6_scan_cuda(r, r, r, (r + 0.5).bfloat16(), u)
+    with pytest.raises(ValueError, match="head size"):
+        big = torch.zeros((1, 1, 32, 128), device=dev)
+        rwkv6_scan_cuda(big, big, big, big + 0.5, torch.zeros((1, 128), device=dev))
+    x = torch.zeros((1, 2, 48, 16), device=dev)
+    dt = torch.full((1, 2, 48), 0.1, device=dev)
+    bc = torch.zeros((1, 48, 16), device=dev)
+    h = torch.ones(2, device=dev)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        mamba2_scan(x, dt, -h, bc, bc, h, chunk=32, kernel_mode="cuda")
+    y, s = mamba2_scan(x, dt, -h, bc, bc, h, chunk=64, kernel_mode="cuda")   # T < chunk
+    assert y.shape == x.shape and s.shape == (1, 2, 16, 16)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-7b"])
+def test_ssm_models_default_mode_launch_their_kernels(arch):
+    """The smoke configs on the card: the prefill step at its default mode
+    launches K7 (rwkv6) or K8 and K5 (zamba2) once per layer and agrees
+    with the plain versions; a zamba2 decode step launches K6 per group."""
+    from repro_torch import models
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import kernel as k5
+    from repro_torch.kernels.mamba2_scan import kernel as k8
+    from repro_torch.kernels.paged_attention import kernel as k6
+    from repro_torch.kernels.rwkv6_scan import kernel as k7
+    from repro_torch.train.train_step import make_prefill_step
+
+    dev = _card()
+    cfg = dataclasses.replace(registry.get_smoke(arch), kv_page_size=16)
+    params = models.init(cfg, seed=4, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (2, 64))
+                              .astype(np.int32)).to(dev)
+    counters = (k5, k6, k7, k8)
+    n0 = [c.launches for c in counters]
+    got = make_prefill_step(cfg)(params, {"tokens": tokens})
+    n1 = [c.launches - n for c, n in zip(counters, n0)]
+    want = make_prefill_step(cfg, kernel_mode="reference")(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    if arch == "rwkv6-1.6b":
+        assert n1 == [0, 0, cfg.num_layers, 0]
+        return
+    from repro_torch.models import zamba2
+
+    G, per = zamba2.group_dims(cfg)
+    assert n1 == [G, 0, 0, G * per]
+    page, B = cfg.kv_page_size, 2
+    pools = torch.zeros((2, G, 8, page, cfg.num_kv_heads, cfg.head_dim), device=dev)
+    table = torch.arange(8, dtype=torch.int32, device=dev).reshape(B, 4)
+    state = zamba2.init_decode_state(cfg, B, device=dev)
+    outs = {}
+    for mode in ("auto", "reference"):
+        kp, vp, st = pools[0].clone(), pools[1].clone(), state
+        n6 = k6.launches
+        for t in range(20):
+            ctx = torch.full((B,), t + 1, dtype=torch.int32, device=dev)
+            lg, st, kp, vp = zamba2.decode_step(params, tokens[:, t], cfg, st, kp, vp, table,
+                                                ctx, **({} if mode == "auto" else
+                                                        {"kernel_mode": mode}))
+        outs[mode] = (lg, k6.launches - n6)
+    torch.testing.assert_close(outs["auto"][0], outs["reference"][0], atol=1e-4, rtol=1e-4)
+    assert outs["auto"][1] == 20 * G and outs["reference"][1] == 0

@@ -103,6 +103,20 @@ def test_forward_matches_jax(arch):
 
 
 @pytest.mark.parametrize("arch", DENSE)
+def test_forward_hidden_matches_jax(arch):
+    """The family dispatch's ``forward_hidden``: the final-normed hidden
+    states and the unembedding matrix (tied for gemma)."""
+    jcfg, tcfg, params, tparams = _models(arch, seed=5)
+    tok = _tokens(jcfg, 2, 9, 6)
+    jh, jhead, _ = jtfm.forward_hidden(params, jnp.asarray(tok), jcfg, kernel_mode="reference")
+    th, thead, aux = models.forward_hidden(tparams, {"tokens": torch.from_numpy(tok)}, tcfg,
+                                           kernel_mode="reference")
+    _close(th, jh, what="hidden")
+    _close(thead, jhead, tol=0, what="head")
+    assert float(aux) == 0.0
+
+
+@pytest.mark.parametrize("arch", DENSE)
 def test_prefill_with_kv_matches_jax(arch):
     jcfg, tcfg, params, tparams = _models(arch, seed=2, kv_page_size=4)
     tok = _tokens(jcfg, 2, 10, 3)                     # 10 tokens: a ragged last page
@@ -165,7 +179,8 @@ def test_full_width_parameter_shapes_equal_jax_on_meta(arch):
                                                                           "bfloat16")
 
 
-@pytest.mark.parametrize("arch", [a for a in treg.ARCH_IDS if a not in DENSE])
+@pytest.mark.parametrize("arch", [a for a in treg.ARCH_IDS
+                                  if a not in DENSE + ["rwkv6-1.6b", "zamba2-7b"]])
 def test_other_families_raise_naming_the_roadmap(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         models.init(treg.get_smoke(arch), device="meta")
