@@ -48,8 +48,10 @@ SIGNATURES = {
     # iparams, acc, mshr, cnt, port, bank, lat, ov, done, B, L, A, M, P, T, D,
     # stream
     "timeline_launch": [c_ptr] * 18 + [c_int] * 7 + [c_ptr],
-    # q, k, v, o, B, Hq, Hkv, Tq, Tk, D, scale, causal, dtype, stream
-    "flash_attention_launch": [c_ptr] * 4 + [c_int] * 6 + [c_float, c_int, c_int, c_ptr],
+    # q, k, v, o, B, Hq, Hkv, Tq, Tk, D, scale, causal, dtype, then the tile
+    # plan (head dim, block q, block k, stages, threads, smem bytes, width),
+    # stream
+    "flash_attention_launch": [c_ptr] * 4 + [c_int] * 6 + [c_float] + [c_int] * 9 + [c_ptr],
     # q, k_pool, v_pool, table, ctx, acc, m, l, B, Hq, Hkv, D, page, pages,
     # scale, q_dtype, stream
     "paged_attention_launch": [c_ptr] * 8 + [c_int] * 6 + [c_float, c_int, c_ptr],

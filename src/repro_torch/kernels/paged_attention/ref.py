@@ -5,7 +5,9 @@ A gather-translate-attend oracle: the block table (logical KV page ->
 physical pool slot, -1 = unmapped) is translated by indexing the pool, and
 one new query token per sequence attends over its ``ctx_len`` valid
 positions.  With ``return_residuals`` it returns the un-normalised
-accumulator and the softmax statistics (acc, m, l) in float32, which
+accumulator and the softmax statistics (acc, m, l) in float32 (in float64
+when the pools are float64, the oracle ``chip_smoke.py`` holds the kernel
+to at the serving path's long contexts), which
 :func:`merge_partials` combines with other partials (other partitions, or
 the decode path's hot tail).  A sequence with no valid position returns
 m = -1e30, l = 0, acc = 0.
@@ -40,8 +42,9 @@ def paged_attention_ref(
     k = k_pool[safe_table].reshape(B, pages * page, Hkv, D)   # [B, S, Hkv, D]
     v = v_pool[safe_table].reshape(B, pages * page, Hkv, D)
 
-    qf = q.float().reshape(B, Hkv, G, D)
-    s = torch.einsum("bhgd,bshd->bhgs", qf, k.float()) * scale
+    ct = torch.promote_types(torch.float32, k_pool.dtype)
+    qf = q.to(ct).reshape(B, Hkv, G, D)
+    s = torch.einsum("bhgd,bshd->bhgs", qf, k.to(ct)) * scale
 
     pos = torch.arange(pages * page, device=q.device)[None, :]               # [1, S]
     valid = (pos < ctx_len.long()[:, None]) & (table >= 0).repeat_interleave(page, dim=1)
@@ -50,7 +53,7 @@ def paged_attention_ref(
     m = s.amax(-1)                                                          # [B, Hkv, G]
     p = torch.where(valid[:, None, None, :], torch.exp(s - m[..., None]), 0.0)
     l = p.sum(-1)
-    acc = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    acc = torch.einsum("bhgs,bshd->bhgd", p, v.to(ct))
 
     if return_residuals:
         return acc.reshape(B, Hq, D), m.reshape(B, Hq), l.reshape(B, Hq)

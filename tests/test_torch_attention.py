@@ -2,7 +2,14 @@
 attention) against the JAX package: its naive oracles, its blocked jnp scan
 and its Pallas kernels run by the interpreter, on the shapes of
 tests/test_kernels.py, within 2e-5 in float32 (2e-2 in bfloat16), the JAX
-package's own tolerances.  Inputs come from numpy seeds."""
+package's own tolerances.  Inputs come from numpy seeds.  For K5's bf16
+tensor-core kernel, its tile plan against the card's shared memory for
+every configured head dim, and a plain model of its arithmetic against
+JAX's Pallas K5 at chip_smoke.py's bf16 cases."""
+import importlib.util
+import math
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,9 +21,11 @@ from repro.kernels.paged_attention import merge_partials as jax_merge
 from repro.kernels.paged_attention import paged_attention as jax_paged
 from repro.kernels.paged_attention import paged_attention_partial as jax_paged_partial
 from repro.models.flash_ref import flash_attention_jnp
+from repro_torch.configs import registry
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.kernel import (SMEM_LIMIT, flash_attention_cuda,
+                                                        tile_plan)
 from repro_torch.kernels.flash_attention.ref import attention_ref, flash_attention_ref
 from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -137,6 +146,19 @@ def test_paged_bf16_query_matches_jax():
         _close(g, w, F32_TOL)
 
 
+def test_paged_plain_keeps_float64_pools_in_float64():
+    """Given float64 pools the plain version computes in float64 (the oracle
+    chip_smoke.py holds K6 to at the serving path's long contexts), and its
+    float32 run agrees with it within the float32 tolerance."""
+    q, kp, vp, tbl, ctx = (torch.from_numpy(a) for a in _paged_np(7, 2, 8, 2, 32, 16, 4, 16))
+    got64 = paged_attention_ref(q.double(), kp.double(), vp.double(), tbl, ctx,
+                                return_residuals=True)
+    got32 = paged_attention_ref(q, kp, vp, tbl, ctx, return_residuals=True)
+    for a, b in zip(got32, got64):
+        assert a.dtype == torch.float32 and b.dtype == torch.float64
+        torch.testing.assert_close(a.double(), b, atol=F32_TOL, rtol=F32_TOL)
+
+
 @pytest.mark.parametrize("empty", [False, True])
 def test_merge_partials_matches_jax(empty):
     rng = np.random.default_rng(3)
@@ -185,3 +207,78 @@ def test_cuda_mode_raises_on_cpu_tensors_and_wrappers_take_the_plain_version():
     for g, w in zip(paged_attention_cuda(*arrs),
                     paged_attention_ref(*arrs, return_residuals=True)):
         torch.testing.assert_close(g, w, atol=0, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# K5's bf16 tensor-core kernel: its tile plan and its arithmetic.
+# ---------------------------------------------------------------------------
+
+_HEAD_DIMS = sorted({registry.get_config(a).head_dim for a in registry.ARCH_IDS} - {0}
+                    | {32, 64})
+
+
+@pytest.mark.parametrize("D", _HEAD_DIMS)
+def test_tile_plan_fits_the_card(D):
+    """Every configured head dim (and 32, 64) gets a plan within the H100's
+    232,448 bytes of shared memory a block, a padded head dim of whole 64-
+    column TMA boxes, products at least D wide in 16-column wgmma steps,
+    and 16-key steps of P V."""
+    plan = tile_plan(D, torch.bfloat16)
+    assert plan.design == "wgmma+tma"
+    assert plan.smem_bytes <= SMEM_LIMIT == 232_448
+    assert plan.head_dim % 64 == 0 and plan.head_dim >= D
+    assert plan.width % 16 == 0 and D <= plan.width <= plan.head_dim
+    assert plan.block_k % 16 == 0 and plan.block_q % 64 == 0
+    assert plan.threads == 128 * (plan.block_q // 64 + 1) and plan.stages >= 2
+    f32 = tile_plan(D, torch.float32)
+    assert f32.design == "fma" and f32.smem_bytes <= SMEM_LIMIT and f32.width == D
+
+
+def _wgmma_model(q, k, v, *, causal: bool, block_k: int) -> torch.Tensor:
+    """The bf16 kernel's arithmetic in plain torch: bf16 operands, float32
+    products and statistics, the running max in the log2 domain with the
+    scale folded into log2 e, KV tiles of ``block_k`` keys, P rounded to
+    bf16 before P V, o = acc * (1 / l) rounded to bf16."""
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    scale_log2 = math.log2(math.e) / math.sqrt(D)
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, Tq, D)
+    q_pos = (torch.arange(Tq) + Tk - Tq)[:, None]
+    m = torch.full((B, Hkv, Hq // Hkv, Tq), -math.inf)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for k0 in range(0, Tk, block_k):
+        kc, vc = k[:, :, k0:k0 + block_k].float(), v[:, :, k0:k0 + block_k].float()
+        k_pos = k0 + torch.arange(kc.shape[2])[None, :]
+        mask = (k_pos <= q_pos) if causal else torch.ones_like(k_pos <= q_pos)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kc).masked_fill(~mask, -math.inf)
+        n = torch.maximum(m, s.amax(-1) * scale_log2)
+        base = torch.where(n == -math.inf, 0.0, n)
+        alpha = torch.exp2(m - base)
+        p = torch.exp2(s * scale_log2 - base[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p.bfloat16().float(), vc)
+        m = n
+    inv = torch.where(l > 0, 1.0 / l, 0.0)
+    return (acc * inv[..., None]).reshape(B, Hq, Tq, D).bfloat16()
+
+
+def _chip_smoke_flash_checks():
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_cases", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return [c[:7] for c in mod.FLASH_CHECKS if c[7] == "bfloat16"]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal", _chip_smoke_flash_checks())
+def test_wgmma_arithmetic_matches_jax_pallas(B, Hq, Hkv, Tq, Tk, D, causal):
+    """Rounding P to bf16 (and nothing else) keeps the bf16 kernel within the
+    JAX package's bf16 tolerance of its Pallas K5 (interpreted, in blocks of
+    1,024 rows for speed)."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(B, Hq, Hkv, Tq, Tk, D, "bfloat16", seed=Tq + D)
+    want = jax_flash(jq, jk, jv, causal=causal, block_q=1024, block_k=1024,
+                     kernel_mode="pallas_interpret")
+    got = _wgmma_model(tq, tk, tv, causal=causal, block_k=tile_plan(D, torch.bfloat16).block_k)
+    _close(got, want, BF16_TOL)

@@ -300,6 +300,23 @@ _FLASH_CASES = [
     (1, 9, 1, 37, 37, 128, False, torch.bfloat16),
     (1, 32, 32, 200, 200, 112, True, torch.bfloat16),     # zamba2: head_dim 112, group 1
     (2, 8, 8, 96, 96, 112, True, torch.float32),
+    # The bf16 tensor-core kernel's tile edges (64-row warpgroups, 128-row
+    # blocks, 128- or 64-key tiles, head dims padded to 64 columns).
+    (1, 8, 2, 63, 63, 128, True, torch.bfloat16),
+    (1, 8, 2, 64, 64, 128, True, torch.bfloat16),
+    (1, 8, 2, 65, 65, 128, True, torch.bfloat16),
+    (1, 8, 2, 129, 129, 128, True, torch.bfloat16),
+    (1, 8, 2, 1, 4096, 128, True, torch.bfloat16),
+    (1, 10, 2, 100, 300, 128, True, torch.bfloat16),      # Tq < Tk, group 5
+    (1, 4, 2, 200, 70, 64, True, torch.bfloat16),         # Tq > Tk: rows that see no key
+    (1, 4, 2, 70, 70, 32, True, torch.bfloat16),
+    (1, 4, 2, 70, 70, 32, False, torch.bfloat16),
+    (1, 4, 4, 90, 90, 64, False, torch.bfloat16),
+    (1, 8, 2, 130, 130, 160, False, torch.bfloat16),
+    (1, 4, 2, 200, 200, 256, True, torch.bfloat16),
+    (1, 4, 4, 75, 75, 256, False, torch.bfloat16),
+    (2, 8, 2, 150, 150, 128, True, torch.bfloat16),
+    (1, 40, 8, 4096, 4096, 128, True, torch.bfloat16),    # qwen3-14b's heads, one long call
 ]
 
 
@@ -320,6 +337,25 @@ def test_flash_attention_kernel_matches_plain_on_card(B, Hq, Hkv, Tq, Tk, D, cau
     assert got.dtype == dtype and got.shape == q.shape
     tol = _ATTN_TOL[dtype]
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_flash_attention_bf16_refuses_an_unaligned_base():
+    """TMA reads from 16-byte-aligned bases only: a bf16 input one element
+    into its storage raises before any launch."""
+    from repro_torch.kernels.flash_attention import kernel as k5
+
+    dev = _card()
+    shape = (1, 4, 64, 64)
+    buf = torch.zeros(1 + 4 * 64 * 64, device=dev, dtype=torch.bfloat16)
+    q = buf[1:].view(shape)
+    kv = torch.zeros((1, 2, 64, 64), device=dev, dtype=torch.bfloat16)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    n0 = k5.launches
+    aligned = kv.new_zeros(shape)
+    for args in ((q, kv, kv), (aligned, q[:, :2], kv), (aligned, kv, q[:, :2])):
+        with pytest.raises(ValueError, match="aligned"):
+            k5.flash_attention_cuda(*args)
+    assert k5.launches == n0
 
 
 def _paged_inputs(rng, dev, B, Hq, Hkv, D, page, pages, slots, q_dtype):
