@@ -19,10 +19,14 @@ K5 and K6.  One JSON line per phase:
 
 1. ``device``: the card, and its name and power limit from ``nvidia-smi``;
 2. ``build``: the kernels built for ``sm_90a`` from the sources in this
-   checkout, with ptxas's register / stack / spill lines;
+   checkout, with ptxas's register / stack / spill lines; K1's and K2's
+   kernels must spill nothing;
 3. ``kernel_vs_plain``: each simulator op entry point on the card against
    its plain PyTorch version on the same inputs (tolerance 0: hits, depths,
-   timeline latency / overhead / done and carried state bit-identical), and
+   timeline latency / overhead / done and carried state bit-identical), K1
+   and K2 also on the skewed and edge cases of ``tests/_lru_cases.py``
+   (every access in one set; a set per access over 65,537 rows; a hot set;
+   1-33 ways; an empty chunk; stamps up to 2**31 - 2), chunk by chunk; and
    ``engines_agree``: the stack-distance sweep equal to the sequential one;
 4. the simulator's main path, with the kernels' launch counters set to 0
    before it and read after it (``main_path``): ``fig10`` and ``fig4``,
@@ -40,7 +44,13 @@ K5 and K6.  One JSON line per phase:
    the same calls over a prefix of each call (20,000 accesses; 2,000 for
    K4), where kernel and plain outputs must again be bit-identical; and
    ``timing_site``, the same for single call sites: K1 at B = 1, K2 at the
-   stream calls, K4 at the Fig 11, Fig 5 and stream calls and at B = 1;
+   stream calls, K4 at the Fig 11, Fig 5 and stream calls and at B = 1.
+   K1's and K2's lines add the set-parallel design's own floor:
+   ``longest_bucket``, the longest (config, set) bucket of each timed call
+   (K2: the cache's plus the longer of the two TLBs' over the accesses they
+   apply), summed over the calls and counted with ``torch.bincount`` of the
+   keys, ``ns_per_chain_step`` (time over it), and the CUDA-event time of the
+   bucketing and of the LRU passes, recorded by the entry point;
 6. ``kernel_vs_plain`` for K5 and K6 through their op entry points, within
    2e-5 in float32 and 2e-2 in bfloat16 (the JAX package's tolerances): the
    JAX test shapes and head dims 32, 64, 128, 160, 256 and 112 (zamba2,
@@ -116,6 +126,7 @@ from __future__ import annotations
 import hashlib
 import json
 import pathlib
+import re
 import sys
 import time
 
@@ -172,6 +183,8 @@ def main() -> int:
          ptxas=[ln.strip() for ln in lib.log.splitlines()
                 if ln.startswith("==") or "registers" in ln or "spill" in ln
                 or "Compiling entry" in ln])
+    for src, spill in _spills(lib.log, ("tlb_sim", "system_sim")):
+        fail(f"{src}: a kernel spills ({spill})")
 
     errs = check_kernels_against_plain(torch, trace)
     golden = json.loads(GOLDEN.read_text())
@@ -195,6 +208,20 @@ def main() -> int:
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)
     return 0
+
+
+def _spills(log: str, kernels) -> list:
+    """(source, ptxas line) of every spilling kernel in ``log`` compiled from
+    the sources of ``kernels``."""
+    out, src = [], ""
+    for ln in log.splitlines():
+        if ln.startswith("=="):
+            src = ln[2:].strip()
+        elif any(f"/{k}/" in src for k in kernels):
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m and (int(m.group(1)) or int(m.group(2))):
+                out.append((src, ln.strip()))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -346,6 +373,8 @@ def check_kernels_against_plain(torch, trace) -> dict:
     errs["system_sim"] = max(errs["system_sim"], _compare(
         torch, "system_sim_batched_carry", "system_sim", sys_chunk("cuda"),
         sys_chunk("reference"), cuts=list(cuts), **shape))
+    for k, e in check_lru_cases(torch).items():
+        errs[k] = max(errs[k], e)
 
     # K3 on the lane layout of the eight specs' set-mappings: both passes of
     # a depth computation (from empty stacks, then from the lane carries),
@@ -372,6 +401,61 @@ def check_kernels_against_plain(torch, trace) -> dict:
     if not agree:
         fail("sweep_tlb: the stack-distance engine differs from the sequential kernel")
     errs["timeline"] = check_timeline_against_plain(torch, lines, cuts)
+    return errs
+
+
+def check_lru_cases(torch) -> dict:
+    """K1 and K2 through their carry ops on the skewed and edge cases of
+    ``tests/_lru_cases.py``, chunk by chunk with the state carried, against
+    their plain versions (tolerance 0).  Returns the largest error of each."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _lru_cases import chunks, k1_cases, k2_cases
+
+    from repro_torch.core.tlbsim import padded_tlb_state
+    from repro_torch.kernels.system_sim import system_sim_batched_carry
+    from repro_torch.kernels.tlb_sim import tlb_sim_batched_carry
+
+    dev = torch.device("cuda")
+    errs = {"tlb_sim": 0, "system_sim": 0}
+    for case in k1_cases():
+        s, t = (torch.from_numpy(case[k]).to(dev) for k in ("set", "tag"))
+        B, L = s.shape
+
+        def k1_run(mode):
+            state = padded_tlb_state(B, case["TS"], case["W"], case["valid"], device=dev)
+            hs = []
+            for lo, hi in chunks(L, case["cuts"]):
+                h, *state = tlb_sim_batched_carry(
+                    s[:, lo:hi].contiguous(), t[:, lo:hi].contiguous(), *state,
+                    case["now0"] + lo, kernel_mode=mode)
+                hs.append(h)
+            return [torch.cat(hs, 1), *state]
+
+        errs["tlb_sim"] = max(errs["tlb_sim"], _compare(
+            torch, f"tlb_sim_batched_carry ({case['name']})", "tlb_sim", k1_run("cuda"),
+            k1_run("reference"), configs=B, accesses=L, rows=case["TS"], ways=case["W"],
+            now0=case["now0"], cuts=case["cuts"]))
+    for case in k2_cases():
+        streams = [torch.from_numpy(x).to(dev) for x in case["streams"]]
+        flags = torch.from_numpy(case["flags"]).to(dev)
+        B, L = streams[0].shape
+
+        def k2_run(mode):
+            state = tuple(x for S, W, v in case["geom"]
+                          for x in padded_tlb_state(B, S, W, v, device=dev))
+            hs = []
+            for lo, hi in chunks(L, case["cuts"]):
+                h, state = system_sim_batched_carry(
+                    *(x[:, lo:hi].contiguous() for x in streams), flags, state,
+                    case["now0"] + lo, kernel_mode=mode)
+                hs.append(torch.stack(h))
+            return [torch.cat(hs, 2), *state]
+
+        errs["system_sim"] = max(errs["system_sim"], _compare(
+            torch, f"system_sim_batched_carry ({case['name']})", "system_sim",
+            k2_run("cuda"), k2_run("reference"), configs=B, accesses=L,
+            geometry=[list(g[:2]) for g in case["geom"]], now0=case["now0"],
+            cuts=case["cuts"]))
     return errs
 
 
@@ -875,6 +959,58 @@ def _measure(torch, name: str, kernel, plain, calls, prefix_calls, prefix: int) 
             "ms_at_plain_shape": ms_prefix}
 
 
+def _longest(torch, set_b, rows: int, mask=None) -> int:
+    """The longest (config, set) bucket of ``set_b`` [B, L] (``rows`` sets
+    per config), over the accesses ``mask`` selects."""
+    keys = set_b.long() + torch.arange(set_b.shape[0], device=set_b.device)[:, None] * rows
+    keys = keys if mask is None else keys[mask]
+    return int(torch.bincount(keys.flatten()).max()) if keys.numel() else 0
+
+
+def _chain_k1(torch, args) -> int:
+    """K1's critical path in one call: its longest bucket."""
+    set_b, _, tags = args[:3]
+    return _longest(torch, set_b, tags.shape[1])
+
+
+def _chain_k2(torch, args) -> int:
+    """K2's critical path in one call: the longest cache bucket plus the
+    longer of the two TLBs' longest buckets over the accesses they apply
+    (the cache hits from a run of the kernel)."""
+    from repro_torch.kernels.system_sim.kernel import system_sim_carry_cuda
+
+    inputs, flags, state, _ = args
+    (c_hit, _, _), _ = system_sim_carry_cuda(*args)
+    has_c, has_a, miss_only = (flags[:, k, None] > 0 for k in range(3))
+    do_a = has_a & (~miss_only | ~c_hit)
+    rows = [state[2 * k].shape[1] for k in range(3)]
+    return (_longest(torch, inputs[0], rows[0], has_c.expand_as(c_hit))
+            + max(_longest(torch, inputs[2], rows[1], do_a),
+                  _longest(torch, inputs[4], rows[2], ~c_hit)))
+
+
+def _lru_floor(torch, name: str, kernel, calls, ms: float) -> dict:
+    """The set-parallel design's own floor over ``calls``: the longest
+    buckets summed (the chain its bucket threads walk), the time per chain
+    step, and the CUDA-event time of each phase, recorded by the entry point
+    between its launches (the sums leave out the host between calls)."""
+    k1 = name == "tlb_sim"
+    longest = sum((_chain_k1 if k1 else _chain_k2)(torch, a) for a, _, _ in calls)
+    n = 3 if k1 else 6
+    events = []
+    for args, _, _ in calls:
+        events.append([torch.cuda.Event(enable_timing=True) for _ in range(n)])
+        kernel(*args, phase_events=events[-1])
+    torch.cuda.synchronize()
+    ph = [sum(e[i].elapsed_time(e[i + 1]) for e in events) for i in range(n - 1)]
+    out = {"longest_bucket": longest,
+           "ns_per_chain_step": ms * 1e6 / longest if longest else None}
+    if k1:
+        return {**out, "bucketing_ms": ph[0], "passes_ms": ph[1]}
+    return {**out, "bucketing_ms": ph[0] + ph[2], "passes_ms": ph[1] + ph[3],
+            "cache_pass_ms": ph[1], "tlb_pass_ms": ph[3], "pack_ms": ph[4]}
+
+
 def _recorded(module, attr: str, fn) -> list:
     """The argument tuples of every call of ``module.attr`` while ``fn()``
     runs (the call itself goes through unchanged)."""
@@ -1050,8 +1186,10 @@ def time_sites(torch, figs, trace, runs) -> None:
         N, W = set_b.shape[1], tags.shape[2]
         return [((set_b, tag_b, tags, last, now0), N * 9 + 2 * 2 * tags.numel() * 4, 2 * N * W)]
 
+    calls = k1a_calls(skip4)
     m = _measure(torch, "tlb_sim", tlb_sim_carry_cuda, tlb_sim_batched_carry_ref,
-                 k1a_calls(skip4), k1a_calls(skip4[:PREFIX]), PREFIX)
+                 calls, k1a_calls(skip4[:PREFIX]), PREFIX)
+    m.update(_lru_floor(torch, "tlb_sim", tlb_sim_carry_cuda, calls, m["ms"]))
     emit("timing_site", site="K1a B=1", kernel="tlb_sim", function="tlb_sim_pallas",
          replaces="src/repro/kernels/tlb_sim/kernel.py:85",
          shape=f"tlb_sim: one config (conv-4K, 2048 entries, 4 ways), skip_list "
@@ -1060,9 +1198,10 @@ def time_sites(torch, figs, trace, runs) -> None:
     cfgs = figs["fig10"].system_configs()
     skip10 = trace("skip_list", n_ops=25_000).lines
     ev = runs["fig10"]["events"]["skip_list"]
+    calls = _system_stream_calls(torch, cfgs, skip10, STREAM_CHUNK, ev)
     m = _measure(torch, "system_sim", system_sim_carry_cuda, system_sim_batched_carry_ref,
-                 _system_stream_calls(torch, cfgs, skip10, STREAM_CHUNK, ev),
-                 _system_stream_calls(torch, cfgs, skip10[:PREFIX], PREFIX, ev), PREFIX)
+                 calls, _system_stream_calls(torch, cfgs, skip10[:PREFIX], PREFIX, ev), PREFIX)
+    m.update(_lru_floor(torch, "system_sim", system_sim_carry_cuda, calls, m["ms"]))
     emit("timing_site", site="K2b stream", kernel="system_sim",
          function="system_sim_batched_pallas_carry",
          replaces="src/repro/kernels/system_sim/kernel.py:220",
@@ -1114,7 +1253,11 @@ def time_kernels(torch, figs, trace, errs, launches, runs) -> list:
     )
     out = []
     for name, kernel, plain, make_calls, make_prefix, shape, replaces in kernels:
-        m = _measure(torch, name, kernel, plain, make_calls(), make_prefix(), PREFIX)
+        calls = make_calls()
+        m = _measure(torch, name, kernel, plain, calls, make_prefix(), PREFIX)
+        if name in ("tlb_sim", "system_sim"):
+            m.update(_lru_floor(torch, name, kernel, calls, m["ms"]))
+        del calls
         row = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
                "replaces": replaces[0], "also_replaces": replaces[1:],
@@ -1149,8 +1292,10 @@ def time_kernels(torch, figs, trace, errs, launches, runs) -> list:
     # Fig 4's specs on K1 in one launch per trace, for comparison with the
     # stack-distance engine that "auto" gives them.
     calls = _tlb_sweep_calls(torch, specs, fig4_lines)
+    ms = _event_ms(torch, lambda: [tlb_sim_carry_cuda(*a) for a in calls], reps=1)
+    longest = sum(_chain_k1(torch, a) for a in calls)
     emit("timing_fig4_sequential", kernel="tlb_sim", kernel_launches_timed=len(calls),
-         ms=_event_ms(torch, lambda: [tlb_sim_carry_cuda(*a) for a in calls], reps=1),
+         ms=ms, longest_bucket=longest, ns_per_chain_step=ms * 1e6 / longest,
          shape="Fig 4: 4 traces (4.06 M accesses) x 60 specs, one launch per trace")
     return out
 

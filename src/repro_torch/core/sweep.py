@@ -83,9 +83,9 @@ __all__ = [
 # and the stream state arrays (``g{gi}_tags``, ...) the reference's, so a
 # stream state exported by the JAX package imports here directly.  The
 # monolithic sweeps export no state and launch their whole batch at once.
-# The CUDA kernels keep their state in device memory (L2-resident), where the
-# budget has no meaning yet; re-deriving it for Hopper belongs with moving
-# the state into shared memory.
+# The CUDA kernels do not depend on the budget (they bucket any batch by
+# (config, set) and keep one bucket's row in a thread's registers); the
+# grouping stays because it fixes the exported state's layout.
 _STATE_GROUP_BUDGET_BYTES = 8 * 1024 * 1024
 
 

@@ -3,9 +3,10 @@
 Every ``repro_torch/kernels/*/csrc/*.cu`` file is compiled for ``sm_90a``
 (one ``nvcc -c`` per source, all started together) and linked into one shared
 library with a plain C interface, ``build/repro_torch/kernels-<hash>.so`` at
-the repository root.  The hash covers the sources and the flags, so an edited
-source builds anew; a file lock keeps concurrent processes from building the
-same library twice.  The build happens at first use, never at import.  A
+the repository root.  The hash covers the sources, the headers beside them
+(``*/csrc/*.cuh``) and the flags, so an edited source or header builds
+anew; a file lock keeps concurrent processes from building the same library
+twice.  The build happens at first use, never at import.  A
 missing ``nvcc`` or a failed build raises: there is no other way to a kernel.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
@@ -31,17 +32,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 c_int, c_ptr, c_float = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+c_i64 = ctypes.c_int64
+# The bucketing scratch of K1 and K2 (tlb_sim/csrc/lru_sets.cuh): counts,
+# their length, the scan's block sums, their length, the (tag, j) pairs,
+# their length in pairs, then the phase events (null or an array of
+# cudaEvent_t) and the stream.
+_LRU_SCRATCH = [c_ptr, c_i64, c_ptr, c_i64, c_ptr, c_i64, c_ptr, c_ptr]
 # name -> argtypes of every C entry point (pointers and the stream as c_void_p,
-# ints as c_int, floats as c_float; every entry point returns a cudaError_t
-# as int).
+# ints as c_int, lengths as c_int64, floats as c_float; every entry point
+# returns a cudaError_t as int).
 SIGNATURES = {
-    # set, tag, tags, last, hits, B, L, TS, W, now0, stream
-    "tlb_sim_launch": [c_ptr, c_ptr, c_ptr, c_ptr, c_ptr,
-                       c_int, c_int, c_int, c_int, c_int, c_ptr],
+    # set, tag, tags, last, hits, B, L, TS, W, now0, sets, segs, scratch
+    "tlb_sim_launch": [c_ptr] * 5 + [c_int] * 7 + _LRU_SCRATCH,
     # c_set, c_tag, a_set, a_tag, m_set, m_tag, flags,
     # c_tags, c_last, a_tags, a_last, m_tags, m_last, hits,
-    # B, L, CS, CW, AS, AW, MS, MW, now0, stream
-    "system_sim_launch": [c_ptr] * 14 + [c_int] * 9 + [c_ptr],
+    # B, L, CS, CW, AS, AW, MS, MW, now0, (sets, segs) x 3, raw, scratch
+    "system_sim_launch": [c_ptr] * 14 + [c_int] * 15 + [c_ptr] + _LRU_SCRATCH,
     # tags, seg, init, depths, final, L, C, W, stream
     "stack_scan_launch": [c_ptr] * 5 + [c_int] * 3 + [c_ptr],
     # accel, part, bank_d, bank_p, cache_hit, tlb_hit, mem_hit, pen, fparams,
@@ -86,7 +92,13 @@ _LIB: Optional[Library] = None
 
 
 def sources() -> list:
+    """The sources compiled, one object each."""
     return sorted(_PKG.glob("*/csrc/*.cu"))
+
+
+def hashed_files() -> list:
+    """Every file the build reads: the sources and the headers they include."""
+    return sorted([*sources(), *_PKG.glob("*/csrc/*.cuh")])
 
 
 def _nvcc() -> str:
@@ -127,7 +139,7 @@ def load() -> Library:
         return _LIB
     srcs = sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in hashed_files():
         digest.update(str(s.relative_to(_PKG)).encode() + b"\0" + s.read_bytes())
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     target = BUILD_DIR / f"kernels-{digest.hexdigest()[:16]}.so"

@@ -14,73 +14,55 @@
 // Poisoned ways (tag -2, stamp 2^31-1) arrive in the state; they never match
 // and never win the argmin, so padding a config's ways is invisible.
 //
-// Bound on this card: the work is a serial dependency chain per config (each
-// access reads the state row the previous access may have written), so the
-// time is set by the latency of the row loads, not by the 9 bytes per
-// (config, access) of set + tag in and hit out (the bytes bound is far
-// lower).  This first design runs one thread per config, each in its own
-// block so that every config's state rows are cached by a different SM; the
-// next access's (set, tag) is loaded before the current row is processed so
-// that only the row load stays on the chain.  It uses B threads of the card;
-// spreading the work over (config, set) is the next step (ROADMAP.md).
+// Bound on this card: bytes, 9 per (config, access) (set and tag in, the hit
+// out) plus the carried state read and written once; the compares are far
+// below the card's integer rate.  What kept the first design (one thread per
+// config) far from that bound was the serial chain of L dependent probes per
+// config, each waiting on a state row round trip through L2 (~260 ns an
+// access in TLBSweepStream).  This design is the set-parallel LRU of
+// lru_sets.cuh: a stable counting sort puts each (config, set) bucket's
+// accesses together in trace order, and one thread per bucket walks them
+// with the row's ways in registers, so the chain is one bucket long and a
+// step is a few dozen register instructions.  Its own floor is the longest
+// bucket of the call times one probe (~45-60 ns at 4 ways), plus the
+// bucketing: a block-parallel count, a scan of the counts and a warp walk of
+// each trace segment that scatters the keys.
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+#include "lru_sets.cuh"
 
-__global__ void tlb_sim_kernel(const int32_t* __restrict__ set,
-                               const int32_t* __restrict__ tag,
-                               int32_t* __restrict__ tags,
-                               int32_t* __restrict__ last,
-                               uint8_t* __restrict__ hits,
-                               int L, int TS, int W, int now0) {
-  const int b = blockIdx.x;
-  const int32_t* s_b = set + (size_t)b * L;
-  const int32_t* t_b = tag + (size_t)b * L;
-  int32_t* tags_b = tags + (size_t)b * TS * W;
-  int32_t* last_b = last + (size_t)b * TS * W;
-  uint8_t* h_b = hits + (size_t)b * L;
-  if (L == 0) return;
-  int s = s_b[0], t = t_b[0];
-  for (int j = 0; j < L; ++j) {
-    int s_next = 0, t_next = 0;
-    if (j + 1 < L) {
-      s_next = s_b[j + 1];
-      t_next = t_b[j + 1];
-    }
-    int32_t* row_t = tags_b + (size_t)s * W;
-    int32_t* row_l = last_b + (size_t)s * W;
-    int hit_way = -1;
-    int min_way = 0;
-    int min_l = row_l[0];
-    for (int w = 0; w < W; ++w) {
-      if (hit_way < 0 && row_t[w] == t) hit_way = w;
-      const int l = row_l[w];
-      if (l < min_l) {  // strict: ties keep the first index, as argmin does
-        min_l = l;
-        min_way = w;
-      }
-    }
-    const int way = hit_way >= 0 ? hit_way : min_way;
-    row_t[way] = t;
-    row_l[way] = now0 + j + 1;
-    h_b[j] = hit_way >= 0;
-    s = s_next;
-    t = t_next;
-  }
-}
-
-}  // namespace
-
-extern "C" int tlb_sim_launch(const void* set, const void* tag, void* tags,
-                              void* last, void* hits, int B, int L, int TS,
-                              int W, int now0, void* stream) {
-  if (B > 0) {
-    tlb_sim_kernel<<<B, 1, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)set, (const int32_t*)tag, (int32_t*)tags,
-        (int32_t*)last, (uint8_t*)hits, L, TS, W, now0);
-  }
-  return (int)cudaGetLastError();
+extern "C" int tlb_sim_launch(const void* set, const void* tag, void* tags, void* last,
+                              void* hits, int B, int L, int TS, int W, int now0, int sets,
+                              int segs, void* counts, long long count_len, void* partials,
+                              long long partial_len, void* pairs, long long pair_len,
+                              void* events, void* stream) {
+  using namespace lru_sets;
+  if (B <= 0 || L <= 0) return (int)cudaSuccess;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaEvent_t* ev = (cudaEvent_t*)events;  // null, or {start, bucketed, done}
+  Batch bt{};
+  bt.n = 1;
+  bt.B = B;
+  bt.L = L;
+  bt.now0 = now0;
+  Structure& s = bt.st[0];
+  s.set = (const int32_t*)set;
+  s.tag = (const int32_t*)tag;
+  s.tags = (int32_t*)tags;
+  s.last = (int32_t*)last;
+  s.out = (uint8_t*)hits;
+  s.TS = TS;
+  s.W = W;
+  s.sets = sets;
+  s.segs = segs;
+  s.gate = kAll;
+  const Scratch sc{(int32_t*)counts, count_len, (int32_t*)partials, partial_len,
+                   (int2*)pairs, pair_len};
+  if (ev) record(ev[0], st);
+  const cudaError_t err = bucket_and_pass(bt, sc, ev ? ev[1] : nullptr, st);
+  if (ev) record(ev[2], st);
+  return (int)err;
 }
 
 // Message of a cudaError_t returned by any entry point of the library (one

@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from _lru_cases import chunks, k1_cases, k2_cases
 
 from repro_torch.core import stackdist, sweep, tlbsim
 from repro_torch.core.sparta import TLBConfig
@@ -53,46 +54,89 @@ def _system_cfgs():
             C(page_shift=21, num_partitions=128)]
 
 
-def test_tlb_sim_kernel_matches_plain_on_card():
-    dev = _card()
+def _hetero_k1_case() -> dict:
     rng = np.random.default_rng(0)
-    TS, W, N, valid = 37, 8, 3001, (8, 4, 1, 3, 6)
-    s = torch.from_numpy(rng.integers(0, TS, (len(valid), N)).astype(np.int32)).to(dev)
-    t = torch.from_numpy(rng.integers(0, 400, (len(valid), N)).astype(np.int32)).to(dev)
-    tags, last = tlbsim.padded_tlb_state(len(valid), TS + 1, W, valid, device=dev)
-    n0 = tlb_sim.kernel.launches
-    got = tlb_sim.tlb_sim_batched_carry(s, t, tags, last, 17, kernel_mode="cuda")
-    assert tlb_sim.kernel.launches == n0 + 1
-    want = tlb_sim.tlb_sim_batched_carry(s, t, tags, last, 17, kernel_mode="reference")
-    torch.cuda.synchronize()
-    for x, y in zip(got, want):
-        assert torch.equal(x, y)
+    TS, N, valid = 37, 3001, (8, 4, 1, 3, 6)
+    return {"name": "hetero", "set": rng.integers(0, TS, (len(valid), N)).astype(np.int32),
+            "tag": rng.integers(0, 400, (len(valid), N)).astype(np.int32),
+            "TS": TS + 1, "W": 8, "valid": valid, "now0": 17, "cuts": []}
+
+
+def _hetero_k2_case() -> dict:
+    cfgs = _system_cfgs()
+    lines = tlbsim.as_tensor(_lines(7, 2001), "cpu")
+    geos, _ = sweep._system_layout(cfgs)
+    envs = [sweep._envelope(geo, range(len(cfgs))) for geo in geos]
+    return {"name": "hetero",
+            "streams": [x.numpy() for x in sweep._system_streams(lines, cfgs)],
+            "flags": tlbsim.system_flags(cfgs, "cpu").numpy(),
+            "geom": [(e[0] + 1, e[1], e[2]) for e in envs], "now0": 3, "cuts": []}
+
+
+_K1_CASES = [_hetero_k1_case(), *k1_cases()]
+_K2_CASES = [_hetero_k2_case(), *k2_cases()]
+
+
+@pytest.mark.parametrize("case", _K1_CASES, ids=[c["name"] for c in _K1_CASES])
+def test_tlb_sim_kernel_matches_plain_on_card(case):
+    """The set-parallel K1 against its plain version, chunk by chunk with the
+    state carried: skewed streams (one set; a set per access over 65,537
+    rows), every way class (registers up to 32, device memory at 33), an
+    empty chunk and stamps up to 2**31 - 2.  One launch counted per call
+    that has accesses."""
+    dev = _card()
+    s, t = (torch.from_numpy(case[k]).to(dev) for k in ("set", "tag"))
+    B, L = s.shape
+    state = tlbsim.padded_tlb_state(B, case["TS"], case["W"], case["valid"], device=dev)
+    got_state, want_state = state, state
+    for lo, hi in chunks(L, case["cuts"]):
+        args = (s[:, lo:hi].contiguous(), t[:, lo:hi].contiguous())
+        n0 = tlb_sim.kernel.launches
+        got = tlb_sim.tlb_sim_batched_carry(*args, *got_state, case["now0"] + lo,
+                                            kernel_mode="cuda")
+        assert tlb_sim.kernel.launches == n0 + (hi > lo)
+        want = tlb_sim.tlb_sim_batched_carry(*args, *want_state, case["now0"] + lo,
+                                             kernel_mode="reference")
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            assert torch.equal(x, y), f"chunk {lo}:{hi}"
+        got_state, want_state = got[1:], want[1:]
+    if L == 0:
+        return
+    tags, last = state
     with pytest.raises(ValueError, match="contiguous"):
         tlb_sim.kernel.tlb_sim_carry_cuda(s[:, ::2], t[:, ::2], tags, last, 0)
     with pytest.raises(ValueError, match="set index"):
-        tlb_sim.kernel.tlb_sim_carry_cuda(s + TS + 1, t, tags, last, 0)
+        tlb_sim.kernel.tlb_sim_carry_cuda(s + case["TS"], t, tags, last, 0)
     with pytest.raises(ValueError, match="int32"):
         tlb_sim.kernel.tlb_sim_carry_cuda(s.long(), t, tags, last, 0)
 
 
-def test_system_sim_kernel_matches_plain_on_card():
+@pytest.mark.parametrize("case", _K2_CASES, ids=[c["name"] for c in _K2_CASES])
+def test_system_sim_kernel_matches_plain_on_card(case):
+    """The set-parallel K2 (cache pass, gated TLB pass) against its plain
+    version, chunk by chunk with the state carried, on the heterogeneous
+    8-config batch and the skewed and edge cases of K1 in all three
+    structures, with every combination of the three flags."""
     dev = _card()
-    cfgs = _system_cfgs()
-    lines = tlbsim.as_tensor(_lines(7, 2001), dev)
-    streams = sweep._system_streams(lines, cfgs)
-    geos, _ = sweep._system_layout(cfgs)
-    envs = [sweep._envelope(geo, range(len(cfgs))) for geo in geos]
-    state = tuple(x for e in envs
-                  for x in tlbsim.padded_tlb_state(len(cfgs), e[0] + 1, e[1], e[2], device=dev))
-    flags = tlbsim.system_flags(cfgs, dev)
-    n0 = system_sim.kernel.launches
-    got = system_sim.system_sim_batched_carry(*streams, flags, state, 3, kernel_mode="cuda")
-    assert system_sim.kernel.launches == n0 + 1
-    want = system_sim.system_sim_batched_carry(*streams, flags, state, 3,
-                                               kernel_mode="reference")
-    torch.cuda.synchronize()
-    for x, y in zip(got[0] + got[1], want[0] + want[1]):
-        assert torch.equal(x, y)
+    streams = [torch.from_numpy(x).to(dev) for x in case["streams"]]
+    flags = torch.from_numpy(case["flags"]).to(dev)
+    B, L = streams[0].shape
+    state = tuple(x for S, W, v in case["geom"]
+                  for x in tlbsim.padded_tlb_state(B, S, W, v, device=dev))
+    got_state, want_state = state, state
+    for lo, hi in chunks(L, case["cuts"]):
+        args = [x[:, lo:hi].contiguous() for x in streams]
+        n0 = system_sim.kernel.launches
+        got = system_sim.system_sim_batched_carry(*args, flags, got_state,
+                                                  case["now0"] + lo, kernel_mode="cuda")
+        assert system_sim.kernel.launches == n0 + (hi > lo)
+        want = system_sim.system_sim_batched_carry(*args, flags, want_state,
+                                                   case["now0"] + lo, kernel_mode="reference")
+        torch.cuda.synchronize()
+        for x, y in zip(got[0] + got[1], want[0] + want[1]):
+            assert torch.equal(x, y), f"chunk {lo}:{hi}"
+        got_state, want_state = got[1], want[1]
 
 
 @pytest.mark.parametrize("W", [1, 4, 16, 32, 40])
