@@ -19,8 +19,8 @@ K5 and K6.  One JSON line per phase:
 
 1. ``device``: the card, and its name and power limit from ``nvidia-smi``;
 2. ``build``: the kernels built for ``sm_90a`` from the sources in this
-   checkout, with ptxas's register / stack / spill lines; K1's and K2's
-   kernels must spill nothing;
+   checkout, with ptxas's register / stack / spill lines; K1's, K2's, K6's
+   and K8's kernels must spill nothing;
 3. ``kernel_vs_plain``: each simulator op entry point on the card against
    its plain PyTorch version on the same inputs (tolerance 0: hits, depths,
    timeline latency / overhead / done and carried state bit-identical), K1
@@ -57,7 +57,10 @@ K5 and K6.  One JSON line per phase:
    group 1), ragged prompts, Tq = 1, Tq < Tk, the bf16 kernel's tile edges
    (63, 64, 65 and 129 query rows; causal and not), B = 2 and one
    4,096-token call at qwen3's heads; unmapped pages, a context of 0 and
-   contexts that end mid-page;
+   contexts that end mid-page; and the split K6's edges
+   (``tests/_paged_cases.py``): contexts on and past the splits'
+   boundaries, a split of unmapped pages, one page, B = 1 at 4,096 and
+   1,900 keys (those two against the plain version in float64);
 7. ``serve_exact``: qwen3-14b's width cut to 2 layers in float32, the same
    prompts through the engine with the kernels and with the plain versions:
    the generated tokens must be equal (continuous batching and a fork with
@@ -74,7 +77,11 @@ K5 and K6.  One JSON line per phase:
    per prefill and K6 40 times per decode step.  The line has the prefill
    and decode wall times and tokens per second;
 9. ``timing`` for K5 and K6 at the serving path's shapes: CUDA-event time,
-   the plain version's time on the same calls, the bound (the larger of
+   for K6 also ``device_ms``, its kernels' summed durations as
+   ``torch.profiler`` (CUPTI) records them over the same calls (the split
+   kernel and the merge; the event time holds the wrapper's host time
+   between launches), and the split plan and blocks launched at each call
+   shape, the plain version's time on the same calls, the bound (the larger of
    bytes over 3.35 TB/s and operations over 989 TFLOP/s in bf16 for K5, over
    67 TFLOP/s in float32 for K6), and for K5 the time of
    ``torch.nn.functional.scaled_dot_product_attention`` on the same calls,
@@ -90,7 +97,9 @@ K5 and K6.  One JSON line per phase:
    within 5e-4 in float32 (the JAX package's scan tolerance) and 2e-2 in
    bf16 (one bf16 rounding of the output), final states within 5e-4, all
    finite: the JAX test shapes, rwkv6's and zamba2's head shapes (zamba2 at
-   its decays, where the TPU kernel gives NaN), T < chunk; and
+   its decays, where the TPU kernel gives NaN), T < chunk, and the bf16
+   tensor-core K8's edges (heads that do not fill a block, N and P below its
+   64-wide tiles); and
    ``scan_chunk_rule``: T % chunk != 0 raises;
 12. ``ssm_exact``: both families at full width in float32, rwkv6 cut to 2
    layers and zamba2 to 2 groups (6 Mamba2 layers): ``make_prefill_step``
@@ -114,8 +123,11 @@ K5 and K6.  One JSON line per phase:
    (reported: the JAX package's gap at full depth is not read on the CPU);
 14. ``timing`` for K7 and K8 at the long prefill's calls (CUDA events, the
    plain version on the same calls, the bound: bytes over 3.35 TB/s or the
-   recurrence's own float32 operations over 67 TFLOP/s), and ``timing_site`` for K5 and K6
-   at zamba2's calls (K6 held to its plain version in float64, as in 9).
+   recurrence's own operations over the rate of the unit the kernel uses,
+   67 TFLOP/s in float32, or 989 TFLOP/s for K8's bf16 tensor-core design;
+   K8 adds its ``design``, heads a block, ``device_ms`` and both bounds), and
+   ``timing_site`` for K5 and K6 at zamba2's calls (K6 held to its plain
+   version in float64, as in 9, with ``device_ms`` and its split plan).
 
 Then the ``{"kernels": [...]}`` line (K1-K8), the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Needs one card;
@@ -183,7 +195,8 @@ def main() -> int:
          ptxas=[ln.strip() for ln in lib.log.splitlines()
                 if ln.startswith("==") or "registers" in ln or "spill" in ln
                 or "Compiling entry" in ln])
-    for src, spill in _spills(lib.log, ("tlb_sim", "system_sim")):
+    for src, spill in _spills(lib.log, ("tlb_sim", "system_sim", "paged_attention",
+                                        "mamba2_scan")):
         fail(f"{src}: a kernel spills ({spill})")
 
     errs = check_kernels_against_plain(torch, trace)
@@ -822,6 +835,49 @@ def _event_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(torch, fn, kernels, calls=None) -> dict:
+    """The device time of ``fn()`` in the named kernels: the sum of their
+    durations as ``torch.profiler`` (CUPTI) records them over one run, after
+    a warm-up run; ``kernels`` are substrings of the kernels' names.  Returns
+    ``device_ms`` and, per kernel name, its launches and milliseconds.  With
+    ``calls`` (functions, the launches of ``fn`` one by one) also
+    ``device_ms_events``: the same calls enqueued in batches behind a held
+    stream (``torch.cuda._sleep``), so the host is ahead and CUDA events time
+    the device alone, the gaps between launches included."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")      # the tracer is recording before the calls
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and any(k in e.key for k in kernels)]
+    if not rows:
+        fail(f"device time: torch.profiler recorded no kernel named {kernels}")
+    out = {"device_ms": sum(e.self_device_time_total for e in rows) / 1e3,
+           "device_kernels": [{"name": e.key[:120], "launches": e.count,
+                               "ms": e.self_device_time_total / 1e3} for e in rows]}
+    if calls is not None:
+        total = 0.0
+        for i in range(0, len(calls), HELD_BATCH):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(HELD_CYCLES)
+            start, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            start.record()
+            for c in calls[i:i + HELD_BATCH]:
+                c()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        out["device_ms_events"] = total
+    return out
+
+
 def _tlb_stream_calls(torch, specs, lines, chunk: int):
     """The K1 launches of ``TLBSweepStream`` over ``lines`` in chunks of
     ``chunk`` accesses: (wrapper arguments, bytes, compares) per group and
@@ -1425,6 +1481,13 @@ def check_attention_against_plain(torch) -> dict:
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.paged_attention import kernel as k6
+    # The split kernel's edges (the card tests' too): contexts on and past the
+    # splits' boundaries, a split whose pages are all unmapped, one page, and
+    # B = 1 at 4,096 and 1,900 keys (those two against the plain version in
+    # float64).
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _paged_cases import EDGE_CASES, FLOAT64_EDGES, edge_inputs
 
     dev = torch.device("cuda")
     errs = {"flash_attention": 0.0, "paged_attention": 0.0}
@@ -1451,6 +1514,24 @@ def check_attention_against_plain(torch) -> dict:
         errs["paged_attention"] = max(errs["paged_attention"], _compare_tol(
             torch, "paged_attention", "paged_attention", [got.float()], [want.float()],
             ATTN_TOL[dt], **shape))
+    for i, (B, Hq, Hkv, D, page, pages, slots, dt, edge) in enumerate(EDGE_CASES):
+        plan = k6.split_plan(B, Hkv, pages, page, k6.sm_count(0), D, Hq // Hkv)
+        arrs = edge_inputs(np.random.default_rng(250 + i), B, Hq, Hkv, D, page, pages, slots,
+                           edge, plan.tiles_per_split * k6.TILE)
+        args = [torch.from_numpy(a).to(dev) for a in arrs]
+        args[0] = args[0].to(getattr(torch, dt))
+        shape = dict(B=B, Hq=Hq, Hkv=Hkv, D=D, page=page, pages=pages, q_dtype=dt, edge=edge,
+                     ctx=args[4].tolist(), splits=plan.splits,
+                     tiles_per_split=plan.tiles_per_split)
+        if edge in FLOAT64_EDGES:
+            errs["paged_attention"] = max(errs["paged_attention"], _paged_main_path_check(
+                torch, "paged_attention_partial (split edge)", args, {}, **shape))
+            continue
+        got, want = (pa.paged_attention_partial(*args, kernel_mode=m)
+                     for m in ("cuda", "reference"))
+        errs["paged_attention"] = max(errs["paged_attention"], _compare_tol(
+            torch, "paged_attention_partial (split edge)", "paged_attention", list(got),
+            list(want), ATTN_TOL["float32"], **shape))
     return errs
 
 
@@ -1667,6 +1748,31 @@ def _k5_design(torch, D: int) -> dict:
             "build_seconds": _build.load().build_s}
 
 
+K6_KERNELS = ("paged_attention_kernel", "paged_merge_kernel")
+HELD_BATCH = 400                   # calls enqueued behind one held stream
+HELD_CYCLES = 200_000_000          # the hold, ~0.1 s: longer than 400 calls' host time
+K8_KERNELS = ("mamba2_mma_kernel", "mamba2_fma_kernel")
+
+
+def _split_plans(torch, calls) -> list:
+    """K6's split plan at each distinct call shape of ``calls`` (q, k_pool,
+    v_pool, table, ctx, ...): splits, tiles a split, warps, and the blocks
+    launched a call (splits x KV heads x sequences), with the calls."""
+    from repro_torch.kernels.paged_attention import kernel as k6
+
+    plans = {}
+    for q, kp, _, table, _ in (c[:5] for c in calls):
+        key = (q.shape[0], q.shape[1], kp.shape[1], kp.shape[2], kp.shape[3], table.shape[1])
+        plans[key] = plans.get(key, 0) + 1
+    out = []
+    for (B, Hq, page, Hkv, D, pages), n in sorted(plans.items()):
+        plan = k6.split_plan(B, Hkv, pages, page, k6.sm_count(0), D, Hq // Hkv)
+        out.append({"B": B, "pages": pages, "page": page, "splits": plan.splits,
+                    "tiles_per_split": plan.tiles_per_split, "warps": plan.warps,
+                    "blocks": plan.splits * Hkv * B, "calls": n})
+    return out
+
+
 def time_attention(torch, eng, rec, launches, errs) -> list:
     """Phase 9: K5 and K6 at the main path's shapes, against their plain
     versions on the same calls, with K5's library yardstick
@@ -1741,6 +1847,8 @@ def time_attention(torch, eng, rec, launches, errs) -> list:
         err = max(err, _paged_main_path_check(torch, "paged_attention_partial (main-path call)",
                                               c, {}, B=c[0].shape[0], ctx=c[4].tolist()))
     ms = _event_ms(torch, lambda: [paged_attention_cuda(*c) for c in calls], reps=1)
+    dev_ms = _device_ms(torch, lambda: [paged_attention_cuda(*c) for c in calls], K6_KERNELS,
+                        [lambda c=c: paged_attention_cuda(*c) for c in calls])
     plain_ms = _event_ms(torch, lambda: [paged_attention_ref(*c, return_residuals=True)
                                          for c in calls], reps=1)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
@@ -1756,7 +1864,9 @@ def time_attention(torch, eng, rec, launches, errs) -> list:
                     f"pages, "
                     f"bf16 queries",
            "kernel_launches_timed": len(calls), "bytes": nbytes, "operations": flops,
-           "ms_per_step_all_layers": ms / steps, "gb_per_s": nbytes / ms / 1e6}
+           "ms_per_step_all_layers": ms / steps, "gb_per_s": nbytes / ms / 1e6,
+           **dev_ms, "device_gb_per_s": nbytes / dev_ms["device_ms"] / 1e6,
+           "split_plans": _split_plans(torch, calls)}
     emit("timing", **row)
     rows.append(row)
     return rows
@@ -1888,6 +1998,14 @@ MAMBA2_CHECKS = [
     (2, 112, 256, 64, 64, 64, "bfloat16", True),
     (2, 112, 256, 64, 64, 64, "float32", True),
     (1, 8, 40, 64, 64, 64, "float32", True),
+    # The bf16 tensor-core kernel's edges: H not a multiple of the heads a
+    # block, T < chunk, N and P below its 64-wide tiles; zamba2's P = N = 64
+    # in float32 and bf16 at a batch of 1.
+    (2, 7, 128, 64, 64, 64, "bfloat16", True),
+    (1, 5, 40, 64, 64, 64, "bfloat16", True),
+    (2, 3, 96, 16, 32, 32, "bfloat16", False),
+    (1, 112, 128, 64, 64, 64, "float32", True),
+    (1, 112, 128, 64, 64, 64, "bfloat16", True),
 ]
 
 
@@ -2303,6 +2421,24 @@ def _once_ms(torch, fn) -> float:
     return start.elapsed_time(end)
 
 
+def _mamba2_design(torch, calls, t_bytes: float, t_ops_f32: float) -> dict:
+    """K8's design and heads a block at the first of ``calls``, and its bound
+    both at the rate of the unit the design uses (bf16 tensor cores,
+    989 TFLOP/s, for the tensor-core kernel) and at the float32 rate."""
+    from repro_torch.kernels.mamba2_scan import kernel as k8
+
+    x = calls[0][0][0]
+    d = k8.design(x.dtype)
+    out = {"design": d, "bound_ms_f32_rate": max(t_bytes, t_ops_f32)}
+    if d != "fma":
+        plan = k8.heads_plan(x.shape[0], x.shape[1], k8.sm_count(0))
+        out.update(heads_per_block=plan.heads_per_block, blocks=plan.blocks,
+                   blocks_per_sm=plan.blocks_per_sm,
+                   bound_ms_tensor_core=max(t_bytes, t_ops_f32 * F32_FLOPS_PER_S
+                                            / BF16_FLOPS_PER_S))
+    return out
+
+
 def time_scans(torch, serve: dict, errs: dict) -> list:
     """Phase 14: K7 and K8 at the long prefill's calls (CUDA events, every
     call), their plain versions on the same calls, the bound; then K5 and K6
@@ -2340,8 +2476,16 @@ def time_scans(torch, serve: dict, errs: dict) -> list:
                                          kernel(*args, **kw), plain(*args), dt,
                                          shape=list(args[0].shape)))
         ms = _event_ms(torch, lambda: [kernel(*a, **kw) for a, kw in calls], reps=1)
-        plain_ms = _once_ms(torch, lambda: [plain(*a) for a, kw in calls])
+        extra = {}
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
+        if name == "mamba2_scan":
+            extra = _mamba2_design(torch, calls, t_bytes, t_ops)
+            extra.update(_device_ms(torch, lambda: [kernel(*a, **kw) for a, kw in calls],
+                                    K8_KERNELS, [lambda a=a, kw=kw: kernel(*a, **kw)
+                                                 for a, kw in calls]))
+            if extra["design"] != "fma":     # the products run at the bf16 tensor-core rate
+                t_ops = ops / BF16_FLOPS_PER_S * 1e3
+        plain_ms = _once_ms(torch, lambda: [plain(*a) for a, kw in calls])
         cfg = serve[arch]["cfg"]
         row = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
@@ -2354,7 +2498,7 @@ def time_scans(torch, serve: dict, errs: dict) -> list:
                         f"{calls[0][0][0].dtype}, chunk {calls[0][1].get('chunk')}",
                "kernel_launches_timed": len(calls), "bytes": nbytes, "operations": ops,
                "ms_per_call": ms / len(calls), "plain_shape": "the same calls in full",
-               "gflops_per_s": ops / ms / 1e6, "layers": cfg.num_layers}
+               "gflops_per_s": ops / ms / 1e6, "layers": cfg.num_layers, **extra}
         emit("timing", **row)
         rows.append(row)
         del calls
@@ -2397,6 +2541,9 @@ def time_scans(torch, serve: dict, errs: dict) -> list:
         err = max(err, _paged_main_path_check(torch, "paged_attention_partial (zamba2 decode call)",
                                               a, kw, ctx=a[4].tolist()))
     ms = _event_ms(torch, lambda: [paged_attention_cuda(*a, **kw) for a, kw in k6], reps=1)
+    dev_ms = _device_ms(torch, lambda: [paged_attention_cuda(*a, **kw) for a, kw in k6],
+                        K6_KERNELS, [lambda a=a, kw=kw: paged_attention_cuda(*a, **kw)
+                                     for a, kw in k6])
     plain_ms = _once_ms(torch, lambda: [paged_attention_ref(*a, return_residuals=True, **kw)
                                         for a, kw in k6])
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
@@ -2407,7 +2554,8 @@ def time_scans(torch, serve: dict, errs: dict) -> list:
                f"{SSM_PAGE}-token f32 pages, head_dim 112, group 1, bf16 queries",
          launches=len(k6), max_abs_err=err, ms=ms, plain_ms=plain_ms,
          bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-         library_ms=None, bytes=nbytes, operations=flops)
+         library_ms=None, bytes=nbytes, operations=flops, **dev_ms,
+         split_plans=_split_plans(torch, [a for a, _ in k6]))
     return rows
 
 

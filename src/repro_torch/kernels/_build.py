@@ -58,13 +58,15 @@ SIGNATURES = {
     # plan (head dim, block q, block k, stages, threads, smem bytes, width),
     # stream
     "flash_attention_launch": [c_ptr] * 4 + [c_int] * 6 + [c_float] + [c_int] * 9 + [c_ptr],
-    # q, k_pool, v_pool, table, ctx, acc, m, l, B, Hq, Hkv, D, page, pages,
-    # scale, q_dtype, stream
-    "paged_attention_launch": [c_ptr] * 8 + [c_int] * 6 + [c_float, c_int, c_ptr],
+    # q, k_pool, v_pool, table, ctx, acc, m, l, scratch, B, Hq, Hkv, D, page,
+    # pages, scale, q_dtype, then the split plan (splits, tiles a split,
+    # warps, smem bytes), stream
+    "paged_attention_launch": [c_ptr] * 9 + [c_int] * 6 + [c_float] + [c_int] * 5 + [c_ptr],
     # r, k, v, w, u, o, s, B, H, T, N, chunk, dtype, stream
     "rwkv6_scan_launch": [c_ptr] * 7 + [c_int] * 6 + [c_ptr],
-    # x, dt, A, Bm, C, D, y, s, B, H, T, P, N, chunk, dtype, stream
-    "mamba2_scan_launch": [c_ptr] * 8 + [c_int] * 7 + [c_ptr],
+    # x, dt, A, Bm, C, D, y, s, B, H, T, P, N, chunk, dtype, heads a block,
+    # smem bytes, stream
+    "mamba2_scan_launch": [c_ptr] * 8 + [c_int] * 9 + [c_ptr],
     "cuda_error_string": [c_int],
 }
 

@@ -17,34 +17,45 @@
 // table, and translation rides with the fetch.  On the TPU the table is a
 // scalar-prefetch operand whose values program the DMA of the KV page.
 // Here a block reads its own row of the table: each lane of a warp owns one
-// key of the 32-key tile and translates it (its page's slot), and the lanes
-// read the slots of the warp's next tile before this tile is fetched and
-// computed, so the lookup for page p + 1 is in flight while page p is.
+// key of the 32-key tile, translates it (its page's slot and the row's
+// offset in the pool) and issues that row's copy itself, and the lanes
+// translate the keys of the warp's next tile while this tile's copies are
+// in flight, so the lookup for page p + 1 rides with the fetch of page p.
 // Tiles whose keys are all invalid (past ctx, or on an unmapped page) are
 // not loaded.
 //
-// Layout: one block per (sequence, KV head), so the G = Hq / Hkv query heads
-// that share a KV head share each K and V row read from device memory.  The
-// block's warps split the keys (warp w takes tiles w, w + W, ...), each with
-// its own (m, l, acc) for all G heads in registers and its own K and V tile
-// in shared memory, copied with cp.async (all of a tile's 16-byte copies in
-// flight at once; K rows padded to D + 4 floats, so the lanes' float4 reads
-// of their keys' rows hit distinct banks); at the end the warps' partials
-// are merged through shared memory exactly as merge_partials merges
-// partitions.
-//
 // Bound on this card: decode attention reads the whole valid KV of every
 // sequence once (2 * ctx * Hkv * D * 4 bytes) and does 4 * ctx * Hq * D
-// FLOPs, about one FLOP per byte: bytes-bound at 3.35 TB/s.  This first
-// kernel runs B * Hkv blocks, 32 at the engine's batch of 4 on qwen3-14b's
-// 8 KV heads, on a card of 132 SMs, and a warp's chain of dependent
-// shared-memory reads, shuffles and exponentials is latency-bound: on the
-// H100 the kernel's time falls nearly as 1 / (warps per block), so the block
-// takes as many warps as shared memory holds, up to 8 (6 at D = 128, 3 at
-// D = 256).  A second, double-buffered stage per warp gained nothing at
-// equal warps and halved the warps shared memory holds.  Splitting the pages
-// of a sequence over more blocks and merging their residuals (as the
-// cross-partition merge does) is the next step (ROADMAP.md).
+// FLOPs, about one FLOP per byte: it is bound by bytes, 3.35 TB/s.  Reaching
+// that takes enough bytes in flight on every SM.  One block per (sequence,
+// KV head), the first design, ran 32 blocks at qwen3-14b's batch of 4 and
+// 8 KV heads on a card of 132 SMs and moved ~166 GB/s (chip_smoke.py).  So the grid is
+// (split, KV head, sequence): the wrapper's split_plan (kernel.py) cuts each
+// sequence's table into `splits` contiguous ranges of whole 32-key tiles
+// from the shapes alone (it never reads ctx_len, which would cost a sync a
+// layer), enough for two or more blocks on every SM and about two tiles a
+// warp (qwen3-14b at batch 4, nine pages: 12 ranges, 384 blocks of 3 warps).  A block
+// whose range starts at or past ctx_len writes the empty partial and exits.
+// A table whose tiles fit one block's warps runs unsplit when the (sequence,
+// KV head) blocks already fill half the card (zamba2-7b's decode: 128 blocks
+// of 6 warps), where a merge would cost more than the split saves.  Inside a
+// block the warps take tiles w, w + W, ..., each with its own (m, l, acc)
+// for the G = Hq / Hkv query heads that share the KV head (so each K and V
+// row read from device memory serves G heads; qwen3's G = 5 has an instance
+// of its own, so the guards on g < G fold away) and its own K and V tile in
+// shared memory.  A tile's rows arrive by bulk copies (cp.async.bulk, the
+// copy engine Hopper's TMA drives: one instruction a 512-byte row, counted
+// by an mbarrier a buffer) instead of 16-byte cp.async copies, 64
+// instructions a warp a tile.  K rows are padded to D + 4 floats, so the
+// lanes' float4 reads of their keys' rows hit distinct banks.  K and V have
+// a barrier each, so the scores of a tile are computed while its V rows
+// arrive and its P V while the next tile's K rows arrive: the two buffers
+// take turns, and a warp keeps a copy in flight at no cost in shared memory
+// (a second full stage would halve the warps shared memory holds).  The
+// warps' partials are merged through shared memory, and with more than one
+// split a second small kernel merges the splits' partials exactly as
+// merge_partials merges partitions, on the card (a block a row, its warps
+// taking the splits in turn).
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,7 +63,7 @@
 namespace {
 
 constexpr int kTile = 32;                 // keys per warp tile, one per lane
-constexpr int kMaxWarps = 8;
+constexpr int kMaxWarps = 8;              // a warp a tile of an unsplit table
 constexpr int kSmemLimit = 227 * 1024;    // shared memory a block may use
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -72,108 +83,173 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// The slot of key `kpos` of sequence `trow`, or -1 if the key is not valid.
-__device__ __forceinline__ int translate(const int32_t* __restrict__ trow, int kpos,
-                                         int n_keys, int page) {
-  return kpos < n_keys ? trow[kpos / page] : -1;
+// The pool offset (in floats) of key `kpos`'s row for KV head h, or -1 if
+// the key is not valid (past n_keys, or on an unmapped page).
+__device__ __forceinline__ long long translate(const int32_t* __restrict__ trow, int kpos,
+                                               int n_keys, int page, long long row_stride,
+                                               long long head_off) {
+  if (kpos >= n_keys) return -1;
+  const int pg = kpos / page;
+  const int slot = trow[pg];
+  if (slot < 0) return -1;
+  return ((long long)slot * page + (kpos - pg * page)) * row_stride + head_off;
 }
 
-// 16-byte asynchronous copy from device memory to shared memory (sm_80+),
-// bypassing L1; completion is tracked per thread by commit groups.
-__device__ __forceinline__ void cp_async16(float* smem_dst, const float* gmem_src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
                : "memory");
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Copy one 32-key tile into shared memory (K rows of D + 4 floats, 16-byte
-// aligned; V rows of D floats), all copies in flight at once: row j is
-// pool[slot_j, kpos_j % page, h, :] for the slot lane j translated, and an
-// invalid key gets zero rows.
-__device__ __forceinline__ void stage_tile(float* ks, float* vs, const float* k_pool,
-                                           const float* v_pool, int slot, int k0, int lane,
-                                           int D, int page, size_t row_stride, int h) {
-  const int d4 = D >> 2;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int e = lane; e < kTile * d4; e += 32) {
-    const int j = e / d4, c = e - j * d4;
-    const int sj = __shfl_sync(kFull, slot, j);
-    float* dk = ks + j * (D + 4) + 4 * c;
-    float* dv = vs + j * D + 4 * c;
-    if (sj >= 0) {
-      const size_t off = ((size_t)sj * page + (k0 + j) % page) * row_stride +
-                         (size_t)h * D + 4 * c;
-      cp_async16(dk, k_pool + off);
-      cp_async16(dv, v_pool + off);
-    } else {
-      *reinterpret_cast<float4*>(dk) = zero;
-      *reinterpret_cast<float4*>(dv) = zero;
-    }
+// Bulk copies: lane j copies key j's row (D floats) with one
+// cp.async.bulk counted by the barrier; a lane whose key is invalid zeroes
+// its row instead.
+__device__ __forceinline__ void bulk_rows(float* dst, int ld, const float* pool, long long off,
+                                          int lane, int D, uint32_t bar) {
+  const unsigned valid = __ballot_sync(kFull, off >= 0);
+  if (lane == 0) mbar_expect_tx(bar, __popc(valid) * D * 4);
+  __syncwarp();
+  float* row = dst + lane * ld;
+  if (off >= 0) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(row)),
+        "l"(pool + off), "r"(D * 4), "r"(bar)
+        : "memory");
+  } else {
+    for (int c = 0; c < D; c += 4)
+      *reinterpret_cast<float4*>(row + c) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  cp_async_commit();
 }
 
-// MAXG: query heads per KV head (G <= MAXG); MAXPER: accumulator columns
-// per lane (D <= 32 * MAXPER).
-template <typename T, int MAXG, int MAXPER>
+// Shared memory of one block: q [G][D], then per warp a K tile
+// [32][D + 4], a V tile [32][D], the tile's probabilities [G][32] and the
+// two tiles' mbarriers (16 bytes).
+__host__ __device__ inline size_t warp_floats(int D, int G) {
+  return (size_t)kTile * (2 * D + 4) + (size_t)kTile * G + 4;
+}
+__host__ __device__ inline size_t block_smem(int D, int G, int warps) {
+  return sizeof(float) * ((size_t)G * D + warps * warp_floats(D, G));
+}
+
+// MAXG: query heads per KV head (G <= MAXG, G == MAXG when EXACT: the
+// guards on g < G fold away); NC4: float4 columns of the accumulator per
+// lane (D <= 128 * NC4).  Grid (splits, Hkv, B).  With
+// splits == 1 the block writes the residuals; else it writes its split's
+// partial, acc to part_acc [splits][B * Hq][D] and m, l to
+// part_m, part_l [splits][B * Hq].
+template <typename T, int MAXG, int NC4, bool EXACT>
 __global__ void paged_attention_kernel(
     const T* __restrict__ q, const float* __restrict__ k_pool,
     const float* __restrict__ v_pool, const int32_t* __restrict__ table,
     const int32_t* __restrict__ ctx_len, float* __restrict__ o_acc,
-    float* __restrict__ o_m, float* __restrict__ o_l, int Hq, int Hkv, int D,
-    int page, int pages, float scale) {
+    float* __restrict__ o_m, float* __restrict__ o_l, int B, int Hq, int Hkv, int D,
+    int page, int pages, float scale, int tiles_per_split) {
   extern __shared__ __align__(16) float smem[];
-  const int G = Hq / Hkv;
+  const int G = EXACT ? MAXG : Hq / Hkv;
   const int warps = blockDim.x >> 5;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int h = blockIdx.x, b = blockIdx.y;
-  float* qs = smem;                                       // [G][D]
-  float* tiles = qs + G * D;
-  float* ks = tiles + (size_t)warp * kTile * (2 * D + 4);  // [kTile][D + 4]
-  float* vs = ks + kTile * (D + 4);                         // [kTile][D]
+  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const size_t part = (size_t)split * B * Hq;              // this split's rows
+  const size_t row0 = (size_t)b * Hq + (size_t)h * G;      // first output row
+  float* acc_out = o_acc + (part + row0) * D;
+  float* m_out = o_m + part + row0;
+  float* l_out = o_l + part + row0;
 
-  const T* qb = q + ((size_t)b * Hq + (size_t)h * G) * D;
+  const int n_keys = min(ctx_len[b], pages * page);
+  const int tile0 = split * tiles_per_split;
+  const int tile_end = min(tile0 + tiles_per_split, (n_keys + kTile - 1) / kTile);
+  if (tile0 >= tile_end) {                  // the range starts past ctx: empty partial
+    for (int e = tid; e < G * D; e += blockDim.x) acc_out[e] = 0.f;
+    for (int g = tid; g < G; g += blockDim.x) {
+      m_out[g] = kNegInf;
+      l_out[g] = 0.f;
+    }
+    return;
+  }
+
+  float* qs = smem;                                             // [G][D]
+  float* tiles = qs + G * D;
+  float* ks = tiles + (size_t)warp * warp_floats(D, G);         // [32][D + 4]
+  float* vs = ks + kTile * (D + 4);                             // [32][D]
+  float* ps = vs + kTile * D;                                   // [G][32]
+  const uint32_t bar_k = smem_u32(ps + kTile * G), bar_v = bar_k + 8;
+  if (lane == 0) {
+    mbar_init(bar_k, 1);
+    mbar_init(bar_v, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+  uint32_t ph_k = 0, ph_v = 0;
+
+  const T* qb = q + row0 * D;
   for (int e = tid; e < G * D; e += blockDim.x) qs[e] = to_f32(qb[e]);
   __syncthreads();
 
   const int32_t* trow = table + (size_t)b * pages;
-  const int n_keys = min(ctx_len[b], pages * page);
-  const size_t row_stride = (size_t)Hkv * D;              // between tokens of a page
+  const long long row_stride = (long long)Hkv * D;             // between tokens of a page
+  const long long head_off = (long long)h * D;
+  const int d4 = D >> 2;
 
-  float m[MAXG], l[MAXG], acc[MAXG][MAXPER];
+  float m[MAXG], l[MAXG];
+  float4 acc[MAXG][NC4];
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int i = 0; i < MAXPER; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < NC4; ++i) acc[g][i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  // Warp w takes tiles k0 = 32 w, 32 (w + W), ...; the table lookups of its
-  // next tile are issued before this tile is fetched and computed.
+  // Warp w takes tiles tile0 + w, tile0 + w + W, ... of the block's range,
+  // K and V of a tile under a barrier each: the scores of tile i are
+  // computed while its V rows arrive, and P V of tile i while the K rows of
+  // tile i + 1 arrive.  The table lookups of tile i + 1 are issued while
+  // tile i's copies are in flight.  A tile without a valid key is neither
+  // copied nor computed (no copy is issued, no barrier waited on).  The
+  // __syncwarp()s between a buffer's reads and its next copies also make a
+  // lane's zeroed rows visible to the others.
+  const int k_end = tile_end * kTile;
   const int kstep = warps * kTile;
-  int k0 = warp * kTile;
-  int slot = translate(trow, k0 + lane, n_keys, page);
-  for (; k0 < n_keys; k0 += kstep) {
-    const int slot_next = translate(trow, k0 + kstep + lane, n_keys, page);
-    const bool valid = slot >= 0;
-    if (__ballot_sync(kFull, valid)) {
-      stage_tile(ks, vs, k_pool, v_pool, slot, k0, lane, D, page, row_stride, h);
-      cp_async_wait<0>();
-      __syncwarp();
-
+  int k0 = (tile0 + warp) * kTile;
+  long long off = k0 < k_end ? translate(trow, k0 + lane, n_keys, page, row_stride, head_off)
+                             : -1;
+  bool any = __ballot_sync(kFull, off >= 0) != 0;
+  if (any) bulk_rows(ks, D + 4, k_pool, off, lane, D, bar_k);
+  if (any) bulk_rows(vs, D, v_pool, off, lane, D, bar_v);
+  for (; k0 < k_end; k0 += kstep) {
+    const int kn = k0 + kstep;
+    const long long off_next =
+        kn < k_end ? translate(trow, kn + lane, n_keys, page, row_stride, head_off) : -1;
+    const bool any_next = __ballot_sync(kFull, off_next >= 0) != 0;
+    const bool valid = off >= 0;
+    if (any) {
+      mbar_wait(bar_k, ph_k);               // tile i's K rows have landed
+      ph_k ^= 1;
+      // Scores: lane j takes key j of the tile.
       const float* krow = ks + lane * (D + 4);
       float s[MAXG];
 #pragma unroll
       for (int g = 0; g < MAXG; ++g) s[g] = 0.f;
-      for (int d = 0; d < D; d += 4) {    // D % 8 == 0
+#pragma unroll 4
+      for (int d = 0; d < D; d += 4) {      // D % 8 == 0
         const float4 kv = *reinterpret_cast<const float4*>(krow + d);
 #pragma unroll
         for (int g = 0; g < MAXG; ++g) {
@@ -186,46 +262,100 @@ __global__ void paged_attention_kernel(
           }
         }
       }
+      // Online softmax per head; the tile's probabilities go to shared memory.
 #pragma unroll
       for (int g = 0; g < MAXG; ++g) {
-        if (g >= G) break;                // G is uniform over the block
-        const float sg = valid ? s[g] * scale : kNegInf;
-        const float m_new = fmaxf(m[g], warp_max(sg));
-        const float alpha = expf(m[g] - m_new);
-        const float p = valid ? expf(sg - m_new) : 0.f;
-        l[g] = l[g] * alpha + warp_sum(p);
+        if (g < G) {
+          const float sg = valid ? s[g] * scale : kNegInf;
+          const float m_new = fmaxf(m[g], warp_max(sg));
+          const float alpha = expf(m[g] - m_new);
+          const float p = valid ? expf(sg - m_new) : 0.f;
+          l[g] = l[g] * alpha + warp_sum(p);
 #pragma unroll
-        for (int i = 0; i < MAXPER; ++i) acc[g][i] *= alpha;
-        m[g] = m_new;
-        s[g] = p;
+          for (int i = 0; i < NC4; ++i) {
+            acc[g][i].x *= alpha;
+            acc[g][i].y *= alpha;
+            acc[g][i].z *= alpha;
+            acc[g][i].w *= alpha;
+          }
+          m[g] = m_new;
+          ps[g * kTile + lane] = p;
+        }
       }
-      for (int j = 0; j < kTile; ++j) {
-        float pj[MAXG];
+    }
+    __syncwarp();                           // K consumed, P written
+    if (any_next) bulk_rows(ks, D + 4, k_pool, off_next, lane, D, bar_k);
+    if (any) {
+      mbar_wait(bar_v, ph_v);               // tile i's V rows have landed
+      ph_v ^= 1;
+      // acc += P V: lane owns the float4 columns lane, lane + 32, ...; four
+      // keys at a time, their V rows in registers, P read as a float4.
+#pragma unroll 1
+      for (int j = 0; j < kTile; j += 4) {
+        float4 v[4][NC4];
 #pragma unroll
-        for (int g = 0; g < MAXG; ++g) pj[g] = __shfl_sync(kFull, s[g], j);
-        const float* vrow = vs + j * D;
+        for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
-        for (int i = 0; i < MAXPER; ++i) {
-          const int d = lane + 32 * i;
-          if (d < D) {
-            const float vd = vrow[d];
+          for (int i = 0; i < NC4; ++i) {
+            const int c = lane + 32 * i;
+            v[jj][i] = c < d4 ? *reinterpret_cast<const float4*>(vs + (j + jj) * D + 4 * c)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+          }
+        }
 #pragma unroll
-            for (int g = 0; g < MAXG; ++g) {
-              if (g < G) acc[g][i] = fmaf(pj[g], vd, acc[g][i]);
+        for (int g = 0; g < MAXG; ++g) {
+          if (g < G) {
+            const float4 p4 = *reinterpret_cast<const float4*>(ps + g * kTile + j);
+            const float pj[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+              for (int i = 0; i < NC4; ++i) {
+                acc[g][i].x = fmaf(pj[jj], v[jj][i].x, acc[g][i].x);
+                acc[g][i].y = fmaf(pj[jj], v[jj][i].y, acc[g][i].y);
+                acc[g][i].z = fmaf(pj[jj], v[jj][i].z, acc[g][i].z);
+                acc[g][i].w = fmaf(pj[jj], v[jj][i].w, acc[g][i].w);
+              }
             }
           }
         }
       }
-      __syncwarp();                         // the tile is consumed before it refills
     }
-    slot = slot_next;
+    __syncwarp();                           // V and P consumed
+    if (any_next) bulk_rows(vs, D, v_pool, off_next, lane, D, bar_v);
+    off = off_next;
+    any = any_next;
+  }
+  if (lane == 0) {
+    asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(bar_k) : "memory");
+    asm volatile("mbarrier.inval.shared::cta.b64 [%0];\n" ::"r"(bar_v) : "memory");
+  }
+  __syncwarp();
+
+  if (warps == 1) {
+#pragma unroll
+    for (int g = 0; g < MAXG; ++g) {
+      if (g < G) {
+        if (lane == 0) {
+          m_out[g] = m[g];
+          l_out[g] = l[g];
+        }
+#pragma unroll
+        for (int i = 0; i < NC4; ++i) {
+          const int c = lane + 32 * i;
+          if (c < d4) *reinterpret_cast<float4*>(acc_out + g * D + 4 * c) = acc[g][i];
+        }
+      }
+    }
+    return;
   }
 
   // Merge the warps' partials: the tiles are free now.
   __syncthreads();
   float* red_m = tiles;                     // [warps][G]
   float* red_l = red_m + warps * G;         // [warps][G]
-  float* red_acc = red_l + warps * G;       // [warps][G][D]
+  float* red_acc = red_l + warps * G;       // [warps][G][D], 16-byte aligned (G even or not:
+                                            // written as scalars below)
 #pragma unroll
   for (int g = 0; g < MAXG; ++g) {
     if (g < G) {
@@ -234,9 +364,15 @@ __global__ void paged_attention_kernel(
         red_l[warp * G + g] = l[g];
       }
 #pragma unroll
-      for (int i = 0; i < MAXPER; ++i) {
-        const int d = lane + 32 * i;
-        if (d < D) red_acc[((size_t)warp * G + g) * D + d] = acc[g][i];
+      for (int i = 0; i < NC4; ++i) {
+        const int c = lane + 32 * i;
+        if (c < d4) {
+          float* dst = red_acc + ((size_t)warp * G + g) * D + 4 * c;
+          dst[0] = acc[g][i].x;
+          dst[1] = acc[g][i].y;
+          dst[2] = acc[g][i].z;
+          dst[3] = acc[g][i].w;
+        }
       }
     }
   }
@@ -251,56 +387,134 @@ __global__ void paged_attention_kernel(
       a += red_acc[((size_t)w * G + g) * D + d] * alpha;
       ls += red_l[w * G + g] * alpha;
     }
-    const size_t row = (size_t)b * Hq + (size_t)h * G + g;
-    o_acc[row * D + d] = a;
+    acc_out[e] = a;
     if (d == 0) {
-      o_m[row] = mx;
-      o_l[row] = ls;
+      m_out[g] = mx;
+      l_out[g] = ls;
     }
   }
 }
 
-template <typename T, int MAXG, int MAXPER>
+// The splits' partials [splits][rows][D] (+ m, l [splits][rows]) merged as
+// merge_partials merges partitions, left as residuals against the merged m:
+// one block of kMergeWarps warps per output row (b, query head); warp w sums
+// splits w, w + kMergeWarps, ... (lane: float4 columns lane, lane + 32), and
+// the warps' sums are added through shared memory.
+constexpr int kMergeWarps = 8;
+
+__global__ void __launch_bounds__(32 * kMergeWarps) paged_merge_kernel(
+    const float* __restrict__ part_acc, const float* __restrict__ part_m,
+    const float* __restrict__ part_l, float* __restrict__ acc, float* __restrict__ m,
+    float* __restrict__ l, int splits, int rows, int D) {
+  __shared__ __align__(16) float red[kMergeWarps][256];
+  __shared__ float red_l[kMergeWarps];
+  const int row = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int d4 = D >> 2;
+  float mx = kNegInf;
+  for (int s = lane; s < splits; s += 32) mx = fmaxf(mx, part_m[(size_t)s * rows + row]);
+  mx = warp_max(mx);
+  float4 a[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+  float ls = 0.f;
+  for (int s = warp; s < splits; s += kMergeWarps) {
+    const size_t r = (size_t)s * rows + row;
+    const float alpha = expf(part_m[r] - mx);
+    ls += part_l[r] * alpha;
+    const float4* src = reinterpret_cast<const float4*>(part_acc + r * D);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = lane + 32 * i;
+      if (c < d4) {
+        const float4 v = src[c];
+        a[i].x = fmaf(v.x, alpha, a[i].x);
+        a[i].y = fmaf(v.y, alpha, a[i].y);
+        a[i].z = fmaf(v.z, alpha, a[i].z);
+        a[i].w = fmaf(v.w, alpha, a[i].w);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int c = lane + 32 * i;
+    if (c < d4) *reinterpret_cast<float4*>(&red[warp][4 * c]) = a[i];
+  }
+  if (lane == 0) red_l[warp] = ls;
+  __syncthreads();
+  for (int d = tid; d < D; d += 32 * kMergeWarps) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kMergeWarps; ++w) v += red[w][d];
+    acc[(size_t)row * D + d] = v;
+  }
+  if (tid == 0) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kMergeWarps; ++w) v += red_l[w];
+    m[row] = mx;
+    l[row] = v;
+  }
+}
+
+template <typename T, int MAXG, int NC4, bool EXACT>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* table,
-           const void* ctx, void* o_acc, void* o_m, void* o_l, int B, int Hq, int Hkv,
-           int D, int page, int pages, float scale, cudaStream_t stream) {
+           const void* ctx, void* o_acc, void* o_m, void* o_l, void* scratch, int B, int Hq,
+           int Hkv, int D, int page, int pages, float scale, int splits,
+           int tiles_per_split, int warps, int smem, cudaStream_t stream) {
   const int G = Hq / Hkv;
-  const size_t per_warp = sizeof(float) * (size_t)kTile * (2 * D + 4);
-  const size_t q_bytes = sizeof(float) * (size_t)G * D;
-  int warps = (int)((kSmemLimit - q_bytes) / per_warp);
-  warps = warps < kMaxWarps ? warps : kMaxWarps;
-  if (warps < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = q_bytes + warps * per_warp;
-  cudaError_t err = cudaFuncSetAttribute(paged_attention_kernel<T, MAXG, MAXPER>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  paged_attention_kernel<T, MAXG, MAXPER><<<dim3(Hkv, B), 32 * warps, smem, stream>>>(
+  if (warps < 1 || warps > kMaxWarps || smem > kSmemLimit ||
+      (size_t)smem != block_smem(D, G, warps) || splits < 1 || tiles_per_split < 1 ||
+      (long long)splits * tiles_per_split * kTile < (long long)pages * page ||
+      (splits > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
+  static int smem_set = 0;                  // the attribute, once per instance and size
+  if (smem > smem_set) {
+    cudaError_t err = cudaFuncSetAttribute(paged_attention_kernel<T, MAXG, NC4, EXACT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           kSmemLimit);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = kSmemLimit;
+  }
+  const size_t rows = (size_t)B * Hq;
+  float* acc = (float*)o_acc;
+  float* m = (float*)o_m;
+  float* l = (float*)o_l;
+  if (splits > 1) {
+    acc = (float*)scratch;
+    m = acc + (size_t)splits * rows * D;
+    l = m + (size_t)splits * rows;
+  }
+  paged_attention_kernel<T, MAXG, NC4, EXACT><<<dim3(splits, Hkv, B), 32 * warps, smem,
+                                                 stream>>>(
       (const T*)q, (const float*)k_pool, (const float*)v_pool, (const int32_t*)table,
-      (const int32_t*)ctx, (float*)o_acc, (float*)o_m, (float*)o_l, Hq, Hkv, D, page,
-      pages, scale);
+      (const int32_t*)ctx, acc, m, l, B, Hq, Hkv, D, page, pages, scale, tiles_per_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  paged_merge_kernel<<<(unsigned)rows, 32 * kMergeWarps, 0, stream>>>(
+      acc, m, l, (float*)o_acc, (float*)o_m, (float*)o_l, splits, (int)rows, D);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* table,
-             const void* ctx, void* o_acc, void* o_m, void* o_l, int B, int Hq, int Hkv,
-             int D, int page, int pages, float scale, cudaStream_t s) {
+             const void* ctx, void* o_acc, void* o_m, void* o_l, void* scratch, int B,
+             int Hq, int Hkv, int D, int page, int pages, float scale, int splits,
+             int tiles_per_split, int warps, int smem, cudaStream_t s) {
   const int G = Hq / Hkv;
-#define K6_CASE(MG, MP)                                                              \
-  return launch<T, MG, MP>(q, k_pool, v_pool, table, ctx, o_acc, o_m, o_l, B, Hq, Hkv, \
-                           D, page, pages, scale, s)
+#define K6_CASE(MG, NC, EX)                                                                \
+  return launch<T, MG, NC, EX>(q, k_pool, v_pool, table, ctx, o_acc, o_m, o_l, scratch, B,  \
+                               Hq, Hkv, D, page, pages, scale, splits, tiles_per_split,     \
+                               warps, smem, s)
   if (D <= 128) {
-    if (G <= 1) K6_CASE(1, 4);
-    if (G <= 2) K6_CASE(2, 4);
-    if (G <= 4) K6_CASE(4, 4);
-    if (G <= 8) K6_CASE(8, 4);
-    if (G <= 16) K6_CASE(16, 4);
+    if (G <= 1) K6_CASE(1, 1, true);
+    if (G <= 2) K6_CASE(2, 1, false);
+    if (G <= 4) K6_CASE(4, 1, false);
+    if (G == 5) K6_CASE(5, 1, true);          // qwen3-14b: 40 / 8 heads
+    if (G <= 8) K6_CASE(8, 1, false);
+    if (G <= 16) K6_CASE(16, 1, false);
   } else {
-    if (G <= 1) K6_CASE(1, 8);
-    if (G <= 2) K6_CASE(2, 8);
-    if (G <= 4) K6_CASE(4, 8);
-    if (G <= 8) K6_CASE(8, 8);
+    if (G <= 1) K6_CASE(1, 2, true);
+    if (G <= 2) K6_CASE(2, 2, false);
+    if (G <= 4) K6_CASE(4, 2, false);
+    if (G <= 8) K6_CASE(8, 2, false);
   }
 #undef K6_CASE
   return (int)cudaErrorInvalidValue;
@@ -310,18 +524,23 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* 
 
 // q_dtype: 0 = float32, 1 = bfloat16.  The wrapper has checked D % 8 == 0,
 // D <= 256, Hq % Hkv == 0, G <= 16 (G <= 8 above D = 128) and non-empty
-// shapes.
+// shapes, and passes kernel.py's split_plan (splits, tiles a split, warps a
+// block, shared memory a block), which this side checks against its own
+// layout; scratch holds splits * B * Hq * (D + 2) floats when splits > 1.
 extern "C" int paged_attention_launch(const void* q, const void* k_pool,
                                       const void* v_pool, const void* table,
                                       const void* ctx, void* o_acc, void* o_m,
-                                      void* o_l, int B, int Hq, int Hkv, int D,
-                                      int page, int pages, float scale, int q_dtype,
+                                      void* o_l, void* scratch, int B, int Hq, int Hkv,
+                                      int D, int page, int pages, float scale, int q_dtype,
+                                      int splits, int tiles_per_split, int warps, int smem,
                                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (q_dtype == 0) {
-    return dispatch<float>(q, k_pool, v_pool, table, ctx, o_acc, o_m, o_l, B, Hq, Hkv, D,
-                           page, pages, scale, s);
+    return dispatch<float>(q, k_pool, v_pool, table, ctx, o_acc, o_m, o_l, scratch, B, Hq,
+                           Hkv, D, page, pages, scale, splits, tiles_per_split, warps, smem,
+                           s);
   }
-  return dispatch<__nv_bfloat16>(q, k_pool, v_pool, table, ctx, o_acc, o_m, o_l, B, Hq,
-                                 Hkv, D, page, pages, scale, s);
+  return dispatch<__nv_bfloat16>(q, k_pool, v_pool, table, ctx, o_acc, o_m, o_l, scratch, B,
+                                 Hq, Hkv, D, page, pages, scale, splits, tiles_per_split,
+                                 warps, smem, s);
 }

@@ -1,22 +1,28 @@
 """Python wrapper of the hand-written CUDA paged-attention kernel (K6).
 
 ``csrc/paged_attention.cu`` holds the kernel and says which Pallas TPU
-kernel it replaces and what bounds it on the card.
-:func:`paged_attention_cuda` checks its inputs, allocates the residuals,
-launches the kernel on PyTorch's current stream and counts the launch in
-:data:`launches`.  Given CPU tensors it runs the plain version (``ref.py``)
-instead; given CUDA tensors it launches the kernel or raises.  The table's
-entries are not range-checked on the card (that would cost a sync per
-layer): each must be negative (unmapped) or a slot of the pool.
+kernel it replaces and what bounds it on the card.  :func:`split_plan` cuts
+each sequence's table into contiguous ranges of whole 32-key tiles, one
+block each, from the shapes alone; the C side refuses a plan that does not
+match its layout.  :func:`paged_attention_cuda` checks its inputs,
+allocates the residuals (and, with more than one split, the splits'
+partials), launches the kernel on PyTorch's current stream and counts the
+launch in :data:`launches`.  Given CPU tensors it runs the plain version
+(``ref.py``) instead; given CUDA tensors it launches the kernel or raises.
+The table's entries are not range-checked on the card (that would cost a
+sync per layer): each must be negative (unmapped) or a slot of the pool.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.kernel import DTYPE_CODES, check_head_dim
+from repro_torch.kernels.flash_attention.kernel import (DTYPE_CODES, SMEM_LIMIT,
+                                                        check_head_dim)
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 
 # Launches of the CUDA kernel in this process; chip_smoke.py resets and reads
@@ -24,6 +30,57 @@ from repro_torch.kernels.paged_attention.ref import paged_attention_ref
 launches = 0
 
 MAX_GROUP = 16           # query heads per KV head (8 above head_dim 128)
+TILE = 32                # keys a warp takes at a time, one per lane
+MAX_WARPS = 4            # warps a block of a split table
+MAX_WARPS_UNSPLIT = 8    # warps a block of an unsplit table (a warp a tile)
+
+
+class SplitPlan(NamedTuple):
+    """The grid of one launch, as ``csrc/paged_attention.cu`` lays it out."""
+    splits: int          # blocks per (sequence, KV head)
+    tiles_per_split: int  # contiguous 32-key tiles each of them takes
+    warps: int           # warps a block
+    smem_bytes: int      # shared memory a block
+
+
+def block_smem(D: int, G: int, warps: int) -> int:
+    """q [G][D], then per warp a K tile [32][D + 4], a V tile [32][D] and the
+    tile's probabilities [G][32], all float32, and two 8-byte mbarriers."""
+    return 4 * (G * D + warps * (TILE * (2 * D + 4) + TILE * G + 4))
+
+
+@functools.lru_cache(maxsize=1024)
+def split_plan(B: int, Hkv: int, pages: int, page: int, sms: int, D: int, G: int) -> SplitPlan:
+    """Splits from the shapes alone (never ``ctx_len``).  A table whose tiles
+    all fit one block's warps (a warp a tile, at most 8) runs unsplit when
+    the (sequence, KV head) blocks fill half of the ``sms`` SMs already: a
+    merge would cost more than the split saves.  Else as many warps a block
+    as leave room for two blocks on an SM (at most 4), then enough splits
+    for two blocks on every SM and about two tiles a warp (at least that
+    many splits, at most one a tile), no more warps than a split has tiles,
+    and a split's tiles rounded up to a multiple of its warps where the
+    splits still fill the card; the splits are whole tiles and the last one
+    is not empty."""
+    tiles = max(1, -(-pages * page // TILE))
+    per_warp = block_smem(D, G, 1) - block_smem(D, G, 0)
+    if 2 * B * Hkv >= sms and tiles <= min(MAX_WARPS_UNSPLIT,
+                                          (SMEM_LIMIT - block_smem(D, G, 0)) // per_warp):
+        return SplitPlan(1, tiles, tiles, block_smem(D, G, tiles))
+    warps = max(1, min(MAX_WARPS, (SMEM_LIMIT // 2 - block_smem(D, G, 0)) // per_warp))
+    fill = -(-2 * sms // max(1, B * Hkv))
+    work = -(-tiles // (2 * warps))
+    per = max(1, tiles // max(1, fill, work))
+    warps = min(warps, per)
+    even = -(-per // warps) * warps         # the same tiles for every warp
+    if B * Hkv * -(-tiles // even) >= min(2 * sms, B * Hkv * tiles):
+        per = even
+    return SplitPlan(-(-tiles // per), per, warps, block_smem(D, G, warps))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``, read once."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
@@ -70,21 +127,35 @@ def paged_attention_cuda(
     if G > MAX_GROUP or (D > 128 and G > MAX_GROUP // 2):
         raise ValueError(f"{G} query heads per KV head: the kernel takes up to "
                          f"{MAX_GROUP} (up to {MAX_GROUP // 2} above head_dim 128)")
-    acc = torch.empty((B, Hq, D), dtype=torch.float32, device=dev)
-    m = torch.empty((B, Hq), dtype=torch.float32, device=dev)
-    l = torch.empty((B, Hq), dtype=torch.float32, device=dev)
     if B == 0 or Hq == 0:
-        return acc, m, l
+        return _outputs(B, Hq, D, 0, dev)[:3]
     if pages == 0 or page == 0:
+        acc, m, l, _ = _outputs(B, Hq, D, 0, dev)
         return acc.zero_(), m.fill_(-1e30), l.zero_()
+    plan = split_plan(B, Hkv, pages, page, sm_count(dev.index), D, G)
+    acc, m, l, scratch = _outputs(B, Hq, D, plan.splits if plan.splits > 1 else 0, dev)
     scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
     lib = _build.load()
-    with torch.cuda.device(dev):
+    on_dev = dev.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if on_dev else torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cdll.paged_attention_launch(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_table.data_ptr(),
             ctx_len.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
-            B, Hq, Hkv, D, page, pages, float(scale), DTYPE_CODES[q.dtype], stream)
+            scratch.data_ptr() if scratch.numel() else None,
+            B, Hq, Hkv, D, page, pages, float(scale), DTYPE_CODES[q.dtype], *plan, stream)
     lib.check(err, "paged_attention_launch")
     launches += 1
     return acc, m, l
+
+
+def _outputs(B: int, Hq: int, D: int, splits: int, dev):
+    """acc [B, Hq, D], m and l [B, Hq], and the splits' partials (splits x
+    B x Hq x (D + 2) floats, 16-byte aligned) as views of one float32
+    allocation: one allocation a call instead of four."""
+    rows = B * Hq
+    head = -(-rows * (D + 2) // 4) * 4
+    buf = torch.empty(head + splits * rows * (D + 2), dtype=torch.float32, device=dev)
+    acc, m, l, _, scratch = buf.split_with_sizes(
+        [rows * D, rows, rows, head - rows * (D + 2), splits * rows * (D + 2)])
+    return acc.view(B, Hq, D), m.view(B, Hq), l.view(B, Hq), scratch

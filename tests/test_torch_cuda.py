@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 from _lru_cases import chunks, k1_cases, k2_cases
+from _paged_cases import EDGE_CASES, FLOAT64_EDGES, edge_inputs
 
 from repro_torch.core import stackdist, sweep, tlbsim
 from repro_torch.core.sparta import TLBConfig
@@ -420,9 +421,12 @@ def _paged_inputs(rng, dev, B, Hq, Hkv, D, page, pages, slots, q_dtype):
     return q, kp, vp, torch.from_numpy(tbl).to(dev), torch.from_numpy(ctx).to(dev)
 
 
-# (B, Hq, Hkv, D, page, pages, slots, q dtype): the JAX test shapes, then
-# qwen3-14b's serving shape and the other dense head dims and groups.
-_PAGED_CASES = [
+# (B, Hq, Hkv, D, page, pages, slots, q dtype, edge): the JAX test shapes,
+# then qwen3-14b's serving shape and the other dense head dims and groups
+# (random tables with holes, a context of 0); then the split kernel's edges
+# of tests/_paged_cases.py (contexts on and past the splits' boundaries, a
+# split of unmapped pages, one page, B = 1 at 4,096 and 1,900 keys).
+_PAGED_CASES = [(*c, None) for c in [
     (2, 8, 2, 64, 16, 4, 32, torch.float32),
     (3, 4, 4, 32, 8, 6, 64, torch.float32),
     (1, 16, 8, 128, 32, 3, 16, torch.float32),
@@ -434,28 +438,41 @@ _PAGED_CASES = [
     (2, 8, 1, 64, 4, 7, 32, torch.bfloat16),
     (4, 32, 32, 112, 64, 5, 32, torch.bfloat16),          # zamba2: head_dim 112, group 1
     (4, 32, 32, 112, 64, 5, 32, torch.float32),
-]
+]] + [(*c[:7], getattr(torch, c[7]), c[8]) for c in EDGE_CASES]
 
 
-@pytest.mark.parametrize("B,Hq,Hkv,D,page,pages,slots,q_dtype", _PAGED_CASES)
-def test_paged_attention_kernel_matches_plain_on_card(B, Hq, Hkv, D, page, pages, slots, q_dtype):
+@pytest.mark.parametrize("B,Hq,Hkv,D,page,pages,slots,q_dtype,edge", _PAGED_CASES)
+def test_paged_attention_kernel_matches_plain_on_card(B, Hq, Hkv, D, page, pages, slots, q_dtype,
+                                                      edge):
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.paged_attention import kernel as k6
 
     dev = _card()
-    args = _paged_inputs(np.random.default_rng(D + page), dev, B, Hq, Hkv, D, page, pages,
-                         slots, q_dtype)
+    rng = np.random.default_rng(D + page)
+    if edge is None:
+        args = _paged_inputs(rng, dev, B, Hq, Hkv, D, page, pages, slots, q_dtype)
+    else:
+        plan = k6.split_plan(B, Hkv, pages, page, k6.sm_count(dev.index or 0), D, Hq // Hkv)
+        arrs = edge_inputs(rng, B, Hq, Hkv, D, page, pages, slots, edge,
+                           plan.tiles_per_split * k6.TILE)
+        args = [torch.from_numpy(a).to(dev) for a in arrs]
+        args[0] = args[0].to(q_dtype)
     n0 = k6.launches
     got = pa.paged_attention_partial(*args, kernel_mode="cuda")
     assert k6.launches == n0 + 1
-    want = pa.paged_attention_partial(*args, kernel_mode="reference")
+    assert all(g.dtype == torch.float32 for g in got)
+    if edge in FLOAT64_EDGES:
+        want = pa.paged_attention_partial(args[0].double(), args[1].double(), args[2].double(),
+                                          *args[3:], kernel_mode="reference")
+        got = [g.double() for g in got]
+    else:
+        want = pa.paged_attention_partial(*args, kernel_mode="reference")
     torch.cuda.synchronize()
     for g, w in zip(got, want):
-        assert g.dtype == torch.float32
         torch.testing.assert_close(g, w, atol=2e-5, rtol=2e-5)
     # A sequence with no valid position keeps the initial residuals.
-    if B > 1:
-        assert float(got[1][-1].max()) == float(np.float32(-1e30)) and float(got[2][-1].abs().max()) == 0.0
+    for b in np.flatnonzero(args[4].cpu().numpy() == 0) if edge else [B - 1] if B > 1 else []:
+        assert float(got[1][b].max()) == float(np.float32(-1e30)) and float(got[2][b].abs().max()) == 0.0
     out = pa.paged_attention(*args, kernel_mode="cuda")
     torch.testing.assert_close(out.float(), pa.paged_attention(*args, kernel_mode="reference")
                                .float(), atol=_ATTN_TOL[q_dtype], rtol=_ATTN_TOL[q_dtype])
@@ -574,6 +591,14 @@ _MAMBA2_CASES = [
     (2, 112, 256, 64, 64, 64, torch.bfloat16, True),
     (1, 8, 128, 16, 16, 64, torch.float32, True),
     (1, 3, 40, 16, 16, 64, torch.float32, True),
+    # The tensor-core kernel's edges: H not a multiple of the heads a block
+    # (2 at these shapes), T < chunk, N and P below its 64-wide tiles, and
+    # zamba2's P = N = 64 in float32 and bf16.
+    (2, 7, 128, 64, 64, 64, torch.bfloat16, True),
+    (1, 5, 40, 64, 64, 64, torch.bfloat16, True),
+    (2, 3, 96, 16, 32, 32, torch.bfloat16, False),
+    (2, 6, 256, 64, 64, 64, torch.float32, True),
+    (2, 6, 256, 64, 64, 64, torch.bfloat16, True),
 ]
 
 
@@ -604,6 +629,34 @@ def test_mamba2_scan_kernel_matches_plain_on_card(B, H, T, P, N, chunk, dtype, z
     assert y.dtype == dtype and s.dtype == torch.float32
     assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(s).all())
     _close(y, y_ref, _SCAN_TOL[dtype])
+    _close(s, s_ref, _SCAN_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("B,H,hb", [(1, 7, 1), (1, 201, 2), (4, 111, 4)])
+def test_mamba2_tensor_core_kernel_takes_any_heads_per_block_on_card(B, H, hb):
+    """Each instance of the bf16 tensor-core kernel, as heads_plan picks it
+    (heads that do not fill the last block of a batch row leave its
+    warpgroups masked), at zamba2's head shape and decays, against the plain
+    version."""
+    from repro_torch.kernels.mamba2_scan import kernel as k8
+
+    dev = _card()
+    assert k8.heads_plan(B, H, k8.sm_count(dev.index or 0)).heads_per_block == hb
+    rng = np.random.default_rng(17 + hb)
+    T, P, N = 128, 64, 64
+    x = torch.from_numpy(rng.standard_normal((B, H, T, P)).astype(np.float32) * 0.5).to(
+        dev, torch.bfloat16)
+    dt = torch.nn.functional.softplus(torch.from_numpy(
+        rng.normal(0.0, 0.63, (B, H, T)).astype(np.float32))).to(dev)
+    A = -torch.linspace(1.0, 8.0, H, device=dev)
+    Bm, C = (torch.from_numpy(rng.standard_normal((B, T, N)).astype(np.float32) * 0.5).to(dev)
+             for _ in range(2))
+    D = torch.from_numpy(rng.standard_normal(H).astype(np.float32)).to(dev)
+    y, s = k8.mamba2_scan_cuda(x, dt, A, Bm, C, D, chunk=64)
+    y_ref, s_ref = k8.mamba2_scan_ref(x, dt, A, Bm, C, D)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(s).all())
+    _close(y, y_ref, _SCAN_TOL[torch.bfloat16])
     _close(s, s_ref, _SCAN_TOL[torch.float32])
 
 
