@@ -19,8 +19,8 @@ K5 and K6.  One JSON line per phase:
 
 1. ``device``: the card, and its name and power limit from ``nvidia-smi``;
 2. ``build``: the kernels built for ``sm_90a`` from the sources in this
-   checkout, with ptxas's register / stack / spill lines; K1's, K2's, K6's
-   and K8's kernels must spill nothing;
+   checkout, with ptxas's register / stack / spill lines; K1's, K2's, K4's,
+   K6's, K7's and K8's kernels must spill nothing;
 3. ``kernel_vs_plain``: each simulator op entry point on the card against
    its plain PyTorch version on the same inputs (tolerance 0: hits, depths,
    timeline latency / overhead / done and carried state bit-identical), K1
@@ -50,7 +50,13 @@ K5 and K6.  One JSON line per phase:
    (K2: the cache's plus the longer of the two TLBs' over the accesses they
    apply), summed over the calls and counted with ``torch.bincount`` of the
    keys, ``ns_per_chain_step`` (time over it), and the CUDA-event time of the
-   bucketing and of the LRU passes, recorded by the entry point;
+   bucketing and of the LRU passes, recorded by the entry point.  K4's
+   lines add its own floor: ``longest_sim``, the accesses of each call's
+   longest sim (every sim is a serial chain over the call's L accesses)
+   summed over the calls, ``ns_per_access`` (time over it), ``hit_share``
+   (a hit's step touches acc[a] alone), ``chain_floor_ms`` (the same calls
+   with every access a hit: the design's shortest step, longest_sim times)
+   and ``device_ms`` (``torch.profiler``);
 6. ``kernel_vs_plain`` for K5 and K6 through their op entry points, within
    2e-5 in float32 and 2e-2 in bfloat16 (the JAX package's tolerances): the
    JAX test shapes and head dims 32, 64, 128, 160, 256 and 112 (zamba2,
@@ -114,18 +120,25 @@ K5 and K6.  One JSON line per phase:
 13. ``ssm_serve``, the state-space main path, for each family with every
    launch counter set to 0 just before and read just after: full width in
    bf16, ``make_prefill_step`` on 4 prompts of 2,048 tokens (K7 24 times;
-   K8 81 and K5 27 times), the same on 256 (rwkv6) / 128 (zamba2) tokens,
-   and a decode loop over those tokens plus 32 greedy tokens at batch 4
+   K8 81 and K5 27 times), the same on the first prompt alone (batch 1:
+   rwkv6's K7 then takes 16 columns a block), the same on 256 (rwkv6) / 128
+   (zamba2) tokens, and a decode loop over those tokens plus 32 greedy tokens at batch 4
    (zamba2: 64-token pages in float32 pools [27, 12, 64, 32, 112], K6 27
-   times a step); prefill tokens per second, decode step time, the device's
-   idle share of a decode step (``torch.profiler``), and the bf16 gap
+   times a step); prefill tokens per second (the first, cold call, and the
+   same call again once the counters are read, ``prefill_s_warm``), decode
+   step time, the device's idle share of a decode step
+   (``torch.profiler``), and the bf16 gap
    between the decode loop's and the prefill's last-position logits
    (reported: the JAX package's gap at full depth is not read on the CPU);
 14. ``timing`` for K7 and K8 at the long prefill's calls (CUDA events, the
    plain version on the same calls, the bound: bytes over 3.35 TB/s or the
    recurrence's own operations over the rate of the unit the kernel uses,
-   67 TFLOP/s in float32, or 989 TFLOP/s for K8's bf16 tensor-core design;
-   K8 adds its ``design``, heads a block, ``device_ms`` and both bounds), and
+   67 TFLOP/s in float32, or 989 TFLOP/s for the bf16 tensor-core designs;
+   K7 adds its ``design``, columns a block, column slices and blocks
+   launched, and ``cols_plan_ms``, its time with each column width forced,
+   K8 its ``design`` and heads a block, both ``device_ms`` and both bounds,
+   at the float32 and at the tensor-core rate); the same for K7 at the
+   one-prompt prefill's calls as a ``timing_site`` line, and
    ``timing_site`` for K5 and K6 at zamba2's calls (K6 held to its plain
    version in float64, as in 9, with ``device_ms`` and its split plan).
 
@@ -195,8 +208,8 @@ def main() -> int:
          ptxas=[ln.strip() for ln in lib.log.splitlines()
                 if ln.startswith("==") or "registers" in ln or "spill" in ln
                 or "Compiling entry" in ln])
-    for src, spill in _spills(lib.log, ("tlb_sim", "system_sim", "paged_attention",
-                                        "mamba2_scan")):
+    for src, spill in _spills(lib.log, ("tlb_sim", "system_sim", "timeline", "paged_attention",
+                                        "rwkv6_scan", "mamba2_scan")):
         fail(f"{src}: a kernel spills ({spill})")
 
     errs = check_kernels_against_plain(torch, trace)
@@ -835,6 +848,9 @@ def _event_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+PROFILE_TRIES = 3                  # profiled runs before a kernel counts as unrecorded
+
+
 def _device_ms(torch, fn, kernels, calls=None) -> dict:
     """The device time of ``fn()`` in the named kernels: the sum of their
     durations as ``torch.profiler`` (CUPTI) records them over one run, after
@@ -843,24 +859,41 @@ def _device_ms(torch, fn, kernels, calls=None) -> dict:
     ``calls`` (functions, the launches of ``fn`` one by one) also
     ``device_ms_events``: the same calls enqueued in batches behind a held
     stream (``torch.cuda._sleep``), so the host is ahead and CUDA events time
-    the device alone, the gaps between launches included."""
+    the device alone, the gaps between launches included.  The profiler now
+    and then drops a launch; a run in which it recorded none of the named
+    kernels (a single launch, dropped) is profiled again, up to
+    ``PROFILE_TRIES`` runs in all, before the check fails.  ``profile_tries``
+    says how many runs it took, and ``wrapper_launches`` the launches the
+    wrappers counted in the run that was kept; a kernel recorded more often
+    than that fails the check."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.zeros(1, device="cuda")      # the tracer is recording before the calls
-        torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and any(k in e.key for k in kernels)]
-    if not rows:
-        fail(f"device time: torch.profiler recorded no kernel named {kernels}")
+    for tries in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.zeros(1, device="cuda")  # the tracer is recording before the calls
+            torch.cuda.synchronize()
+            before = _launches()
+            fn()
+            torch.cuda.synchronize()
+            counted = sum(_launches().values()) - sum(before.values())
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and any(k in e.key for k in kernels)]
+        if rows:
+            break
+    else:
+        fail(f"device time: torch.profiler recorded no kernel named {kernels} "
+             f"in {PROFILE_TRIES} runs")
+    for e in rows:
+        if e.count > counted:
+            fail(f"device time: torch.profiler recorded {e.key[:80]} {e.count} times, "
+                 f"the wrappers counted {counted} launches")
     out = {"device_ms": sum(e.self_device_time_total for e in rows) / 1e3,
            "device_kernels": [{"name": e.key[:120], "launches": e.count,
-                               "ms": e.self_device_time_total / 1e3} for e in rows]}
+                               "ms": e.self_device_time_total / 1e3} for e in rows],
+           "profile_tries": tries, "wrapper_launches": counted}
     if calls is not None:
         total = 0.0
         for i in range(0, len(calls), HELD_BATCH):
@@ -1152,6 +1185,29 @@ def _timeline_calls(fn) -> list:
     return [_timeline_call(a) for a in _recorded(k4ops, "timeline_carry_cuda", fn)]
 
 
+K4_KERNELS = ("timeline_kernel",)
+
+
+def _chain_floor(torch, calls, ms: float) -> dict:
+    """K4's own floor: every sim is one serial chain over the call's L
+    accesses (shorter sims are padded to L), so a call takes about as long
+    as L steps.  ``longest_sim``: L summed over the calls; ``ns_per_access``:
+    the time over it; ``hit_share``: the cache hits' share of the accesses
+    (a hit's step touches acc[a] alone); ``chain_floor_ms``: the same calls
+    with every access a cache hit (CUDA events), L times the shortest
+    dependent step the design has."""
+    from repro_torch.kernels.timeline.kernel import timeline_carry_cuda
+
+    longest = sum(args[0][0].shape[1] for args, _, _ in calls)
+    hits = sum(float(args[0][4].sum()) for args, _, _ in calls)
+    all_hits = [([*cols[:4], torch.ones_like(cols[4]), *cols[5:]], *rest)
+                for (cols, *rest), _, _ in calls]
+    floor = _event_ms(torch, lambda: [timeline_carry_cuda(*a) for a in all_hits], reps=1)
+    return {"longest_sim": longest, "ns_per_access": ms * 1e6 / max(longest, 1),
+            "hit_share": hits / max(sum(args[0][4].numel() for args, _, _ in calls), 1),
+            "chain_floor_ms": floor, "chain_floor_ns_per_access": floor * 1e6 / max(longest, 1)}
+
+
 def time_timeline(torch, runs) -> dict:
     """K4 at each of its main-path call sites (Fig 11, Fig 5, the stream) and
     at B = 1, one ``timing_site`` line each.  Returns the sites."""
@@ -1192,6 +1248,9 @@ def time_timeline(torch, runs) -> dict:
         m = _measure(torch, "timeline", timeline_carry_cuda, plain, calls,
                      [_timeline_prefix(c, TL_PREFIX) for c in calls[:1 if "stream" in site
                                                                   else None]], TL_PREFIX)
+        m.update(_chain_floor(torch, calls, m["ms"]))
+        m.update(_device_ms(torch, lambda: [timeline_carry_cuda(*a) for a, _, _ in calls],
+                            K4_KERNELS))
         out[site] = m
         emit("timing_site", site=site, kernel="timeline", function=fn, replaces=replaces,
              shape=shape, **m)
@@ -1219,6 +1278,14 @@ def time_timeline(torch, runs) -> dict:
                  lambda *x: tl.timeline_sim(*x, params, kernel_mode="reference"),
                  [call(one)], [call(tuple(x[:TL_PREFIX].contiguous() for x in one))], TL_PREFIX)
     m["plain_over_kernel_at_plain_shape"] = m["plain_ms"] / m["ms_at_plain_shape"]
+    all_hits = (*one[:4], torch.ones_like(one[4]), *one[5:])
+    floor = _event_ms(torch, lambda: tl.timeline_sim(*all_hits, params, kernel_mode="cuda"),
+                      reps=1)
+    m.update(longest_sim=n, ns_per_access=m["ms"] * 1e6 / n,
+             hit_share=float(one[4].float().mean()), chain_floor_ms=floor,
+             chain_floor_ns_per_access=floor * 1e6 / n)
+    m.update(_device_ms(torch, lambda: tl.timeline_sim(*one, params, kernel_mode="cuda"),
+                        K4_KERNELS))
     out["K4a B=1"] = m
     emit("timing_site", site="K4a B=1", kernel="timeline", function="timeline_sim_pallas",
          replaces="src/repro/kernels/timeline/kernel.py:316",
@@ -1752,6 +1819,8 @@ K6_KERNELS = ("paged_attention_kernel", "paged_merge_kernel")
 HELD_BATCH = 400                   # calls enqueued behind one held stream
 HELD_CYCLES = 200_000_000          # the hold, ~0.1 s: longer than 400 calls' host time
 K8_KERNELS = ("mamba2_mma_kernel", "mamba2_fma_kernel")
+SCAN_KERNELS = {"rwkv6_scan": ("rwkv6_mma_kernel", "rwkv6_scan_kernel"),
+                "mamba2_scan": K8_KERNELS}
 
 
 def _split_plans(torch, calls) -> list:
@@ -2270,15 +2339,16 @@ def run_ssm_bf16(torch) -> None:
 def run_ssm_serve(torch, arch: str) -> dict:
     """Phase 13 for one family, the main path at full width in bf16 with
     every launch counter set to 0 just before and read just after:
-    ``make_prefill_step`` on 4 numpy-seeded prompts of 2,048 tokens, then
-    the same step on the first 256 (rwkv6) / 128 (zamba2) tokens of each and
+    ``make_prefill_step`` on 4 numpy-seeded prompts of 2,048 tokens, on the
+    first of them alone, then on the first 256 (rwkv6) / 128 (zamba2) tokens
+    of each and
     a decode loop over those tokens from ``init_decode_state`` plus 32
     greedy tokens at batch 4.  The decode loop's logits at the last prompt
     position must be finite; their gap to the short prefill's is reported
     (phase 12b holds the two paths together at full depth in float32, phase
     12c in bf16 at the depth where the JAX package's gap is known).  The
-    kernels' calls of the long prefill and the decode loop are recorded for
-    the timing phase."""
+    kernels' calls of the long prefill and the decode loop, and K7's of the
+    one-prompt prefill, are recorded for the timing phase."""
     from repro_torch import models
     from repro_torch.kernels.flash_attention import ops as k5ops
     from repro_torch.kernels.mamba2_scan import ops as k8ops
@@ -2297,6 +2367,7 @@ def run_ssm_serve(torch, arch: str) -> dict:
     short = prompts[:, :T_dec].contiguous()
     step = make_prefill_step(cfg)
     calls = {"rwkv6_scan": [], "mamba2_scan": [], "flash_attention": [], "paged_attention": []}
+    calls_one = []
     torch.cuda.reset_peak_memory_stats()
 
     for m in _counters().values():
@@ -2314,8 +2385,20 @@ def run_ssm_serve(torch, arch: str) -> dict:
         for u in undo:
             u()
     l_prefill = _launches()
+    # One prompt alone (batch 1), the narrow side of K7's column plan.
+    undo = _recording(k7ops, "rwkv6_scan_cuda", calls_one)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, {"tokens": prompts[:1]})
+        torch.cuda.synchronize()
+        prefill_one_s = time.perf_counter() - t0
+    finally:
+        undo()
+    l_one = _family_launches(torch, l_prefill)
+    before = _launches()
     want_last = step(params, {"tokens": short})
-    l_short = _family_launches(torch, l_prefill)
+    l_short = _family_launches(torch, before)
     before = _launches()
     step_s = []
     undo = _recording(k6ops, "paged_attention_cuda", calls["paged_attention"])
@@ -2327,6 +2410,13 @@ def run_ssm_serve(torch, arch: str) -> dict:
     torch.cuda.synchronize()
     l_decode = _family_launches(torch, before)
     launches = _launches()
+    # The long prefill again, warm (the first call also pays the shapes'
+    # first launches), after the counters are read.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    prefill_s_warm = time.perf_counter() - t0
 
     rel = _rel_err(torch, last, want_last)
     l_prefill = {k: v for k, v in l_prefill.items() if k in l_short}
@@ -2364,6 +2454,10 @@ def run_ssm_serve(torch, arch: str) -> dict:
          weight_gb=weight_bytes / 1e9, init_s=init_s,
          prefill_batch=SSM_BATCH, prefill_tokens=SSM_PREFILL_TOKENS, prefill_s=prefill_s,
          prefill_tok_per_s=SSM_BATCH * SSM_PREFILL_TOKENS / prefill_s,
+         prefill_s_warm=prefill_s_warm,
+         prefill_tok_per_s_warm=SSM_BATCH * SSM_PREFILL_TOKENS / prefill_s_warm,
+         prefill_one_prompt_s=prefill_one_s,
+         prefill_one_prompt_tok_per_s=SSM_PREFILL_TOKENS / prefill_one_s,
          decode_batch=SSM_BATCH, decode_prompt_tokens=T_dec, new_tokens=SSM_NEW_TOKENS,
          decode_steps=n_steps, decode_s=sum(step_s),
          decode_step_ms_mean=sum(step_s) / n_steps * 1e3, decode_step_ms_min=min(step_s) * 1e3,
@@ -2376,12 +2470,14 @@ def run_ssm_serve(torch, arch: str) -> dict:
          greedy_tokens=gen[0].tolist(),
          decode_step_device_idle_share=prof["device_idle_share"],
          decode_step_device_busy_ms=prof["device_busy_ms"],
-         launches_prefill=l_prefill, launches_short_prefill=l_short,
+         launches_prefill=l_prefill, launches_one_prompt_prefill=l_one,
+         launches_short_prefill=l_short,
          launches_decode=l_decode, launches=launches,
          peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     if not (bool(torch.isfinite(last).all()) and bool(torch.isfinite(want_last).all())):
         fail(f"ssm_serve {arch}: non-finite logits")
     for what, got, want in (("prefill", l_prefill, want_prefill),
+                            ("one-prompt prefill", l_one, want_prefill),
                             ("short prefill", l_short, want_prefill),
                             ("decode", l_decode, want_decode)):
         if got != want:
@@ -2390,7 +2486,7 @@ def run_ssm_serve(torch, arch: str) -> dict:
         if launches[k] <= 0:
             fail(f"ssm_serve {arch}: the main path launched {k} {launches[k]} times")
     del params, pools
-    return {"calls": calls, "launches": launches, "cfg": cfg}
+    return {"calls": calls, "calls_one_prompt": calls_one, "launches": launches, "cfg": cfg}
 
 
 def _scan_work(kind: str, B: int, H: int, T: int, N: int, P: int, esize: int):
@@ -2439,10 +2535,95 @@ def _mamba2_design(torch, calls, t_bytes: float, t_ops_f32: float) -> dict:
     return out
 
 
+def _rwkv6_design(torch, calls, t_bytes: float, t_ops_f32: float) -> dict:
+    """K7's design and column plan at the first of ``calls`` (columns a
+    block, slices a (b, h), blocks launched), and its bound both at the rate
+    of the unit the design uses (bf16 tensor cores, 989 TFLOP/s, for the
+    tensor-core kernel) and at the float32 rate."""
+    from repro_torch.kernels.rwkv6_scan import kernel as k7
+
+    (r, *_), kw = calls[0]
+    d = k7.design(r.dtype)
+    out = {"design": d, "bound_ms_f32_rate": max(t_bytes, t_ops_f32)}
+    if d != "fma":
+        B, H, T, N = r.shape
+        plan = k7.cols_plan(B, H, N, k7.chunk_of(T, kw.get("chunk", 32)), k7.sm_count(0))
+        out.update(cols_per_block=plan.cols_per_block, column_slices=plan.slices,
+                   blocks=plan.blocks, blocks_per_sm=plan.blocks_per_sm,
+                   bound_ms_tensor_core=max(t_bytes, t_ops_f32 * F32_FLOPS_PER_S
+                                            / BF16_FLOPS_PER_S))
+    return out
+
+
+def _rwkv6_plans_ms(torch, kernel, calls) -> dict:
+    """K7's time over ``calls`` (CUDA events) with each column width forced
+    in turn, the reading behind ``cols_plan``'s cost model: the plan's own
+    choice should be the fastest."""
+    from repro_torch.kernels.rwkv6_scan import kernel as k7
+
+    real, out = k7.cols_plan, {}
+    try:
+        for nc in k7.COLS_PER_BLOCK:
+            def forced(B, H, N, C, sms, nc=nc):
+                slices = -(-N // nc)
+                return real(B, H, N, C, sms)._replace(
+                    cols_per_block=nc, slices=slices, blocks=B * H * slices,
+                    smem_bytes=k7.shared_bytes(C, nc))
+            k7.cols_plan = forced
+            out[str(nc)] = _event_ms(torch, lambda: [kernel(*a, **kw) for a, kw in calls],
+                                     reps=1)
+    finally:
+        k7.cols_plan = real
+    return out
+
+
+def _scan_shape(calls) -> str:
+    x, kw = calls[0][0][0], calls[0][1]
+    return (f"{len(calls)} calls (one per layer), {list(x.shape)} {x.dtype}, "
+            f"chunk {kw.get('chunk')}")
+
+
+def _scan_timing(torch, name: str, kernel, plain, calls, err: float) -> dict:
+    """K7 or K8 over ``calls`` (CUDA events, every call): the first and last
+    call held against the plain version, the plain version's time over the
+    same calls, the bound, the design's own fields and ``device_ms``; K7's
+    tensor-core design adds ``cols_plan_ms``."""
+    nbytes = ops = 0
+    for args, kw in calls:
+        x = args[0]
+        B, H, T, P = x.shape
+        N = args[3].shape[-1] if name == "mamba2_scan" else P
+        b, o = _scan_work(name, B, H, T, N, P, x.element_size())
+        nbytes, ops = nbytes + b, ops + o
+    for args, kw in (calls[0], calls[-1]):
+        dt = "bfloat16" if args[0].dtype == torch.bfloat16 else "float32"
+        err = max(err, _scan_compare(torch, f"{name} (main-path call)", name,
+                                     kernel(*args, **kw), plain(*args), dt,
+                                     shape=list(args[0].shape)))
+    ms = _event_ms(torch, lambda: [kernel(*a, **kw) for a, kw in calls], reps=1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
+    design = _mamba2_design if name == "mamba2_scan" else _rwkv6_design
+    extra = design(torch, calls, t_bytes, t_ops)
+    extra.update(_device_ms(torch, lambda: [kernel(*a, **kw) for a, kw in calls],
+                            SCAN_KERNELS[name], [lambda a=a, kw=kw: kernel(*a, **kw)
+                                                 for a, kw in calls]))
+    if extra["design"] != "fma":         # the products run at the bf16 tensor-core rate
+        t_ops = ops / BF16_FLOPS_PER_S * 1e3
+    if name == "rwkv6_scan" and extra["design"] != "fma":
+        extra["cols_plan_ms"] = _rwkv6_plans_ms(torch, kernel, calls)
+    plain_ms = _once_ms(torch, lambda: [plain(*a) for a, kw in calls])
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "kernel_launches_timed": len(calls), "bytes": nbytes, "operations": ops,
+            "ms_per_call": ms / len(calls), "gflops_per_s": ops / ms / 1e6, **extra}
+
+
 def time_scans(torch, serve: dict, errs: dict) -> list:
     """Phase 14: K7 and K8 at the long prefill's calls (CUDA events, every
-    call), their plain versions on the same calls, the bound; then K5 and K6
-    at zamba2's prefill and decode calls as ``timing_site`` lines.  No single
+    call), their plain versions on the same calls, the bound; then, as
+    ``timing_site`` lines, K7 at rwkv6's one-prompt prefill and K5 and K6 at
+    zamba2's prefill and decode calls.  No single
     PyTorch call computes a scan, so the scans have no library time."""
     import torch.nn.functional as F
 
@@ -2462,46 +2643,29 @@ def time_scans(torch, serve: dict, errs: dict) -> list:
               "src/repro/kernels/mamba2_scan/kernel.py:99"))
     for name, arch, kernel, plain, replaces in specs:
         calls = serve[arch]["calls"][name]
-        nbytes = ops = 0
-        for args, kw in calls:
-            x = args[0]
-            B, H, T, P = x.shape
-            N = args[3].shape[-1] if name == "mamba2_scan" else P
-            b, o = _scan_work(name, B, H, T, N, P, x.element_size())
-            nbytes, ops = nbytes + b, ops + o
-        err = errs[name]
-        for args, kw in (calls[0], calls[-1]):
-            dt = "bfloat16" if args[0].dtype == torch.bfloat16 else "float32"
-            err = max(err, _scan_compare(torch, f"{name} (main-path call)", name,
-                                         kernel(*args, **kw), plain(*args), dt,
-                                         shape=list(args[0].shape)))
-        ms = _event_ms(torch, lambda: [kernel(*a, **kw) for a, kw in calls], reps=1)
-        extra = {}
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
-        if name == "mamba2_scan":
-            extra = _mamba2_design(torch, calls, t_bytes, t_ops)
-            extra.update(_device_ms(torch, lambda: [kernel(*a, **kw) for a, kw in calls],
-                                    K8_KERNELS, [lambda a=a, kw=kw: kernel(*a, **kw)
-                                                 for a, kw in calls]))
-            if extra["design"] != "fma":     # the products run at the bf16 tensor-core rate
-                t_ops = ops / BF16_FLOPS_PER_S * 1e3
-        plain_ms = _once_ms(torch, lambda: [plain(*a) for a, kw in calls])
+        m = _scan_timing(torch, name, kernel, plain, calls, errs[name])
         cfg = serve[arch]["cfg"]
         row = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
                "replaces": replaces, "launches": serve[arch]["launches"][name],
-               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None,
+               "max_abs_err": m.pop("max_abs_err"), "ms": m.pop("ms"),
+               "plain_ms": m.pop("plain_ms"), "bound_ms": m.pop("bound_ms"),
+               "bound_by": m.pop("bound_by"), "library_ms": None,
                "shape": f"{arch} prefill: {SSM_BATCH} prompts of {SSM_PREFILL_TOKENS} tokens, "
-                        f"{len(calls)} calls (one per layer), {list(calls[0][0][0].shape)} "
-                        f"{calls[0][0][0].dtype}, chunk {calls[0][1].get('chunk')}",
-               "kernel_launches_timed": len(calls), "bytes": nbytes, "operations": ops,
-               "ms_per_call": ms / len(calls), "plain_shape": "the same calls in full",
-               "gflops_per_s": ops / ms / 1e6, "layers": cfg.num_layers, **extra}
+                        f"{_scan_shape(calls)}",
+               "plain_shape": "the same calls in full", "layers": cfg.num_layers, **m}
         emit("timing", **row)
         rows.append(row)
         del calls
+    # K7 at the one-prompt prefill, the plan's other side (16 columns a block).
+    calls = serve["rwkv6-1.6b"]["calls_one_prompt"]
+    emit("timing_site", site="K7 rwkv6 one-prompt prefill", kernel="rwkv6_scan",
+         function="rwkv6_scan_pallas", replaces="src/repro/kernels/rwkv6_scan/kernel.py:112",
+         shape=f"rwkv6-1.6b prefill: 1 prompt of {SSM_PREFILL_TOKENS} tokens, "
+               f"{_scan_shape(calls)}", launches=len(calls), library_ms=None,
+         **_scan_timing(torch, "rwkv6_scan", rwkv6_scan_cuda, rwkv6_scan_ref, calls,
+                        errs["rwkv6_scan"]))
+    del calls
 
     # K5 and K6 at zamba2's shared-attention calls.
     calls = serve["zamba2-7b"]["calls"]

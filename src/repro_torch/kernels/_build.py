@@ -62,8 +62,9 @@ SIGNATURES = {
     # pages, scale, q_dtype, then the split plan (splits, tiles a split,
     # warps, smem bytes), stream
     "paged_attention_launch": [c_ptr] * 9 + [c_int] * 6 + [c_float] + [c_int] * 5 + [c_ptr],
-    # r, k, v, w, u, o, s, B, H, T, N, chunk, dtype, stream
-    "rwkv6_scan_launch": [c_ptr] * 7 + [c_int] * 6 + [c_ptr],
+    # r, k, v, w, u, o, s, B, H, T, N, chunk, dtype, columns a block, smem
+    # bytes, stream
+    "rwkv6_scan_launch": [c_ptr] * 7 + [c_int] * 8 + [c_ptr],
     # x, dt, A, Bm, C, D, y, s, B, H, T, P, N, chunk, dtype, heads a block,
     # smem bytes, stream
     "mamba2_scan_launch": [c_ptr] * 8 + [c_int] * 9 + [c_ptr],

@@ -43,7 +43,8 @@
 // residual, rounded), and a product is the sum of the parts' products
 // (hi x + lo x with x; hi hi + hi lo + lo hi between two split operands), so
 // the operands keep ~16 bits and the sums are float32: the state holds the
-// float32 checks.  The decay arithmetic stays in float32.
+// float32 checks (the split, ldmatrix and mma helpers are in mma_bf16.cuh,
+// shared with K7).  The decay arithmetic stays in float32.
 //
 // float32 x: the FMA kernel (mamba2_fma_kernel), one block of 256 threads a
 // (b, h), S in shared memory, the products as FMA loops on the float32 cores.
@@ -63,7 +64,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
+
+using namespace mma_bf16;
 
 constexpr int kFmaThreads = 256;
 constexpr int kTileRows = 64;            // a chunk padded to 64 rows
@@ -198,52 +203,8 @@ __global__ void __launch_bounds__(kFmaThreads) mamba2_fma_kernel(
 // bfloat16 x: the tensor-core kernel.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a b, m16n8k16, bf16 operands, float32 accumulators.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// (x0, x1) as a bf16 pair (high parts) and the pair of their residuals.
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = pack(h);
-  lo = pack(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
-}
-
 __device__ __forceinline__ void wg_barrier(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem_dst)),
-               "l"(gmem_src)
-               : "memory");
 }
 
 // Shared memory of the tensor-core kernel, in bytes: B and C as bf16 high

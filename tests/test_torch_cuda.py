@@ -17,6 +17,7 @@ They import nothing of JAX, so they run on a machine without it.
 """
 import dataclasses
 
+import _timeline_cases
 import numpy as np
 import pytest
 import torch
@@ -291,6 +292,54 @@ def test_timeline_kernel_device_memory_state_on_card():
         assert torch.equal(x, y)
 
 
+def _misaligned(x: np.ndarray, offset: int, dev) -> torch.Tensor:
+    """``x`` on the card as a contiguous view whose base sits ``offset``
+    elements past a fresh allocation's (16-byte aligned) start."""
+    flat = torch.empty(x.size + offset, dtype=getattr(torch, x.dtype.name), device=dev)
+    out = flat[offset:].view(x.shape)
+    out.copy_(torch.from_numpy(x))
+    return out
+
+
+@pytest.mark.parametrize("name", list(_timeline_cases.EDGE_CASES))
+def test_timeline_kernel_edges_on_card(name):
+    """K4's order of work at its edges (``tests/_timeline_cases.py``): bd ==
+    bp, all hits, all misses, unbounded queues, T = 1 and T > 1, L below and
+    not a multiple of the staging tile, one access, columns misaligned
+    against 16 bytes, the device-memory state, and a resume from a state
+    whose MSHR counts sit mid-ring, chunk by chunk: outputs and the carried
+    state bit-identical to the plain version (tolerance 0)."""
+    from repro_torch.kernels import timeline as tl
+    from repro_torch.kernels.timeline import kernel as k4
+
+    dev = _card()
+    params, n, override, cuts, prefix, offsets = _timeline_cases.EDGE_CASES[name]
+    cols_np, fp, ip = _timeline_cases.edge_columns(params, n, override, seed=len(name))
+    offsets = offsets or (0,) * 8
+    cols = [_misaligned(c, o, dev) for c, o in zip(cols_np, offsets)]
+    state = tl.timeline_init_state_batched(len(params), _timeline_cases.envelope(params),
+                                           ip[:, 5], device=dev)
+    if prefix:
+        state = tl.timeline_sim_batched_carry(*(c[:, :prefix].contiguous() for c in cols),
+                                              fp, ip, state, kernel_mode="reference")[1]
+        assert bool((state[2] % torch.from_numpy(np.maximum(ip[:, 3], 1)).to(dev)[:, None]
+                     != 0).any())                       # counts mid-ring
+    got_state, want_state = state, state
+    bounds = [prefix, *cuts, n]
+    for lo, hi in zip(bounds, bounds[1:]):
+        part = [c[:, lo:hi] if lo == prefix and hi == n else c[:, lo:hi].contiguous()
+                for c in cols]
+        n0 = k4.launches
+        got, got_state = tl.timeline_sim_batched_carry(*part, fp, ip, got_state,
+                                                       kernel_mode="cuda")
+        assert k4.launches == n0 + 1
+        want, want_state = tl.timeline_sim_batched_carry(*part, fp, ip, want_state,
+                                                         kernel_mode="reference")
+        torch.cuda.synchronize()
+        for x, y in zip(list(got) + list(got_state), list(want) + list(want_state)):
+            assert torch.equal(x, y), f"[{lo}, {hi})"
+
+
 def test_timeline_sweeps_on_card_match_the_cpu():
     from repro_torch.core import timeline as ttl
     from repro_torch.core.sparta import SystemLatencies
@@ -557,6 +606,18 @@ _RWKV6_CASES = [
     (2, 32, 256, 64, 32, torch.bfloat16, (0.75, 0.999)),
     (1, 2, 20, 16, 32, torch.float32, (0.75, 0.999)),
     (2, 4, 64, 64, 32, torch.float32, (1e-3, 0.05)),
+    # The bf16 tensor-core kernel's edges: T < 16, T equal to the chunk,
+    # C = 64, N = 32 (a plan that cannot fill the card), N = 40 (no 16-byte
+    # copies, a partial slice), w near 0 (log w at its floor, zeros
+    # included), strong decays, and a batch of (b, h) that fills the card.
+    (1, 2, 8, 64, 32, torch.bfloat16, (0.75, 0.999)),
+    (2, 4, 32, 64, 32, torch.bfloat16, (0.75, 0.999)),
+    (1, 4, 128, 64, 64, torch.bfloat16, (0.75, 0.999)),
+    (2, 2, 64, 32, 32, torch.bfloat16, (0.75, 0.999)),
+    (1, 2, 64, 40, 32, torch.bfloat16, (0.75, 0.999)),
+    (1, 2, 64, 64, 32, torch.bfloat16, (0.0, 1e-44)),
+    (2, 4, 96, 64, 32, torch.bfloat16, (1e-3, 0.05)),
+    (4, 34, 64, 64, 32, torch.bfloat16, (0.75, 0.999)),
 ]
 
 
@@ -657,6 +718,42 @@ def test_mamba2_tensor_core_kernel_takes_any_heads_per_block_on_card(B, H, hb):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(s).all())
     _close(y, y_ref, _SCAN_TOL[torch.bfloat16])
+    _close(s, s_ref, _SCAN_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("cols", [16, 64])
+@pytest.mark.parametrize("chunk", [32, 64])
+def test_rwkv6_tensor_core_kernel_takes_any_cols_per_block_on_card(cols, chunk, monkeypatch):
+    """Each instance of the bf16 tensor-core kernel (16 or 64 columns a
+    block; chunks padded to 32 or 64 rows) at rwkv6's head shape, against
+    the plain version: the plan is forced, every slice must cover its
+    columns."""
+    from repro_torch.kernels.rwkv6_scan import kernel as k7
+
+    dev = _card()
+    real = k7.cols_plan
+    forced = []
+
+    def plan(B, H, N, C, sms):
+        p = real(B, H, N, C, sms)
+        slices = -(-N // cols)
+        forced.append(cols)
+        return p._replace(cols_per_block=cols, slices=slices, blocks=B * H * slices,
+                          smem_bytes=k7.shared_bytes(C, cols))
+
+    monkeypatch.setattr(k7, "cols_plan", plan)
+    rng = np.random.default_rng(cols + chunk)
+    B, H, T, N = 2, 3, 2 * chunk, 64
+    r, k, v = (torch.from_numpy(rng.standard_normal((B, H, T, N)).astype(np.float32) * 0.5)
+               .to(dev, torch.bfloat16) for _ in range(3))
+    w = torch.from_numpy(rng.uniform(0.5, 0.999, (B, H, T, N)).astype(np.float32)).to(dev)
+    u = torch.from_numpy(rng.standard_normal((H, N)).astype(np.float32) * 0.5).to(dev)
+    o, s = k7.rwkv6_scan_cuda(r, k, v, w, u, chunk=chunk)
+    o_ref, s_ref = k7.rwkv6_scan_ref(r, k, v, w, u)
+    torch.cuda.synchronize()
+    assert forced == [cols]
+    assert bool(torch.isfinite(o.float()).all()) and bool(torch.isfinite(s).all())
+    _close(o, o_ref, _SCAN_TOL[torch.bfloat16])
     _close(s, s_ref, _SCAN_TOL[torch.float32])
 
 

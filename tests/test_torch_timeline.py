@@ -64,6 +64,10 @@ def _pair(lines, jev, design, jcfg, **kw):
 
 @pytest.fixture(scope="module")
 def hetero():
+    return hetero_specs()
+
+
+def hetero_specs():
     """Ten cells mixing every design, 1-16 accelerators, 0 or 8 MSHRs, 0, 1
     or 3 ports, 0 or 16 banks, 1-32 partitions and three trace lengths
     (2,600, 1,700 and 900 accesses): (JAX specs, port specs)."""
