@@ -19,15 +19,19 @@ K5 and K6.  One JSON line per phase:
 
 1. ``device``: the card, and its name and power limit from ``nvidia-smi``;
 2. ``build``: the kernels built for ``sm_90a`` from the sources in this
-   checkout, with ptxas's register / stack / spill lines; K1's, K2's, K4's,
-   K6's, K7's and K8's kernels must spill nothing;
+   checkout, with ptxas's register / stack / spill lines; K1's, K2's, K3's,
+   K4's, K6's, K7's and K8's kernels must spill nothing;
 3. ``kernel_vs_plain``: each simulator op entry point on the card against
    its plain PyTorch version on the same inputs (tolerance 0: hits, depths,
    timeline latency / overhead / done and carried state bit-identical), K1
    and K2 also on the skewed and edge cases of ``tests/_lru_cases.py``
    (every access in one set; a set per access over 65,537 rows; a hot set;
-   1-33 ways; an empty chunk; stamps up to 2**31 - 2), chunk by chunk; and
+   1-33 ways; an empty chunk; stamps up to 2**31 - 2), chunk by chunk;
    ``engines_agree``: the stack-distance sweep equal to the sequential one;
+   and K3 on the edge cases of ``tests/_stack_cases.py`` (both designs of
+   its plan and the P each case forces: segment starts on parts' first
+   steps and at every step, padding tags, ragged parts and tiles, C = 1 to
+   16,384, 1-40 slots);
 4. the simulator's main path, with the kernels' launch counters set to 0
    before it and read after it (``main_path``): ``fig10`` and ``fig4``,
    every hit count held against the JAX reference's golden file
@@ -56,7 +60,14 @@ K5 and K6.  One JSON line per phase:
    summed over the calls, ``ns_per_access`` (time over it), ``hit_share``
    (a hit's step touches acc[a] alone), ``chain_floor_ms`` (the same calls
    with every access a hit: the design's shortest step, longest_sim times)
-   and ``device_ms`` (``torch.profiler``);
+   and ``device_ms`` (``torch.profiler``).  K3's ``timing`` row is Fig 4's
+   20 calls and its ``timing_site`` Fig 5's 40 grid calls, each with
+   ``device_ms`` and ``device_ms_events``, the plan at each call shape
+   (``plans``: P, design, threads a block, blocks), ``chain_steps`` (the
+   steps a thread walks one after another, summed over the calls),
+   ``ns_per_step`` and ``ns_per_step_device`` (time over it), and
+   ``parts_plan_ms``: the time at each P forced on a call of each lane
+   count;
 6. ``kernel_vs_plain`` for K5 and K6 through their op entry points, within
    2e-5 in float32 and 2e-2 in bfloat16 (the JAX package's tolerances): the
    JAX test shapes and head dims 32, 64, 128, 160, 256 and 112 (zamba2,
@@ -148,6 +159,7 @@ imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import pathlib
@@ -171,6 +183,9 @@ TL_PREFIX = 2_000              # accesses of K4's plain-version timing prefix
 TL_BYTES = 44                  # K4 bytes per (sim, access): 8 x 4 in, 3 x 4 out
 SUMMARY_RTOL = 1e-12           # timeline summaries: numpy float64 reductions
 SIM_KERNELS = ("tlb_sim", "system_sim", "stackdist", "timeline")
+# The kernels whose ptxas lines must show no spill.
+NO_SPILL = ("tlb_sim", "system_sim", "stackdist", "timeline", "paged_attention",
+            "rwkv6_scan", "mamba2_scan")
 
 FAILURES = []
 
@@ -208,8 +223,7 @@ def main() -> int:
          ptxas=[ln.strip() for ln in lib.log.splitlines()
                 if ln.startswith("==") or "registers" in ln or "spill" in ln
                 or "Compiling entry" in ln])
-    for src, spill in _spills(lib.log, ("tlb_sim", "system_sim", "timeline", "paged_attention",
-                                        "rwkv6_scan", "mamba2_scan")):
+    for src, spill in _spills(lib.log, NO_SPILL):
         fail(f"{src}: a kernel spills ({spill})")
 
     errs = check_kernels_against_plain(torch, trace)
@@ -426,8 +440,57 @@ def check_kernels_against_plain(torch, trace) -> dict:
          equal=agree, **shape)
     if not agree:
         fail("sweep_tlb: the stack-distance engine differs from the sequential kernel")
+    errs["stackdist"] = max(errs["stackdist"], check_stack_cases(torch))
     errs["timeline"] = check_timeline_against_plain(torch, lines, cuts)
     return errs
+
+
+@contextlib.contextmanager
+def _forced_parts(k3, parts):
+    """K3's plan with P forced to ``parts`` while the block runs (no change
+    for ``None``)."""
+    real = k3.stack_plan
+    if parts is None:
+        yield
+        return
+    k3.stack_plan = lambda L, C, W, sms: k3.plan_for_parts(L, C, W, sms, parts)
+    try:
+        yield
+    finally:
+        k3.stack_plan = real
+
+
+def _k3_plan(L: int, C: int, W: int):
+    """K3's plan for a call on this card."""
+    from repro_torch.kernels.paged_attention.kernel import sm_count
+    from repro_torch.kernels.stackdist import kernel as k3
+
+    return k3.stack_plan(L, C, W, sm_count(0))
+
+
+def check_stack_cases(torch) -> int:
+    """K3 through its op on the edge cases of ``tests/_stack_cases.py``, each
+    at the P it forces (the plan's own otherwise), against the plain version
+    (tolerance 0).  Returns the largest error."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _stack_cases import CASES, case_inputs
+
+    from repro_torch.kernels.stackdist import kernel as k3
+    from repro_torch.kernels.stackdist import stack_scan
+
+    dev = torch.device("cuda")
+    err = 0
+    for case in CASES:
+        name, L, C, W, parts = case
+        x = [torch.from_numpy(a).to(dev) for a in case_inputs(case)]
+        with _forced_parts(k3, parts):
+            got = stack_scan(*x, kernel_mode="cuda")
+            plan = _k3_plan(L, C, W)
+        want = stack_scan(*x, kernel_mode="reference")
+        err = max(err, _compare(torch, f"stack_scan ({name})", "stackdist", got, want,
+                                lanes=L, steps=C, slots=W, parts=plan.parts,
+                                design=plan.design))
+    return err
 
 
 def check_lru_cases(torch) -> dict:
@@ -895,19 +958,7 @@ def _device_ms(torch, fn, kernels, calls=None) -> dict:
                                "ms": e.self_device_time_total / 1e3} for e in rows],
            "profile_tries": tries, "wrapper_launches": counted}
     if calls is not None:
-        total = 0.0
-        for i in range(0, len(calls), HELD_BATCH):
-            torch.cuda.synchronize()
-            torch.cuda._sleep(HELD_CYCLES)
-            start, end = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-            start.record()
-            for c in calls[i:i + HELD_BATCH]:
-                c()
-            end.record()
-            end.synchronize()
-            total += start.elapsed_time(end)
-        out["device_ms_events"] = total
+        out["device_ms_events"] = _held_ms(torch, calls)
     return out
 
 
@@ -1332,14 +1383,128 @@ def time_sites(torch, figs, trace, runs) -> None:
                f"configs, {STREAM_CHUNK}-access chunks", **m)
 
 
+K3_KERNELS = ("stack_scan",)
+K3_FORCED_PARTS = (1, 4, 8, 16, 32)
+K3_FORCED_REPS = 5
+
+
+def _held_ms(torch, fns) -> float:
+    """Device time of the calls ``fns`` enqueued in batches behind a held
+    stream (``torch.cuda._sleep``): the host is ahead, so CUDA events time
+    the device alone, the gaps between launches included."""
+    total = 0.0
+    for i in range(0, len(fns), HELD_BATCH):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(HELD_CYCLES)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for fn in fns[i:i + HELD_BATCH]:
+            fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total
+
+
+def _scan_design(torch, calls, ms: float, device_ms: float) -> dict:
+    """K3's plan at each call shape (``plans``: lanes, steps, slots, calls,
+    P, design, threads a block, blocks) and its chain: ``chain_steps``, the
+    steps a thread walks one after another (its lane when P = 1, its part
+    twice when P > 1), summed over the calls; ``ns_per_step`` (the event
+    time over it) and
+    ``ns_per_step_device`` (the device time over it)."""
+    shapes, chain = {}, 0
+    for (t, _, init), _, _ in calls:
+        L, C, W = t.shape[0], t.shape[1], init.shape[1]
+        plan = _k3_plan(L, C, W)
+        chain += plan.chain_steps
+        e = shapes.setdefault((L, C, W), {
+            "lanes": L, "steps": C, "slots": W, "calls": 0, "parts": plan.parts,
+            "design": plan.design, "threads_a_block": plan.threads, "blocks": plan.blocks,
+            "chain_steps": plan.chain_steps})
+        e["calls"] += 1
+    return {"plans": list(shapes.values()), "chain_steps": chain,
+            "ns_per_step": ms * 1e6 / max(chain, 1),
+            "ns_per_step_device": device_ms * 1e6 / max(chain, 1)}
+
+
+def _parts_plan_ms(torch, calls) -> dict:
+    """K3's time at each P forced, on one call of each lane count of
+    ``calls`` (held-stream events, the mean of ``K3_FORCED_REPS`` runs):
+    {lanes: {P: ms}}."""
+    from repro_torch.kernels.stackdist import kernel as k3
+    from repro_torch.kernels.stackdist.kernel import stack_scan_cuda
+
+    by_lanes = {}
+    for args, _, _ in calls:
+        by_lanes.setdefault(args[0].shape[0], args)
+    out = {}
+    for L in sorted(by_lanes, reverse=True):
+        args, row = by_lanes[L], {}
+        for P in K3_FORCED_PARTS:
+            try:
+                with _forced_parts(k3, P):
+                    stack_scan_cuda(*args)
+                    row[str(P)] = _held_ms(torch, [lambda: stack_scan_cuda(*args)]
+                                           * K3_FORCED_REPS) / K3_FORCED_REPS
+            except ValueError:                # the rows do not fit at this P
+                row[str(P)] = None
+        out[str(L)] = row
+    return out
+
+
+def time_stack_scan(torch, figs, trace, fig5_lines: dict, launches, err: int) -> dict:
+    """K3 at Fig 4's 20 main-path calls (the ``timing`` row) and at Fig 5's
+    40 grid calls (a ``timing_site`` line): CUDA-event time, device time
+    (``torch.profiler``, and held-stream events), the plan and chain
+    (``_scan_design``), the time at each P forced (``parts_plan_ms``), the
+    bound and the plain version on a prefix.  Returns the row."""
+    from repro_torch.bench.common import W4
+    from repro_torch.kernels.stackdist.kernel import stack_scan_cuda
+    from repro_torch.kernels.stackdist.ref import stack_scan_ref
+
+    fig4_lines = [trace(w, n_ops=40_000).lines for w in W4]
+    skip4 = trace("skip_list", n_ops=40_000).lines
+    lines5 = list(fig5_lines.values())
+    sites = (
+        ("K3 Fig 4", figs["fig4"].specs(), fig4_lines, [skip4[:PREFIX]],
+         "Fig 4: 4 traces (4.06 M accesses) x 60 set-mappings, 1024-access lanes, 4 "
+         "slots, two passes per stream chunk"),
+        ("K3 Fig 5 grid", figs["fig5"].specs(), lines5, [lines5[-1][:PREFIX]],
+         f"Fig 5's grid: {len(lines5)} traces ({sum(len(x) for x in lines5)} accesses) x 4 "
+         f"set-mappings, 1024-access lanes, 4 slots, two passes per trace"),
+    )
+    out = {}
+    for site, specs, lines, prefix_lines, shape in sites:
+        calls = _scan_calls(torch, specs, lines)
+        m = _measure(torch, "stackdist", stack_scan_cuda, stack_scan_ref, calls,
+                     _scan_calls(torch, specs, prefix_lines), PREFIX)
+        m.update(_device_ms(torch, lambda: [stack_scan_cuda(*a) for a, _, _ in calls],
+                            K3_KERNELS, calls=[lambda a=a: stack_scan_cuda(*a)
+                                               for a, _, _ in calls]))
+        m.update(_scan_design(torch, calls, m["ms"], m["device_ms_events"]))
+        m["parts_plan_ms"] = _parts_plan_ms(torch, calls)
+        m["shape"] = shape
+        out[site] = m
+        del calls
+    site5 = out["K3 Fig 5 grid"]
+    emit("timing_site", site="K3 Fig 5 grid", kernel="stackdist", function="stack_scan_pallas",
+         replaces="src/repro/kernels/stackdist/kernel.py:63", **site5)
+    row = {"name": "stackdist", "route": "cuda",
+           "source": "src/repro_torch/kernels/stackdist/csrc/stackdist.cu",
+           "replaces": "src/repro/kernels/stackdist/kernel.py:63", "also_replaces": [],
+           "launches": launches, "library_ms": None, **out["K3 Fig 4"],
+           "max_abs_err": max(err, site5["max_abs_err"], out["K3 Fig 4"]["max_abs_err"])}
+    emit("timing", **row)
+    return row
+
+
 def time_kernels(torch, figs, trace, errs, launches, runs) -> list:
     """Phase 5.  Each kernel is timed on the calls the main path gave it; its
     plain version runs the same calls over a prefix, and the kernel's outputs
     there must equal the plain ones."""
     from repro_torch.bench.common import W4
     from repro_torch.core.sweep import sweep_system
-    from repro_torch.kernels.stackdist.kernel import stack_scan_cuda
-    from repro_torch.kernels.stackdist.ref import stack_scan_ref
     from repro_torch.kernels.system_sim.kernel import system_sim_carry_cuda
     from repro_torch.kernels.system_sim.ref import system_sim_batched_carry_ref
     from repro_torch.kernels.tlb_sim.kernel import tlb_sim_carry_cuda
@@ -1367,19 +1532,12 @@ def time_kernels(torch, figs, trace, errs, launches, runs) -> list:
          "Fig 10: 4 traces (3.06 M accesses) x 9 configs, one launch per trace",
          ["src/repro/kernels/system_sim/kernel.py:270",
           "src/repro/kernels/system_sim/kernel.py:220"]),
-        ("stackdist", stack_scan_cuda, stack_scan_ref,
-         lambda: _scan_calls(torch, specs, fig4_lines),
-         lambda: _scan_calls(torch, specs, [skip4[:PREFIX]]),
-         "Fig 4: 4 traces (4.06 M accesses) x 60 set-mappings, 1024-access "
-         "lanes, 4 slots, two passes per stream chunk",
-         ["src/repro/kernels/stackdist/kernel.py:63"]),
     )
     out = []
     for name, kernel, plain, make_calls, make_prefix, shape, replaces in kernels:
         calls = make_calls()
         m = _measure(torch, name, kernel, plain, calls, make_prefix(), PREFIX)
-        if name in ("tlb_sim", "system_sim"):
-            m.update(_lru_floor(torch, name, kernel, calls, m["ms"]))
+        m.update(_lru_floor(torch, name, kernel, calls, m["ms"]))
         del calls
         row = {"name": name, "route": "cuda",
                "source": f"src/repro_torch/kernels/{name}/csrc/{name}.cu",
@@ -1388,6 +1546,8 @@ def time_kernels(torch, figs, trace, errs, launches, runs) -> list:
                **m, "max_abs_err": max(errs[name], m["max_abs_err"])}
         emit("timing", **row)
         out.append(row)
+    out.append(time_stack_scan(torch, figs, trace, runs["fig5"]["lines"], launches["stackdist"],
+                               errs["stackdist"]))
 
     # K4: the row sums its two monolithic main-path sites, Fig 11 and Fig 5.
     sites = time_timeline(torch, runs)

@@ -48,8 +48,10 @@ SIGNATURES = {
     # c_tags, c_last, a_tags, a_last, m_tags, m_last, hits,
     # B, L, CS, CW, AS, AW, MS, MW, now0, (sets, segs) x 3, raw, scratch
     "system_sim_launch": [c_ptr] * 14 + [c_int] * 15 + [c_ptr] + _LRU_SCRATCH,
-    # tags, seg, init, depths, final, L, C, W, stream
-    "stack_scan_launch": [c_ptr] * 5 + [c_int] * 3 + [c_ptr],
+    # tags, seg, init, depths, final, L, C, W, then the plan (parts, steps a
+    # part, tile steps, padded row steps, lanes a block, stages, smem bytes),
+    # stream
+    "stack_scan_launch": [c_ptr] * 5 + [c_int] * 10 + [c_ptr],
     # accel, part, bank_d, bank_p, cache_hit, tlb_hit, mem_hit, pen, fparams,
     # iparams, acc, mshr, cnt, port, bank, lat, ov, done, B, L, A, M, P, T, D,
     # stream

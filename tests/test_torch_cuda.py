@@ -23,6 +23,8 @@ import pytest
 import torch
 from _lru_cases import chunks, k1_cases, k2_cases
 from _paged_cases import EDGE_CASES, FLOAT64_EDGES, edge_inputs
+from _stack_cases import CASES as STACK_CASES
+from _stack_cases import case_inputs as stack_case_inputs
 
 from repro_torch.core import stackdist, sweep, tlbsim
 from repro_torch.core.sparta import TLBConfig
@@ -141,16 +143,18 @@ def test_system_sim_kernel_matches_plain_on_card(case):
         got_state, want_state = got[1], want[1]
 
 
-@pytest.mark.parametrize("W", [1, 4, 16, 32, 40])
-def test_stack_scan_kernel_matches_plain_on_card(W):
-    """Every stack width the launcher dispatches on: registers up to 32
-    slots, device memory above."""
+@pytest.mark.parametrize("case", STACK_CASES, ids=[c[0] for c in STACK_CASES])
+def test_stack_scan_kernel_matches_plain_on_card(case, monkeypatch):
+    """The edge cases of ``tests/_stack_cases.py``: every stack width the
+    launcher dispatches on (registers up to 32 slots, device memory above),
+    both designs of the plan and the P each case forces, segment starts on
+    parts' first steps and at every step, padding, ragged parts and tiles,
+    C = 1 to 16,384.  One launch counted per call."""
     dev = _card()
-    rng = np.random.default_rng(W)
-    L, C = 300, 257
-    tags = torch.from_numpy(rng.integers(0, 3 * W, (L, C)).astype(np.int32)).to(dev)
-    seg = torch.from_numpy(rng.random((L, C)) < 0.05).to(dev)
-    init = torch.from_numpy(rng.integers(-1, 3 * W, (L, W)).astype(np.int32)).to(dev)
+    if case[4] is not None:
+        monkeypatch.setattr(k3, "stack_plan",
+                            lambda L, C, W, sms: k3.plan_for_parts(L, C, W, sms, case[4]))
+    tags, seg, init = (torch.from_numpy(x).to(dev) for x in stack_case_inputs(case))
     n0 = k3.launches
     got = stack_scan(tags, seg, init, kernel_mode="cuda")
     assert k3.launches == n0 + 1
