@@ -6,7 +6,8 @@
 Drives the port's three main paths through its hand-written CUDA kernels
 and fails (exit code 1, no result line) if anything is wrong.  The simulator's:
 the Fig 10 joint-system sweep and the Fig 4 TLB sweep, the Fig 11 and Fig 5
-timeline figures, all at full figure size, and their resumable streams,
+timeline figures, Figs 2, 7, 8, 9 and 6, all at full figure size, and
+their resumable streams,
 through K1 (``tlb_sim``), K2 (``system_sim``), K3 (``stackdist``'s stack
 scan) and K4 (``timeline``).  The serving engine's: qwen3-14b at its
 published width (40 layers, bf16 weights from a seeded generator on the
@@ -41,7 +42,15 @@ K5 and K6.  One JSON line per phase:
    held by sha256 of its float32 bytes, and the Fig 5 grid's hit counts,
    against ``tests/data/torch_golden_timeline.json``; ``timeline_stream``,
    the chunked timeline stream over Fig 11's specs, equal to the monolithic
-   sweep.  Each phase line has its wall times, claims and launches;
+   sweep.  Then the paper's other figures at the JAX drivers' full sizes,
+   each a main path of its own with the counters set to 0 just before it
+   and read just after, every count and claim held against
+   ``tests/data/torch_golden_figs.json``: ``fig2`` (32 traces, K1 at B = 1
+   exactly 32 times), ``fig7`` (arithmetic, no kernel), ``fig8`` (five
+   thread mixes with the golden file's seed salts, K3 and no K1), ``fig9``
+   (K2 exactly 4 times) and ``fig6`` (the page-fault curves, no kernel);
+   ``main_path_figures`` sums their launches.  Each phase line has its
+   wall times, claims and launches;
 5. ``timing``: kernel time with CUDA events at the shapes the main path gave
    each kernel, beside the least time the card could take (bytes over
    3.35 TB/s, or operations over 67 T/s), and the plain version's time on
@@ -67,7 +76,14 @@ K5 and K6.  One JSON line per phase:
    steps a thread walks one after another, summed over the calls),
    ``ns_per_step`` and ``ns_per_step_device`` (time over it), and
    ``parts_plan_ms``: the time at each P forced on a call of each lane
-   count;
+   count.  The paper figures add ``timing_site`` lines for K1a at Fig 2's
+   32 calls and K2a at Fig 9's 4 (the plain version takes each site's
+   5,000-access prefixes in one call, the configs stacked), and K3 at Fig
+   8's sweeps,
+   with the fields of the lines above and the kernel's share of its
+   figure's wall time; and ``page_fault``: Fig 6's stack-distance pass
+   on the card (the 1-node stream and the 32-node batch), equal to the
+   sequential Fenwick walk on the host over a 20,000-access prefix;
 6. ``kernel_vs_plain`` for K5 and K6 through their op entry points, within
    2e-5 in float32 and 2e-2 in bfloat16 (the JAX package's tolerances): the
    JAX test shapes and head dims 32, 64, 128, 160, 256 and 112 (zamba2,
@@ -172,11 +188,13 @@ sys.path.insert(0, str(ROOT / "src"))
 
 GOLDEN = ROOT / "tests" / "data" / "torch_golden_sweeps.json"
 GOLDEN_TIMELINE = ROOT / "tests" / "data" / "torch_golden_timeline.json"
+GOLDEN_FIGS = ROOT / "tests" / "data" / "torch_golden_figs.json"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 INT32_OPS_PER_S = 67e12        # 32-bit rate outside the tensor cores (data sheet, fp32)
 STREAM_CHUNK = 65_537          # accesses per stream chunk (odd on purpose)
 PREFIX = 20_000                # accesses of the plain-version timing prefix
 CHECK_ACCESSES = 20_037        # PREFIX plus an odd-length tail
+STACKED_PREFIX = 5_000         # the prefix where one plain call takes a site's calls stacked
 TL_BLOCK = 512                 # TimelineSweepStream's block
 TL_STREAM_CHUNK = 97 * TL_BLOCK  # timeline stream chunks: a block multiple
 TL_PREFIX = 2_000              # accesses of K4's plain-version timing prefix
@@ -207,14 +225,16 @@ def main() -> int:
               "needs one CUDA card", file=sys.stderr)
         return 1
 
-    from repro_torch.bench import fig4, fig5, fig10, fig11
+    from repro_torch.bench import fig2, fig4, fig5, fig6, fig7, fig8, fig9, fig10, fig11
     from repro_torch.bench.common import trace
     from repro_torch.core.benchtime import device_metadata
     from repro_torch.kernels import _build
 
+    import numpy
+
     meta = device_metadata()
     name, smi = meta["device_kind"], meta["nvidia_smi"]
-    emit("device", **meta)
+    emit("device", **meta, numpy_version=numpy.__version__)
 
     t0 = time.perf_counter()
     lib = _build.load()
@@ -231,8 +251,14 @@ def main() -> int:
     golden_tl = json.loads(GOLDEN_TIMELINE.read_text())
     figs = {"fig4": fig4, "fig5": fig5, "fig10": fig10, "fig11": fig11}
     launches, runs = run_main_path(torch, figs, trace, golden, golden_tl)
+    paper = {"fig2": fig2, "fig7": fig7, "fig8": fig8, "fig9": fig9, "fig6": fig6}
+    paper_launches, paper_runs = run_paper_figures(
+        torch, paper, trace, json.loads(GOLDEN_FIGS.read_text()))
+    launches = {k: v + paper_launches[k] for k, v in launches.items()}
     kernels = time_kernels(torch, figs, trace, errs, launches, runs)
     del runs
+    time_paper_figures(torch, paper, paper_runs)
+    del paper_runs
     torch.cuda.empty_cache()
 
     kernels += run_serving(torch)
@@ -1075,18 +1101,23 @@ def _outputs(torch, x) -> list:
     return [t for y in x for t in _outputs(torch, y)]
 
 
-def _measure(torch, name: str, kernel, plain, calls, prefix_calls, prefix: int) -> dict:
+def _measure(torch, name: str, kernel, plain, calls, prefix_calls, prefix: int,
+             stacked: bool = False) -> dict:
     """CUDA-event time of ``kernel`` over ``calls`` and over ``prefix_calls``
     (the same calls cut to their first ``prefix`` accesses), the plain
     version's host-clock time over ``prefix_calls``, where the outputs must
     be bit-identical, and the bound of ``calls``.  Each call is ``(args,
-    bytes, operations)``."""
+    bytes, operations)``.  ``stacked``: the plain version takes the prefix
+    calls in one call (:func:`_plain_stacked`)."""
     ms = _event_ms(torch, lambda: [kernel(*a) for a, _, _ in calls], reps=3)
     ms_prefix = _event_ms(torch, lambda: [kernel(*a) for a, _, _ in prefix_calls], reps=3)
     got = [kernel(*a) for a, _, _ in prefix_calls]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want = [plain(*a) for a, _, _ in prefix_calls]
+    if stacked:
+        want = _plain_stacked(torch, plain, [a for a, _, _ in prefix_calls])
+    else:
+        want = [plain(*a) for a, _, _ in prefix_calls]
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     err = _compare(torch, f"{name} (main-path calls, first {prefix} accesses)", name,
@@ -1097,6 +1128,33 @@ def _measure(torch, name: str, kernel, plain, calls, prefix_calls, prefix: int) 
             "max_abs_err": err, "kernel_launches_timed": len(calls), "bytes": nbytes,
             "operations": ops, "plain_shape": f"the same calls on the first {prefix} accesses",
             "ms_at_plain_shape": ms_prefix}
+
+
+def _plain_stacked(torch, plain, args_list) -> list:
+    """``plain`` over several calls of one geometry at once: the calls'
+    tensors joined along the config axis (the plain versions loop over the
+    accesses and treat every config row alike, so a row's outputs do not
+    depend on the others), run once, and the outputs split back per call.
+    Non-tensor arguments (``now0``) must agree across the calls."""
+    def first(x):
+        return x if isinstance(x, torch.Tensor) else first(x[0])
+
+    def join(xs):
+        if isinstance(xs[0], torch.Tensor):
+            return torch.cat(xs, 0)
+        if isinstance(xs[0], (tuple, list)):
+            return type(xs[0])(join(list(ys)) for ys in zip(*xs))
+        if any(x != xs[0] for x in xs):
+            raise ValueError("stacked calls differ in a non-tensor argument")
+        return xs[0]
+
+    def split(x, sizes):
+        if isinstance(x, torch.Tensor):
+            return list(torch.split(x, sizes, 0))
+        return [type(x)(p) for p in zip(*(split(y, sizes) for y in x))]
+
+    sizes = [first(a).shape[0] for a in args_list]
+    return split(plain(*join(args_list)), sizes)
 
 
 def _longest(torch, set_b, rows: int, mask=None) -> int:
@@ -1345,6 +1403,17 @@ def time_timeline(torch, runs) -> dict:
     return out
 
 
+def _k1a_calls(torch, spec, lines_list) -> list:
+    """The K1 launches of ``tlb_sim`` at B = 1 (one spec), one per trace:
+    (wrapper arguments, bytes, compares)."""
+    calls = []
+    for set_b, tag_b, tags, last, now0 in _tlb_sweep_calls(torch, [spec], lines_list):
+        N, W = set_b.shape[1], tags.shape[2]
+        calls.append(((set_b, tag_b, tags, last, now0),
+                      N * 9 + 2 * 2 * tags.numel() * 4, 2 * N * W))
+    return calls
+
+
 def time_sites(torch, figs, trace, runs) -> None:
     """K1 at B = 1 (``tlb_sim``) and K2 at the stream calls, each on its own."""
     from repro_torch.kernels.system_sim.kernel import system_sim_carry_cuda
@@ -1354,15 +1423,9 @@ def time_sites(torch, figs, trace, runs) -> None:
 
     skip4 = trace("skip_list", n_ops=40_000).lines
     spec = figs["fig4"].specs()[9]   # conv-4K, 2048 entries: 512 sets x 4 ways
-
-    def k1a_calls(lines):
-        (set_b, tag_b, tags, last, now0), = _tlb_sweep_calls(torch, [spec], [lines])
-        N, W = set_b.shape[1], tags.shape[2]
-        return [((set_b, tag_b, tags, last, now0), N * 9 + 2 * 2 * tags.numel() * 4, 2 * N * W)]
-
-    calls = k1a_calls(skip4)
+    calls = _k1a_calls(torch, spec, [skip4])
     m = _measure(torch, "tlb_sim", tlb_sim_carry_cuda, tlb_sim_batched_carry_ref,
-                 calls, k1a_calls(skip4[:PREFIX]), PREFIX)
+                 calls, _k1a_calls(torch, spec, [skip4[:PREFIX]]), PREFIX)
     m.update(_lru_floor(torch, "tlb_sim", tlb_sim_carry_cuda, calls, m["ms"]))
     emit("timing_site", site="K1a B=1", kernel="tlb_sim", function="tlb_sim_pallas",
          replaces="src/repro/kernels/tlb_sim/kernel.py:85",
@@ -1453,6 +1516,27 @@ def _parts_plan_ms(torch, calls) -> dict:
     return out
 
 
+def _k3_site(torch, specs, lines, prefix_lines, shape: str) -> dict:
+    """K3 at the calls of ``sweep_tlb``'s stack-distance engine over
+    ``lines``: ``_measure`` (the plain version on ``prefix_lines``), the
+    device time (``torch.profiler``, and held-stream events), the plan and
+    chain (``_scan_design``) and the time at each P forced
+    (``parts_plan_ms``)."""
+    from repro_torch.kernels.stackdist.kernel import stack_scan_cuda
+    from repro_torch.kernels.stackdist.ref import stack_scan_ref
+
+    calls = _scan_calls(torch, specs, lines)
+    m = _measure(torch, "stackdist", stack_scan_cuda, stack_scan_ref, calls,
+                 _scan_calls(torch, specs, prefix_lines), PREFIX)
+    m.update(_device_ms(torch, lambda: [stack_scan_cuda(*a) for a, _, _ in calls],
+                        K3_KERNELS, calls=[lambda a=a: stack_scan_cuda(*a)
+                                           for a, _, _ in calls]))
+    m.update(_scan_design(torch, calls, m["ms"], m["device_ms_events"]))
+    m["parts_plan_ms"] = _parts_plan_ms(torch, calls)
+    m["shape"] = shape
+    return m
+
+
 def time_stack_scan(torch, figs, trace, fig5_lines: dict, launches, err: int) -> dict:
     """K3 at Fig 4's 20 main-path calls (the ``timing`` row) and at Fig 5's
     40 grid calls (a ``timing_site`` line): CUDA-event time, device time
@@ -1460,8 +1544,6 @@ def time_stack_scan(torch, figs, trace, fig5_lines: dict, launches, err: int) ->
     (``_scan_design``), the time at each P forced (``parts_plan_ms``), the
     bound and the plain version on a prefix.  Returns the row."""
     from repro_torch.bench.common import W4
-    from repro_torch.kernels.stackdist.kernel import stack_scan_cuda
-    from repro_torch.kernels.stackdist.ref import stack_scan_ref
 
     fig4_lines = [trace(w, n_ops=40_000).lines for w in W4]
     skip4 = trace("skip_list", n_ops=40_000).lines
@@ -1474,19 +1556,8 @@ def time_stack_scan(torch, figs, trace, fig5_lines: dict, launches, err: int) ->
          f"Fig 5's grid: {len(lines5)} traces ({sum(len(x) for x in lines5)} accesses) x 4 "
          f"set-mappings, 1024-access lanes, 4 slots, two passes per trace"),
     )
-    out = {}
-    for site, specs, lines, prefix_lines, shape in sites:
-        calls = _scan_calls(torch, specs, lines)
-        m = _measure(torch, "stackdist", stack_scan_cuda, stack_scan_ref, calls,
-                     _scan_calls(torch, specs, prefix_lines), PREFIX)
-        m.update(_device_ms(torch, lambda: [stack_scan_cuda(*a) for a, _, _ in calls],
-                            K3_KERNELS, calls=[lambda a=a: stack_scan_cuda(*a)
-                                               for a, _, _ in calls]))
-        m.update(_scan_design(torch, calls, m["ms"], m["device_ms_events"]))
-        m["parts_plan_ms"] = _parts_plan_ms(torch, calls)
-        m["shape"] = shape
-        out[site] = m
-        del calls
+    out = {site: _k3_site(torch, specs, lines, prefix_lines, shape)
+           for site, specs, lines, prefix_lines, shape in sites}
     site5 = out["K3 Fig 5 grid"]
     emit("timing_site", site="K3 Fig 5 grid", kernel="stackdist", function="stack_scan_pallas",
          replaces="src/repro/kernels/stackdist/kernel.py:63", **site5)
@@ -1581,6 +1652,219 @@ def time_kernels(torch, figs, trace, errs, launches, runs) -> list:
          ms=ms, longest_bucket=longest, ns_per_chain_step=ms * 1e6 / longest,
          shape="Fig 4: 4 traces (4.06 M accesses) x 60 specs, one launch per trace")
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phases 4-5 for the paper's other figures: Figs 2, 7, 8, 9 and 6.
+# ---------------------------------------------------------------------------
+
+def _paper_phase(torch, fig: str, drive, expect: dict):
+    """Drive one figure with every launch counter set to 0 just before and
+    read just after.  ``expect``: kernel -> the launches the figure must
+    make (None: at least one); every other kernel must make none.  Returns
+    the figure's result and its launches."""
+    for m in _counters().values():
+        m.launches = 0
+    res = drive()
+    torch.cuda.synchronize()
+    launches = _launches()
+    for k, n in launches.items():
+        want = expect.get(k, 0)
+        if (n == 0) if want is None else (n != want):
+            fail(f"{fig}: the {k} kernel launched {n} times, expected "
+                 f"{'at least once' if want is None else want}")
+    return res, launches
+
+
+def _phase_line(fig: str, res: dict, launches: dict, **fields) -> None:
+    seconds = res["seconds"]
+    emit(fig, seconds=seconds,
+         total_seconds=sum(seconds.values()) if isinstance(seconds, dict) else seconds,
+         claims=[c.row() for c in res["claims"]], launches=launches, **fields)
+
+
+def run_paper_figures(torch, paper, trace, golden: dict):
+    """Figs 2, 7, 8, 9 and 6 at the JAX drivers' full sizes, each a main
+    path of its own, every count and claim held to the JAX reference's
+    ``tests/data/torch_golden_figs.json``.  Returns the launches summed over
+    the five and the results the timing phase reuses."""
+    from repro_torch.bench.common import W4
+
+    fig2, fig8, fig9 = paper["fig2"], paper["fig8"], paper["fig9"]
+    runs, total = {}, {k: 0 for k in _counters()}
+    t0 = time.perf_counter()
+
+    g = golden["fig2"]
+    res, launches = _paper_phase(torch, "fig2", lambda: fig2.run(device="cuda", verbose=False),
+                                 {"tlb_sim": len(W4) * len(fig2.FOOTPRINTS_GB)})
+    bad, rows = 0, 0
+    for w, per_gb in g["workloads"].items():
+        for gb, entry in per_gb.items():
+            key = f"{w}/{gb}"
+            r = res["hits"][key]
+            bad += _check_golden(f"fig2/{key}", entry, res["lines"][key],
+                                 {"tlb": _counts(r.hits[None], r.n_warm)[0]})
+            rows += 1
+    if rows != len(res["hits"]):
+        fail(f"fig2: {len(res['hits'])} traces, golden {rows}")
+        bad += 1
+    bad += _check_claims("fig2", res["claims"], g["claims"])
+    _phase_line("fig2", res, launches, accesses=sum(res["accesses"].values()), traces=rows,
+                monotone_frac=res["monotone_frac"], golden_rows=rows, golden_mismatches=bad)
+    runs["fig2"] = res
+    total = {k: v + launches[k] for k, v in total.items()}
+
+    g = golden["fig7"]
+    res, launches = _paper_phase(torch, "fig7", lambda: paper["fig7"].run(verbose=False), {})
+    bad = int(res["cycles"] != g["cycles"])
+    if bad:
+        fail(f"fig7: cycles {res['cycles']} differ from golden {g['cycles']}")
+    bad += _check_claims("fig7", res["claims"], g["claims"])
+    _phase_line("fig7", res, launches, cycles=res["cycles"], golden_mismatches=bad)
+
+    g = golden["fig8"]
+    res, launches = _paper_phase(
+        torch, "fig8", lambda: fig8.run(device="cuda", salts=g["salts"], verbose=False),
+        {"stackdist": None})
+    bad = 0
+    for name, entry in g["mixes"].items():
+        bad += _check_golden(f"fig8/{name}", entry, res["lines"][name],
+                             {"bste": res["bste"][name]})
+    bad += _check_claims("fig8", res["claims"], g["claims"])
+    _phase_line("fig8", res, launches, accesses=res["accesses"], salts=res["salts"],
+                miss_ratios=res["results"], golden_rows=len(g["mixes"]) * len(fig8.PARTS),
+                golden_mismatches=bad)
+    runs["fig8"] = res
+    total = {k: v + launches[k] for k, v in total.items()}
+
+    g = golden["fig9"]
+    res, launches = _paper_phase(torch, "fig9", lambda: fig9.run(device="cuda", verbose=False),
+                                 {"system_sim": len(W4)})
+    bad, res["lines"] = 0, {}
+    for w, ev in res["events"].items():
+        counts = {k: _counts(getattr(ev, f), ev.n_warm) for k, f in (
+            ("cache", "cache_hit"), ("accel", "accel_tlb_hit"), ("mem", "mem_tlb_hit"))}
+        res["lines"][w] = trace(w, n_ops=g["n_ops"]).lines
+        bad += _check_golden(f"fig9/{w}", g["workloads"][w], res["lines"][w], counts)
+    bad += _check_claims("fig9", res["claims"], g["claims"])
+    _phase_line("fig9", res, launches, accesses=res["accesses"], speedups=res["results"],
+                golden_rows=3 * len(res["events"]) * len(fig9.system_configs()),
+                golden_mismatches=bad)
+    runs["fig9"] = res
+    total = {k: v + launches[k] for k, v in total.items()}
+
+    g = golden["fig6"]
+    res, launches = _paper_phase(torch, "fig6", lambda: paper["fig6"].run(device="cuda",
+                                                                   verbose=False), {})
+    got = {**_header(res["vpns"]), "unique": res["unique"], "frames": res["frames"],
+           "overhead_frames": res["overhead_frames"], "faults_1": res["faults_1"],
+           "faults_32": res["faults_32"]}
+    off = [k for k, v in got.items() if v != g[k]]
+    if off:
+        fail(f"fig6: {off} differ from golden")
+    bad = len(off) + _check_claims("fig6", res["claims"], g["claims"])
+    _phase_line("fig6", res, launches, accesses=res["accesses"], unique=res["unique"],
+                faults_1=res["faults_1"], faults_32=res["faults_32"], golden_mismatches=bad)
+    runs["fig6"] = res
+    emit("main_path_figures", launches=total, seconds=time.perf_counter() - t0)
+    return total, runs
+
+
+def time_paper_figures(torch, paper, runs) -> None:
+    """``timing_site`` lines for K1a at Fig 2's 32 calls, K2a at Fig 9's 4
+    and K3 at Fig 8's sweeps, each held bit-identical to its plain version
+    on a prefix of its calls (``STACKED_PREFIX`` accesses for K1a and K2a,
+    whose plain version takes the site's calls in one; ``PREFIX`` for K3);
+    and the ``page_fault``
+    line: Fig 6's stack-distance pass on the card against the sequential
+    Fenwick walk."""
+    from repro_torch.core.sweep import TLBSweepSpec, sweep_system
+    from repro_torch.kernels.system_sim.kernel import system_sim_carry_cuda
+    from repro_torch.kernels.system_sim.ref import system_sim_batched_carry_ref
+    from repro_torch.kernels.tlb_sim.kernel import tlb_sim_carry_cuda
+    from repro_torch.kernels.tlb_sim.ref import tlb_sim_batched_carry_ref
+
+    fig2, fig8, fig9 = paper["fig2"], paper["fig8"], paper["fig9"]
+    t0 = time.perf_counter()
+    res2 = runs["fig2"]
+    spec = TLBSweepSpec(fig2.TLB)
+    vpns = [lines >> 6 for lines in res2["lines"].values()]
+    calls = _k1a_calls(torch, spec, vpns)
+    head = min(STACKED_PREFIX, *map(len, vpns))   # the stacked prefixes share one length
+    m = _measure(torch, "tlb_sim", tlb_sim_carry_cuda, tlb_sim_batched_carry_ref, calls,
+                 _k1a_calls(torch, spec, [v[:head] for v in vpns]), head, stacked=True)
+    m.update(_lru_floor(torch, "tlb_sim", tlb_sim_carry_cuda, calls, m["ms"]))
+    wall = sum(res2["seconds"].values())
+    emit("timing_site", site="K1a Fig 2", kernel="tlb_sim", function="tlb_sim_pallas",
+         replaces="src/repro/kernels/tlb_sim/kernel.py:85",
+         shape=f"Fig 2: {len(calls)} traces ({sum(res2['accesses'].values())} accesses) x one "
+               f"config (1,536 entries, 4 ways: 384 sets), one launch each; plain version: "
+               f"the {len(calls)} prefixes in one call",
+         figure_seconds=wall, kernel_share_of_figure=m["ms"] / 1e3 / wall, **m)
+    del calls
+
+    res9 = runs["fig9"]
+    cfgs = fig9.system_configs()
+    lines9 = list(res9["lines"].values())
+    calls = _system_calls(torch, cfgs, lines9, [res9["events"][w] for w in res9["lines"]])
+    head = min(STACKED_PREFIX, *map(len, lines9))
+    prefix = [x[:head] for x in lines9]
+    m = _measure(torch, "system_sim", system_sim_carry_cuda, system_sim_batched_carry_ref,
+                 calls, _system_calls(torch, cfgs, prefix, [sweep_system(x, cfgs) for x in prefix]),
+                 head, stacked=True)
+    m.update(_lru_floor(torch, "system_sim", system_sim_carry_cuda, calls, m["ms"]))
+    wall = sum(res9["seconds"].values())
+    emit("timing_site", site="K2a Fig 9", kernel="system_sim",
+         function="system_sim_batched_pallas",
+         replaces="src/repro/kernels/system_sim/kernel.py:270",
+         shape=f"Fig 9: 4 traces ({sum(res9['accesses'].values())} accesses) x 10 configs "
+               f"(accel TLBs of 1-128 entries; 1, 2 and 4 are one set each, probed by every "
+               f"access), one launch per trace; plain version: the 4 prefixes in one call",
+         figure_seconds=wall, kernel_share_of_figure=m["ms"] / 1e3 / wall, **m)
+    del calls
+
+    res8 = runs["fig8"]
+    mixes = [lines >> 6 for lines in res8["lines"].values()]
+    m = _k3_site(torch, fig8.specs(), mixes, [mixes[-1][:PREFIX]],
+                 f"Fig 8: {len(mixes)} mixes ({sum(len(x) for x in mixes)} accesses) x 4 "
+                 f"set-mappings, 1024-access lanes, 4 slots, two passes per stream chunk")
+    wall = sum(res8["seconds"].values())
+    emit("timing_site", site="K3 Fig 8", kernel="stackdist", function="stack_scan_pallas",
+         replaces="src/repro/kernels/stackdist/kernel.py:63", figure_seconds=wall,
+         kernel_share_of_figure=m["device_ms"] / 1e3 / wall, **m)
+    time_page_fault(torch, runs["fig6"])
+    emit("paper_figures_timing", seconds=time.perf_counter() - t0)
+
+
+def time_page_fault(torch, res6: dict) -> None:
+    """Fig 6's stack distances: the on-card pass (CUDA events; the 1-node
+    stream and the 32-node batch) and the sequential Fenwick walk on the
+    host over the first ``PREFIX`` accesses, where the two must be equal."""
+    import numpy as np
+
+    from repro_torch.core import pagetable
+
+    vpns = res6["vpns"]
+    part = vpns % 32
+    streams = [vpns[part == p] for p in range(32)]
+    ms_1 = _event_ms(torch, lambda: pagetable.stack_distances(vpns), reps=3)
+    ms_32 = _event_ms(torch, lambda: pagetable.stack_distances_batch(streams), reps=3)
+    head = vpns[:PREFIX]
+    got = pagetable.stack_distances(head)
+    ms_prefix = _event_ms(torch, lambda: pagetable.stack_distances(head), reps=3)
+    t0 = time.perf_counter()
+    want = pagetable.fenwick_stack_distances(head)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = int(np.abs(got - want).max()) if want.size else 0
+    n = int(vpns.shape[0])
+    emit("page_fault", what="Fig 6's LRU stack distances (pagetable.stack_distances)",
+         accesses=n, unique=res6["unique"], levels=max(1, (n - 1).bit_length()),
+         ms_1node=ms_1, ms_32node=ms_32, ms_at_plain_shape=ms_prefix, plain_ms=plain_ms,
+         plain="fenwick_stack_distances, one access a step on the host",
+         plain_shape=f"the first {PREFIX} accesses", max_abs_err=err, equal=err == 0,
+         figure_seconds=res6["seconds"])
+    if err:
+        fail(f"Fig 6 stack distances differ from the Fenwick walk (max abs err {err})")
 
 
 # ---------------------------------------------------------------------------

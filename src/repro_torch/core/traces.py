@@ -32,6 +32,7 @@ traces for every workload and seed (``tests/test_torch_traces.py``).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Sequence
 
 import numpy as np
@@ -144,6 +145,48 @@ class Trace:
         return INSTR_PER_ACCESS.get(self.name, 5.0)
 
 
+_INT64_MAX = float(np.iinfo(np.int64).max)
+
+
+def _zipf(rng: np.random.Generator, a: float, size: int) -> np.ndarray:
+    """``rng.zipf(a, size)`` as numpy 2.0 draws it, whatever numpy runs.
+
+    Later numpy versions draw other Zipf values from the same seed, so the
+    hash-table (Fig 2) and rocksdb (Fig 6) traces, and their hit counts,
+    would differ from the reference's on another numpy.  This is numpy 2.0's
+    loop: a pair of doubles an attempt, ``X = floor(U ** (-1 / (a - 1)))``
+    with ``U = 1 - next_double``, kept when ``V X (T - 1) / (b - 1) <= T / b``
+    (``T = (1 + 1 / X) ** (a - 1)``, ``b = 2 ** (a - 1)``).  The doubles are
+    drawn in bulk, then the generator is rewound and advanced by exactly
+    the pairs the ``size`` draws consumed, so the draws after it are
+    numpy 2.0's too.  ``math.pow`` is the C library's ``pow``, as in numpy's
+    C code (numpy's vectorised ``power`` may use another implementation)."""
+    am1 = a - 1.0
+    b = math.pow(2.0, am1)
+    inv = -1.0 / am1
+    out = np.empty(size, dtype=np.int64)
+    state = rng.bit_generator.state
+    pairs = max(16, size + size // 4)
+    while True:
+        u = rng.random(2 * pairs).tolist()
+        j = k = 0
+        while j < size and k < pairs:
+            U, V = 1.0 - u[2 * k], u[2 * k + 1]
+            k += 1
+            X = math.floor(math.pow(U, inv))
+            if X > _INT64_MAX or X < 1.0:
+                continue
+            T = math.pow(1.0 + 1.0 / X, am1)
+            if V * X * (T - 1.0) / (b - 1.0) <= T / b:
+                out[j] = X
+                j += 1
+        rng.bit_generator.state = state
+        if j == size:
+            rng.random(2 * k)
+            return out
+        pairs *= 2
+
+
 def _splitmix64(x: np.ndarray) -> np.ndarray:
     """Cheap stateless scrambler used to scatter node ids over the heap."""
     x = (x + np.int64(-7046029254386353131)).astype(np.uint64)  # 0x9E3779B97F4A7C15
@@ -174,7 +217,7 @@ def _gen_hash_table(rng: np.random.Generator, n_ops: int, footprint_lines: int,
     heap_lines = footprint_lines - bucket_lines
     lo_b, hi_b = int(tslice[0] * bucket_lines), max(int(tslice[1] * bucket_lines), 1)
     if zipf_keys > 1.0:
-        ranks = rng.zipf(zipf_keys, size=n_ops).astype(np.int64) - 1
+        ranks = _zipf(rng, zipf_keys, n_ops) - 1
         buckets = lo_b + _scatter(ranks.clip(max=bucket_lines - 1), hi_b - lo_b, salt=23)
         # Hot keys point at hot chain nodes too (correlated placement).
         hot_nodes = True
@@ -332,7 +375,7 @@ def _gen_rocksdb(rng: np.random.Generator, n_ops: int, footprint_lines: int) -> 
     n_blocks = max(data_lines // LINES_PER_4K, 1)
 
     # Zipf block popularity (s ~= 0.99) via inverse-CDF on a truncated zipf.
-    ranks = rng.zipf(1.2, size=n_ops).astype(np.int64)
+    ranks = _zipf(rng, 1.2, n_ops)
     blocks = (ranks - 1).clip(max=n_blocks - 1)
     # Scatter popular ranks over the physical block space.
     blocks = _scatter(blocks, n_blocks, salt=3)

@@ -57,8 +57,8 @@ def test_source_scan_finds_no_jax_or_reference_imports():
 def test_default_device_raises_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present; the default device is valid")
-    from repro_torch.bench import fig10
-    from repro_torch.core import sweep, tlbsim
+    from repro_torch.bench import fig2, fig6, fig8, fig9, fig10
+    from repro_torch.core import pagetable, sweep, tlbsim
     from repro_torch.core.sparta import TLBConfig
 
     lines = np.arange(100, dtype=np.int64)
@@ -72,6 +72,16 @@ def test_default_device_raises_without_a_card():
         tlbsim.simulate_tlb(lines, TLBConfig())
     with pytest.raises(RuntimeError, match="cuda"):
         fig10.run(n_ops=10, verbose=False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fig2.run(n_ops=10, verbose=False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fig6.run(n_ops=10, verbose=False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fig8.run(n_ops=10, verbose=False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fig9.run(n_ops=10, verbose=False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        pagetable.page_fault_curve(lines, [4, 8])
 
 
 def test_serving_entry_points_default_to_the_card():

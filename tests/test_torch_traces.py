@@ -54,3 +54,30 @@ def test_validate_lines_rejects_the_same_inputs(bad):
     with pytest.raises(ValueError) as ta:
         tt.validate_lines(bad)
     assert str(ja.value) == str(ta.value)
+
+
+# The port's Zipf draws (the hash table's Fig 2 keys, a=1.4; rocksdb's
+# blocks, a=1.2) from default_rng(0): numpy 2.0's values, pinned so that a
+# run on another numpy, whose Generator.zipf draws differently, is held to
+# them too; then the next uniform draw, which shows the generator's state.
+_ZIPF_PINNED = {
+    1.2: ("1f9e165994050771ca46b5ea894b9518f169ce4e660b175202f47713c5ee96a2", 0.19865283495255392),
+    1.4: ("74a973005f5dbe368245b2407227b9e9639fae582549f3b032b11640bcbf79f1", 0.7312023704777155),
+}
+
+
+@pytest.mark.parametrize("a", [1.05, 1.2, 1.4, 3.0])
+def test_zipf_draws_are_numpy_2_0s(a):
+    """Equal to ``Generator.zipf`` on this numpy (2.0, the reference's
+    draw), generator state included, and to the pinned values anywhere."""
+    import hashlib
+
+    for seed in (0, 1):
+        for n in (0, 1, 1000):
+            want_rng, got_rng = np.random.default_rng(seed), np.random.default_rng(seed)
+            np.testing.assert_array_equal(tt._zipf(got_rng, a, n), want_rng.zipf(a, size=n))
+            assert got_rng.bit_generator.state == want_rng.bit_generator.state
+    if a in _ZIPF_PINNED:
+        rng = np.random.default_rng(0)
+        x = tt._zipf(rng, a, 20000)
+        assert (hashlib.sha256(x.tobytes()).hexdigest(), rng.random()) == _ZIPF_PINNED[a]
