@@ -42,7 +42,22 @@ K5 and K6.  One JSON line per phase:
    held by sha256 of its float32 bytes, and the Fig 5 grid's hit counts,
    against ``tests/data/torch_golden_timeline.json``; ``timeline_stream``,
    the chunked timeline stream over Fig 11's specs, equal to the monolithic
-   sweep.  Then the paper's other figures at the JAX drivers' full sizes,
+   sweep.  Then ``orchestrator``, a main path of its own: the crash-safe
+   ``run_sweep_*`` of ``repro_torch.core.orchestrator`` over Fig 10's
+   skip_list trace and 9 configs (K2b), Fig 11's 40 specs (K4c) and Fig
+   4's specs on skip_list (``auto``: the stack-distance engine, K3,
+   monolithic; ``kernel_mode="cuda"``: streamed through K1c), clean,
+   killed after a chunk's checkpoint and resumed, preempted by a SIGTERM to
+   this process and resumed, with two injected OOMs (exactly retry, retry,
+   halve) and with every kernel attempt failing on a 4,096-access prefix
+   (the out-of-memory error raised, the plain version never run); every
+   result equal to the
+   monolithic one and the golden files, no ladder event where nothing was
+   injected, the run log's simulated accesses equal to the runs', and a
+   calibration table made from the log still choosing the kernels; and
+   ``orchestrator_timing``, the orchestrated wall times without and with
+   checkpoints beside the monolithic sweeps and the kernels' CUDA-event
+   time.  Then the paper's other figures at the JAX drivers' full sizes,
    each a main path of its own with the counters set to 0 just before it
    and read just after, every count and claim held against
    ``tests/data/torch_golden_figs.json``: ``fig2`` (32 traces, K1 at B = 1
@@ -69,8 +84,12 @@ K5 and K6.  One JSON line per phase:
    summed over the calls, ``ns_per_access`` (time over it), ``hit_share``
    (a hit's step touches acc[a] alone), ``chain_floor_ms`` (the same calls
    with every access a hit: the design's shortest step, longest_sim times)
-   and ``device_ms`` (``torch.profiler``).  K3's ``timing`` row is Fig 4's
-   20 calls and its ``timing_site`` Fig 5's 40 grid calls, each with
+   and ``device_ms`` (``torch.profiler``; wherever it appears it is null
+   when the profiler recorded fewer launches of a kernel than the call
+   site's plans expect; a ratio over device time reads ``device_ms`` where
+   it is whole and ``device_ms_events``, held-stream CUDA events, where it
+   is null, and ``device_time_source`` says which).  K3's ``timing`` row
+   is Fig 4's 20 calls and its ``timing_site`` Fig 5's 40 grid calls, each with
    ``device_ms`` and ``device_ms_events``, the plan at each call shape
    (``plans``: P, design, threads a block, blocks), ``chain_steps`` (the
    steps a thread walks one after another, summed over the calls),
@@ -251,10 +270,11 @@ def main() -> int:
     golden_tl = json.loads(GOLDEN_TIMELINE.read_text())
     figs = {"fig4": fig4, "fig5": fig5, "fig10": fig10, "fig11": fig11}
     launches, runs = run_main_path(torch, figs, trace, golden, golden_tl)
+    orch_launches = run_orchestrator(torch, figs, trace, runs, golden, golden_tl)
     paper = {"fig2": fig2, "fig7": fig7, "fig8": fig8, "fig9": fig9, "fig6": fig6}
     paper_launches, paper_runs = run_paper_figures(
         torch, paper, trace, json.loads(GOLDEN_FIGS.read_text()))
-    launches = {k: v + paper_launches[k] for k, v in launches.items()}
+    launches = {k: v + paper_launches[k] + orch_launches[k] for k, v in launches.items()}
     kernels = time_kernels(torch, figs, trace, errs, launches, runs)
     del runs
     time_paper_figures(torch, paper, paper_runs)
@@ -887,6 +907,300 @@ def run_main_path(torch, figs, trace, golden, golden_tl):
 
 
 # ---------------------------------------------------------------------------
+# Phase 4b: the crash-safe orchestrator over the figures' full-size sweeps.
+# ---------------------------------------------------------------------------
+
+ORCH_KILL_AFTER = 3                # chunks committed before the simulated kill
+ORCH_EXHAUST_PREFIX = 4_096        # accesses of the run whose every kernel attempt fails
+HIT_FIELDS = ("cache_hit", "accel_tlb_hit", "mem_tlb_hit")
+LADDER_EVENTS = ("retry", "halve")
+
+
+class _Kill(BaseException):
+    """A simulated process death right after a chunk's checkpoint commit."""
+
+
+def _kill_after(n: int):
+    def hook(i):
+        if i + 1 >= n:
+            raise _Kill(f"simulated death after chunk commit #{i}")
+    return hook
+
+
+def _oom_hook(torch, limit, seen: list):
+    """``fault_hook``: raise ``torch.cuda.OutOfMemoryError`` before a
+    ``cuda`` attempt, ``limit`` times (None: every time)."""
+    def hook(engine, lo, hi, mode, attempt):
+        if mode == "cuda" and (limit is None or len(seen) < limit):
+            seen.append([lo, hi, attempt])
+            raise torch.cuda.OutOfMemoryError(f"injected OOM #{len(seen)} ({engine} "
+                                               f"[{lo}, {hi}))")
+    return hook
+
+
+def _wall(torch, fn):
+    """(seconds, result) of ``fn()`` on the host clock between synchronises."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def run_orchestrator(torch, figs, trace, runs, golden, golden_tl) -> dict:
+    """Phase 4b, a main path of its own (counters set to 0 just before it and
+    read just after): ``run_sweep_system`` over Fig 10's 9 configs and its
+    skip_list trace (K2b), ``run_sweep_timeline`` over Fig 11's 40 specs
+    (K4c), ``run_sweep_tlb`` over Fig 4's specs on skip_list, under
+    ``auto`` (the stack-distance engine, K3, monolithic) and streamed with
+    ``kernel_mode="cuda"`` (K1c); each clean, killed after chunk
+    ``ORCH_KILL_AFTER`` and resumed, one run preempted by a SIGTERM to this
+    process, and the ladder injected (two OOMs at one retry: exactly retry,
+    retry, halve; and every attempt failing on a prefix, which must raise
+    the error and never run the plain version).  Every result must
+    equal the monolithic one already in ``runs`` bit for bit (and so the
+    golden files), every run that injects nothing must end with no ladder
+    event on the kernel, the run log must hold the runs' spans and their
+    simulated accesses, and a calibration table made from that log must
+    still choose the kernels.  Then ``orchestrator_timing``: the wall time of
+    the orchestrated runs without and with checkpoints beside the monolithic
+    sweeps and their kernels' CUDA-event time.  Returns the launches."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="orchestrator-") as tmp:
+        return _orchestrate(torch, figs, trace, runs, golden, golden_tl, pathlib.Path(tmp))
+
+
+def _orchestrate(torch, figs, trace, runs, golden, golden_tl, root: pathlib.Path) -> dict:
+    """The body of :func:`run_orchestrator`, its checkpoints, run log and
+    calibration table under ``root``."""
+    import os
+    import signal
+
+    import numpy as np
+
+    from repro_torch.core import dispatch
+    from repro_torch.core import orchestrator as orch
+    from repro_torch.core.benchtime import device_metadata
+    from repro_torch.core.sparta import SystemLatencies
+    from repro_torch.core.sweep import sweep_system
+    from repro_torch.core.timeline import sweep_timeline
+    from repro_torch.kernels.system_sim import ops as k2ops
+    from repro_torch.kernels.timeline import ops as k4ops
+    from repro_torch.runtime import telemetry
+
+    fig4, fig10 = figs["fig4"], figs["fig10"]
+    lat = SystemLatencies(n_sockets=8)
+    cfgs, specs4 = fig10.system_configs(), fig4.specs()
+    lines10 = trace("skip_list", n_ops=golden["fig10"]["n_ops"]).lines
+    lines4 = trace("skip_list", n_ops=golden["fig4"]["n_ops"]).lines
+    ev10 = runs["fig10"]["events"]["skip_list"]
+    want10 = [getattr(ev10, f).cpu().numpy() for f in HIT_FIELDS]
+    want4 = runs["fig4"]["hits"]["skip_list"].hits.cpu().numpy()
+    specs11, res11 = runs["fig11"]["specs"], runs["fig11"]["results"]
+    want11 = [getattr(r, k) for r in res11 for k in ("latency", "overhead", "done")]
+    rows, sim = {}, {"sweep_system": 0, "sweep_timeline": 0, "sweep_tlb": 0}
+
+    def cfg(sub=None, **kw):
+        return orch.SweepRunConfig(checkpoint_dir=str(root / sub) if sub else None, **kw)
+
+    def record(name, meta, got, want, *, injected=False, mode="cuda", engine=None, work=0):
+        equal = len(got) == len(want) and all(np.array_equal(g, w) for g, w in zip(got, want))
+        ladder = [e["event"] for e in meta["events"] if e["event"] in LADDER_EVENTS]
+        rows[name] = {"equal": equal, "events": [e["event"] for e in meta["events"]],
+                      "start_mode": meta["start_mode"], "final_mode": meta["final_mode"],
+                      "resumable": meta["resumable"], "chunks": meta["chunks_committed"],
+                      "resumed_from": meta["resumed_from"],
+                      "dispatch": {k: meta["dispatch"][k] for k in
+                                   ("engine", "requested", "mode", "calibration", "reason")}}
+        if not equal:
+            fail(f"orchestrator {name}: differs from the monolithic result")
+        if not injected and (ladder or meta["final_mode"] != mode):
+            fail(f"orchestrator {name}: ladder events {ladder}, final mode "
+                 f"{meta['final_mode']!r} where nothing was injected")
+        if engine:
+            sim[engine] += work
+
+    def killed(name, run, sub, **kw):
+        """A run killed after chunk ``ORCH_KILL_AFTER``, then resumed."""
+        try:
+            run(cfg(sub, on_chunk_committed=_kill_after(ORCH_KILL_AFTER), **kw))
+            fail(f"orchestrator {name}: the simulated kill did not fire")
+        except _Kill:
+            pass
+        return run(cfg(sub, resume=True, **kw))
+
+    def system(c, lines=lines10):
+        bev, meta = orch.run_sweep_system(lines, cfgs, run=c, name="fig10_skip_list")
+        return [getattr(bev, f).numpy() for f in HIT_FIELDS], meta
+
+    def timeline(c, specs=specs11, name="fig11"):
+        res, meta = orch.run_sweep_timeline(specs, lat, run=c, name=name)
+        return [getattr(r, k) for r in res for k in ("latency", "overhead", "done")], meta
+
+    def tlb(c, mode="auto"):
+        res, meta = orch.run_sweep_tlb(lines4, specs4, kernel_mode=mode, run=c,
+                                       name="fig4_skip_list")
+        return [res.hits.cpu().numpy()], meta
+
+    n10, n11, B11 = len(lines10), max(len(sp.lines) for sp in specs11), len(specs11)
+    t0 = time.perf_counter()
+    for m in _counters().values():
+        m.launches = 0
+    with telemetry.run_scope(root / "orchestrator.jsonl", run="orchestrator",
+                             device=device_metadata()) as tracer:
+        # K2b: clean (its wall time, with checkpoints, is timed), killed and
+        # resumed, preempted and resumed, two OOMs injected.
+        ckpt10_s, (got, meta) = _wall(torch, lambda: system(cfg("sys_clean")))
+        record("system clean", meta, got, want10, engine="sweep_system", work=9 * n10)
+        got, meta = killed("system killed", system, "sys_kill")
+        record("system killed+resumed", meta, got, want10, engine="sweep_system", work=9 * n10)
+        counts = {k: _counts(torch.from_numpy(x), n10 - int(n10 * 0.25))
+                  for k, x in zip(("cache", "accel", "mem"), got)}
+        rows["system killed+resumed"]["golden_mismatches"] = _check_golden(
+            "orchestrator/fig10", golden["fig10"]["workloads"]["skip_list"], lines10, counts)
+
+        def sigterm(i):
+            if i == 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        preempted_at = None
+        try:
+            system(cfg("sys_preempt", on_chunk_committed=sigterm))
+            fail("orchestrator: the SIGTERM did not preempt the run")
+        except orch.Preempted as p:
+            preempted_at = p.now
+        if preempted_at != 2 * orch.SweepRunConfig.chunk_accesses:
+            fail(f"orchestrator: preempted at access {preempted_at}, not at the boundary "
+                 f"after chunk 2")
+        got, meta = system(cfg("sys_preempt", resume=True))
+        record("system preempted+resumed", meta, got, want10, engine="sweep_system",
+               work=9 * n10)
+        rows["system preempted+resumed"]["preempted_at"] = preempted_at
+        ooms = []
+        got, meta = system(cfg(max_retries=1, backoff_base_s=0.0,
+                               fault_hook=_oom_hook(torch, 2, ooms)))
+        record("system 2 OOMs injected", meta, got, want10, injected=True,
+               engine="sweep_system", work=9 * n10)
+        rows["system 2 OOMs injected"]["injected"] = ooms
+        if rows["system 2 OOMs injected"]["events"] != ["retry", "retry", "halve"] \
+                or meta["final_mode"] != "cuda":
+            fail(f"orchestrator: two injected OOMs gave {rows['system 2 OOMs injected']['events']}"
+                 f" ending on {meta['final_mode']!r}, not retry, retry, halve on the kernel")
+
+        # K4c: Fig 11's 40 specs clean, killed and resumed; one spec alone.
+        ckpt11_s, (got, meta) = _wall(torch, lambda: timeline(cfg("tl_clean")))
+        record("timeline clean", meta, got, want11, engine="sweep_timeline", work=B11 * n11)
+        got, meta = killed("timeline killed", timeline, "tl_kill")
+        record("timeline killed+resumed", meta, got, want11, engine="sweep_timeline",
+               work=B11 * n11)
+        entries = [e for w in runs["fig11"]["lines"] for e in golden_tl["fig11"]["timeline"][w]]
+        bad = sum(_f32_digest(got[3 * i + j]) != e[k] for i, e in enumerate(entries[:B11])
+                  for j, k in enumerate(("latency", "overhead", "done")))
+        rows["timeline killed+resumed"]["golden_mismatches"] = bad
+        if bad or len(entries) != B11:
+            fail(f"orchestrator: {bad} Fig 11 outputs differ from the golden digests "
+                 f"({B11} specs, golden {len(entries)})")
+        got, meta = timeline(cfg(), specs=specs11[:1], name="fig11_one_sim")
+        record("timeline one sim", meta, got, want11[:3], engine="sweep_timeline",
+               work=len(specs11[0].lines))
+
+        # Fig 4's specs: "auto" takes the stack-distance engine, monolithic;
+        # the stream through K1c, killed and resumed.
+        got, meta = tlb(cfg("tlb_auto"))
+        record("tlb auto", meta, got, [want4], mode="stackdist")
+        if meta["resumable"] or meta["dispatch"]["mode"] != "stackdist":
+            fail(f"orchestrator: Fig 4's auto decision is {meta['dispatch']['mode']!r}, "
+                 f"resumable {meta['resumable']}; expected the monolithic stackdist")
+        got, meta = killed("tlb killed", lambda c: tlb(c, "cuda"), "tlb_kill")
+        record("tlb cuda killed+resumed", meta, got, [want4], engine="sweep_tlb",
+               work=len(specs4) * len(lines4))
+
+        # Every kernel attempt fails on a prefix: after the retries and the
+        # halves down to one block the error is raised; the plain version
+        # never runs on the card.
+        attempts = []
+        raised = None
+        try:
+            system(cfg(chunk_accesses=1024, max_retries=0, backoff_base_s=0.0,
+                       fault_hook=_oom_hook(torch, None, attempts)),
+                   lines=lines10[:ORCH_EXHAUST_PREFIX])
+        except torch.cuda.OutOfMemoryError as e:
+            raised = f"{type(e).__name__}: {e}"
+        rows["system exhausted prefix"] = {"raised": raised, "kernel_attempts": len(attempts)}
+        if raised is None:
+            fail("orchestrator: a prefix whose every kernel attempt failed did not raise")
+        torch.cuda.synchronize()
+        launches = _launches()
+        summary = tracer.summary()
+    phase_s = time.perf_counter() - t0
+
+    log = root / "orchestrator.jsonl"
+    recs = [json.loads(line) for line in log.read_text().splitlines()]
+    kinds = {r["kind"] for r in recs}
+    counters = {k: summary["counters"].get(f"{k}.sim_accesses", {}).get("value")
+                for k in sim}
+    if not {"run_start", "span", "run_end"} <= kinds:
+        fail(f"orchestrator: the run log holds only {sorted(kinds)}")
+    if counters != sim:
+        fail(f"orchestrator: the run log counted {counters} simulated accesses, the runs "
+             f"made {sim}")
+    store = dispatch.CalibrationStore.for_dir(root / "calibration")
+    ingested = dispatch.ingest_runlogs(store, [log])
+    calibrated = {
+        "system": dispatch.decide_system("auto", cfgs, n_accesses=n10, store=store),
+        "timeline B=40": dispatch.decide_timeline("auto", batch=B11, n_accesses=n11,
+                                                  store=store),
+        "timeline B=1": dispatch.decide_timeline("auto", batch=1, n_accesses=n11,
+                                                 store=store),
+        "tlb": dispatch.decide_tlb("auto", specs4, n_accesses=len(lines4), store=store)}
+    for what, d in calibrated.items():
+        if d.mode not in (("stackdist", "cuda") if what == "tlb" else ("cuda",)):
+            fail(f"orchestrator: the calibrated table chose {d.mode!r} for {what}")
+    for what in ("timeline clean", "timeline one sim"):
+        if rows[what]["dispatch"]["mode"] != "cuda":
+            fail(f"orchestrator: {what} chose {rows[what]['dispatch']['mode']!r}, not the "
+                 f"kernel")
+    for k in ("system_sim", "timeline", "tlb_sim", "stackdist"):
+        if not launches[k]:
+            fail(f"orchestrator: the {k} kernel was not launched")
+    emit("orchestrator", runs=rows, seconds=phase_s, sim_accesses=sim,
+         runlog={"records": len(recs), "kinds": sorted(kinds), "counters": counters,
+                 "events": summary["events"]},
+         calibration={"rates_ingested": ingested, "table": store.load()["rates"],
+                      "decisions": {k: d.to_json() for k, d in calibrated.items()}},
+         launches=launches)
+
+    # The orchestrator's host cost: wall time without and with checkpoints
+    # beside the monolithic sweeps and the kernels' CUDA-event time.
+    mono10_s, _ = _wall(torch, lambda: sweep_system(lines10, cfgs))
+    k2_mono = _recorded(k2ops, "system_sim_carry_cuda", lambda: sweep_system(lines10, cfgs))
+    orch10_s, _ = _wall(torch, lambda: system(cfg()))
+    k2_orch = _recorded(k2ops, "system_sim_carry_cuda", lambda: system(cfg()))
+    mono11_s, _ = _wall(torch, lambda: sweep_timeline(specs11, lat))
+    k4_mono = _recorded(k4ops, "timeline_carry_cuda", lambda: sweep_timeline(specs11, lat))
+    orch11_s, _ = _wall(torch, lambda: timeline(cfg()))
+    k4_orch = _recorded(k4ops, "timeline_carry_cuda", lambda: timeline(cfg()))
+    emit("orchestrator_timing",
+         fig10_trace={"accesses": n10, "configs": len(cfgs), "monolithic_s": mono10_s,
+                      "orchestrated_s": orch10_s, "orchestrated_checkpointed_s": ckpt10_s,
+                      "chunks": len(k2_orch),
+                      "kernel_ms_monolithic": _event_ms(
+                          torch, lambda: [k2ops.system_sim_carry_cuda(*a) for a in k2_mono], 1),
+                      "kernel_ms_orchestrated": _event_ms(
+                          torch, lambda: [k2ops.system_sim_carry_cuda(*a) for a in k2_orch], 1)},
+         fig11={"sims": B11, "accesses": n11, "monolithic_s": mono11_s,
+                "orchestrated_s": orch11_s, "orchestrated_checkpointed_s": ckpt11_s,
+                "chunks": len(k4_orch),
+                "kernel_ms_monolithic": _event_ms(
+                    torch, lambda: [k4ops.timeline_carry_cuda(*a) for a in k4_mono], 1),
+                "kernel_ms_orchestrated": _event_ms(
+                    torch, lambda: [k4ops.timeline_carry_cuda(*a) for a in k4_orch], 1)},
+         seconds=time.perf_counter() - t0 - phase_s)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: chunked streams equal the monolithic sweeps.
 # ---------------------------------------------------------------------------
 
@@ -937,24 +1251,29 @@ def _event_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-PROFILE_TRIES = 3                  # profiled runs before a kernel counts as unrecorded
+PROFILE_TRIES = 3                  # profiled runs before a short profile counts as unrecorded
 
 
-def _device_ms(torch, fn, kernels, calls=None) -> dict:
+def _device_ms(torch, fn, expected: dict, calls=None) -> dict:
     """The device time of ``fn()`` in the named kernels: the sum of their
     durations as ``torch.profiler`` (CUPTI) records them over one run, after
-    a warm-up run; ``kernels`` are substrings of the kernels' names.  Returns
-    ``device_ms`` and, per kernel name, its launches and milliseconds.  With
-    ``calls`` (functions, the launches of ``fn`` one by one) also
-    ``device_ms_events``: the same calls enqueued in batches behind a held
-    stream (``torch.cuda._sleep``), so the host is ahead and CUDA events time
-    the device alone, the gaps between launches included.  The profiler now
-    and then drops a launch; a run in which it recorded none of the named
-    kernels (a single launch, dropped) is profiled again, up to
-    ``PROFILE_TRIES`` runs in all, before the check fails.  ``profile_tries``
-    says how many runs it took, and ``wrapper_launches`` the launches the
-    wrappers counted in the run that was kept; a kernel recorded more often
-    than that fails the check."""
+    a warm-up run.  ``expected`` maps each kernel name (a substring of the
+    profiler's kernel names) to the launches ``fn()`` makes of it, from the
+    call sites' own plans (``_expect_k3``, ``_expect_k6``, ...): not always
+    the wrappers' count, since K6's unsplit calls launch no merge kernel and
+    K3's launches split between its designs.  The profiler now and then
+    drops launches: a run that recorded fewer launches of a kernel than
+    expected is profiled again, up to ``PROFILE_TRIES`` runs in all; if it
+    is still short, ``device_ms`` is null (never the smaller sum) and
+    ``recorded`` / ``expected`` say by how much.  A kernel recorded more
+    often than expected fails the check.  With ``calls`` (functions, the
+    launches of ``fn`` one by one) also ``device_ms_events``: the same calls
+    enqueued in batches behind a held stream (``torch.cuda._sleep``), so the
+    host is ahead and CUDA events time the device alone, the gaps between
+    launches included; where ``device_ms`` is null this is the site's device
+    time (``_device_time``).  ``profile_tries`` says how many runs were
+    made, and ``wrapper_launches`` the launches the wrappers counted in the
+    last."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -969,22 +1288,74 @@ def _device_ms(torch, fn, kernels, calls=None) -> dict:
             torch.cuda.synchronize()
             counted = sum(_launches().values()) - sum(before.values())
         rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and any(k in e.key for k in kernels)]
-        if rows:
+                if e.device_type == DeviceType.CUDA and any(k in e.key for k in expected)]
+        recorded = {k: sum(e.count for e in rows if k in e.key) for k in expected}
+        over = {k: n for k, n in recorded.items() if n > expected[k]}
+        if over or recorded == expected:
             break
-    else:
-        fail(f"device time: torch.profiler recorded no kernel named {kernels} "
-             f"in {PROFILE_TRIES} runs")
-    for e in rows:
-        if e.count > counted:
-            fail(f"device time: torch.profiler recorded {e.key[:80]} {e.count} times, "
-                 f"the wrappers counted {counted} launches")
-    out = {"device_ms": sum(e.self_device_time_total for e in rows) / 1e3,
+    for k, n in over.items():
+        fail(f"device time: torch.profiler recorded {k} {n} times, {expected[k]} launches "
+             f"expected")
+    whole = recorded == expected
+    out = {"device_ms": sum(e.self_device_time_total for e in rows) / 1e3 if whole else None,
            "device_kernels": [{"name": e.key[:120], "launches": e.count,
                                "ms": e.self_device_time_total / 1e3} for e in rows],
+           "recorded": recorded, "expected": expected,
            "profile_tries": tries, "wrapper_launches": counted}
     if calls is not None:
         out["device_ms_events"] = _held_ms(torch, calls)
+    return out
+
+
+def _device_time(m: dict) -> dict:
+    """The device time a ratio reads, and which it is: ``device_ms`` (the
+    kernels' own time in the profile) where the profile recorded every
+    launch, else ``device_ms_events`` (held-stream events, the gaps between
+    launches included), named in ``device_time_source``."""
+    src = "device_ms" if m.get("device_ms") is not None else "device_ms_events"
+    return {"device_time_ms": m[src], "device_time_source": src}
+
+
+def _expect_k3(calls) -> dict:
+    """K3's launches over ``calls`` by design (``stack_plan``)."""
+    names = {"streamed": "stack_scan_streamed_kernel", "resident": "stack_scan_resident_kernel",
+             "device-memory": "stack_scan_mem_kernel"}
+    out = dict.fromkeys(names.values(), 0)
+    for (t, _, init), _, _ in calls:
+        L, C = t.shape
+        if L and C:
+            out[names[_k3_plan(L, C, init.shape[1]).design]] += 1
+    return out
+
+
+def _expect_k4(calls) -> dict:
+    return {"timeline_kernel": sum(1 for (cols, *_), _, _ in calls if cols[0].numel())}
+
+
+def _expect_k6(calls) -> dict:
+    """K6's launches over ``calls``: the split kernel at every call with work,
+    the merge kernel where ``split_plan`` splits the table."""
+    from repro_torch.kernels.paged_attention import kernel as k6
+
+    out = {"paged_attention_kernel": 0, "paged_merge_kernel": 0}
+    for q, kp, _, table, _ in (c[:5] for c in calls):
+        B, Hq, D = q.shape
+        page, Hkv, pages = kp.shape[1], kp.shape[2], table.shape[1]
+        if B and Hq and page and pages:
+            out["paged_attention_kernel"] += 1
+            out["paged_merge_kernel"] += k6.split_plan(
+                B, Hkv, pages, page, k6.sm_count(0), D, Hq // Hkv).splits > 1
+    return out
+
+
+def _expect_scan(torch, name: str, calls) -> dict:
+    """K7's or K8's launches over ``calls``: the tensor-core kernel for bf16
+    inputs, the FMA kernel for float32."""
+    mma, fma = SCAN_KERNELS[name]
+    out = {mma: 0, fma: 0}
+    for args, _ in calls:
+        if args[0].numel():
+            out[mma if args[0].dtype == torch.bfloat16 else fma] += 1
     return out
 
 
@@ -1294,7 +1665,6 @@ def _timeline_calls(fn) -> list:
     return [_timeline_call(a) for a in _recorded(k4ops, "timeline_carry_cuda", fn)]
 
 
-K4_KERNELS = ("timeline_kernel",)
 
 
 def _chain_floor(torch, calls, ms: float) -> dict:
@@ -1359,7 +1729,8 @@ def time_timeline(torch, runs) -> dict:
                                                                   else None]], TL_PREFIX)
         m.update(_chain_floor(torch, calls, m["ms"]))
         m.update(_device_ms(torch, lambda: [timeline_carry_cuda(*a) for a, _, _ in calls],
-                            K4_KERNELS))
+                            _expect_k4(calls), [lambda a=a: timeline_carry_cuda(*a)
+                                                for a, _, _ in calls]))
         out[site] = m
         emit("timing_site", site=site, kernel="timeline", function=fn, replaces=replaces,
              shape=shape, **m)
@@ -1394,7 +1765,8 @@ def time_timeline(torch, runs) -> dict:
              hit_share=float(one[4].float().mean()), chain_floor_ms=floor,
              chain_floor_ns_per_access=floor * 1e6 / n)
     m.update(_device_ms(torch, lambda: tl.timeline_sim(*one, params, kernel_mode="cuda"),
-                        K4_KERNELS))
+                        {"timeline_kernel": 1},
+                        [lambda: tl.timeline_sim(*one, params, kernel_mode="cuda")]))
     out["K4a B=1"] = m
     emit("timing_site", site="K4a B=1", kernel="timeline", function="timeline_sim_pallas",
          replaces="src/repro/kernels/timeline/kernel.py:316",
@@ -1446,7 +1818,6 @@ def time_sites(torch, figs, trace, runs) -> None:
                f"configs, {STREAM_CHUNK}-access chunks", **m)
 
 
-K3_KERNELS = ("stack_scan",)
 K3_FORCED_PARTS = (1, 4, 8, 16, 32)
 K3_FORCED_REPS = 5
 
@@ -1469,13 +1840,13 @@ def _held_ms(torch, fns) -> float:
     return total
 
 
-def _scan_design(torch, calls, ms: float, device_ms: float) -> dict:
+def _scan_design(torch, calls, ms: float, device_time: float) -> dict:
     """K3's plan at each call shape (``plans``: lanes, steps, slots, calls,
     P, design, threads a block, blocks) and its chain: ``chain_steps``, the
     steps a thread walks one after another (its lane when P = 1, its part
     twice when P > 1), summed over the calls; ``ns_per_step`` (the event
-    time over it) and
-    ``ns_per_step_device`` (the device time over it)."""
+    time over it) and ``ns_per_step_device`` (``device_time``, from
+    ``_device_time``, over it)."""
     shapes, chain = {}, 0
     for (t, _, init), _, _ in calls:
         L, C, W = t.shape[0], t.shape[1], init.shape[1]
@@ -1488,7 +1859,7 @@ def _scan_design(torch, calls, ms: float, device_ms: float) -> dict:
         e["calls"] += 1
     return {"plans": list(shapes.values()), "chain_steps": chain,
             "ns_per_step": ms * 1e6 / max(chain, 1),
-            "ns_per_step_device": device_ms * 1e6 / max(chain, 1)}
+            "ns_per_step_device": device_time * 1e6 / max(chain, 1)}
 
 
 def _parts_plan_ms(torch, calls) -> dict:
@@ -1529,9 +1900,10 @@ def _k3_site(torch, specs, lines, prefix_lines, shape: str) -> dict:
     m = _measure(torch, "stackdist", stack_scan_cuda, stack_scan_ref, calls,
                  _scan_calls(torch, specs, prefix_lines), PREFIX)
     m.update(_device_ms(torch, lambda: [stack_scan_cuda(*a) for a, _, _ in calls],
-                        K3_KERNELS, calls=[lambda a=a: stack_scan_cuda(*a)
+                        _expect_k3(calls), calls=[lambda a=a: stack_scan_cuda(*a)
                                            for a, _, _ in calls]))
-    m.update(_scan_design(torch, calls, m["ms"], m["device_ms_events"]))
+    m.update(_device_time(m))
+    m.update(_scan_design(torch, calls, m["ms"], m["device_time_ms"]))
     m["parts_plan_ms"] = _parts_plan_ms(torch, calls)
     m["shape"] = shape
     return m
@@ -1831,7 +2203,7 @@ def time_paper_figures(torch, paper, runs) -> None:
     wall = sum(res8["seconds"].values())
     emit("timing_site", site="K3 Fig 8", kernel="stackdist", function="stack_scan_pallas",
          replaces="src/repro/kernels/stackdist/kernel.py:63", figure_seconds=wall,
-         kernel_share_of_figure=m["device_ms"] / 1e3 / wall, **m)
+         kernel_share_of_figure=m["device_time_ms"] / 1e3 / wall, **m)
     time_page_fault(torch, runs["fig6"])
     emit("paper_figures_timing", seconds=time.perf_counter() - t0)
 
@@ -2259,7 +2631,6 @@ def _k5_design(torch, D: int) -> dict:
             "build_seconds": _build.load().build_s}
 
 
-K6_KERNELS = ("paged_attention_kernel", "paged_merge_kernel")
 HELD_BATCH = 400                   # calls enqueued behind one held stream
 HELD_CYCLES = 200_000_000          # the hold, ~0.1 s: longer than 400 calls' host time
 K8_KERNELS = ("mamba2_mma_kernel", "mamba2_fma_kernel")
@@ -2360,8 +2731,10 @@ def time_attention(torch, eng, rec, launches, errs) -> list:
         err = max(err, _paged_main_path_check(torch, "paged_attention_partial (main-path call)",
                                               c, {}, B=c[0].shape[0], ctx=c[4].tolist()))
     ms = _event_ms(torch, lambda: [paged_attention_cuda(*c) for c in calls], reps=1)
-    dev_ms = _device_ms(torch, lambda: [paged_attention_cuda(*c) for c in calls], K6_KERNELS,
+    dev_ms = _device_ms(torch, lambda: [paged_attention_cuda(*c) for c in calls],
+                        _expect_k6(calls),
                         [lambda c=c: paged_attention_cuda(*c) for c in calls])
+    dev_ms.update(_device_time(dev_ms))
     plain_ms = _event_ms(torch, lambda: [paged_attention_ref(*c, return_residuals=True)
                                          for c in calls], reps=1)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
@@ -2378,7 +2751,7 @@ def time_attention(torch, eng, rec, launches, errs) -> list:
                     f"bf16 queries",
            "kernel_launches_timed": len(calls), "bytes": nbytes, "operations": flops,
            "ms_per_step_all_layers": ms / steps, "gb_per_s": nbytes / ms / 1e6,
-           **dev_ms, "device_gb_per_s": nbytes / dev_ms["device_ms"] / 1e6,
+           **dev_ms, "device_gb_per_s": nbytes / dev_ms["device_time_ms"] / 1e6,
            "split_plans": _split_plans(torch, calls)}
     emit("timing", **row)
     rows.append(row)
@@ -3049,7 +3422,7 @@ def _scan_timing(torch, name: str, kernel, plain, calls, err: float) -> dict:
     design = _mamba2_design if name == "mamba2_scan" else _rwkv6_design
     extra = design(torch, calls, t_bytes, t_ops)
     extra.update(_device_ms(torch, lambda: [kernel(*a, **kw) for a, kw in calls],
-                            SCAN_KERNELS[name], [lambda a=a, kw=kw: kernel(*a, **kw)
+                            _expect_scan(torch, name, calls), [lambda a=a, kw=kw: kernel(*a, **kw)
                                                  for a, kw in calls]))
     if extra["design"] != "fma":         # the products run at the bf16 tensor-core rate
         t_ops = ops / BF16_FLOPS_PER_S * 1e3
@@ -3150,7 +3523,7 @@ def time_scans(torch, serve: dict, errs: dict) -> list:
                                               a, kw, ctx=a[4].tolist()))
     ms = _event_ms(torch, lambda: [paged_attention_cuda(*a, **kw) for a, kw in k6], reps=1)
     dev_ms = _device_ms(torch, lambda: [paged_attention_cuda(*a, **kw) for a, kw in k6],
-                        K6_KERNELS, [lambda a=a, kw=kw: paged_attention_cuda(*a, **kw)
+                        _expect_k6([a for a, _ in k6]), [lambda a=a, kw=kw: paged_attention_cuda(*a, **kw)
                                      for a, kw in k6])
     plain_ms = _once_ms(torch, lambda: [paged_attention_ref(*a, return_residuals=True, **kw)
                                         for a, kw in k6])

@@ -19,15 +19,17 @@ Way-padding is made invisible by *poisoning* (see
 ``"reference"`` (their plain PyTorch versions), ``"stackdist"`` (TLB sweep
 only: the exact stack-distance engine of :mod:`repro_torch.core.stackdist`,
 whose scan runs as kernel K3 on the card and as its plain version on the
-CPU), or ``"auto"``.  ``"auto"`` makes the JAX package's cold-start choice
-(``src/repro/core/dispatch.py:131-158``): the TLB sweep takes
-``"stackdist"`` when every spec has at most
+CPU), or ``"auto"``.  ``"auto"`` is resolved by the dispatch layer
+(:mod:`repro_torch.core.dispatch`; a bare call makes its cold-start
+choice): the TLB sweep takes ``"stackdist"`` when every spec has at most
 :data:`repro_torch.core.stackdist.AUTO_MAX_WAYS` ways, and otherwise (and
 for the joint system sweep always) ``"cuda"`` for data on the card and
 ``"reference"`` on the CPU.  The hit bits are the same in every mode.  The
 joint system sweep refuses ``"stackdist"`` with ``ValueError`` as the JAX
 package does (no stack-distance execution exists for cache-hit-conditional
-probes), and so do the streams, which always simulate sequentially.
+probes), and so do the streams, which always simulate sequentially.  The
+streams record their state grouping and the accesses they simulate in the
+active telemetry run (:mod:`repro_torch.runtime.telemetry`), if any.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import stackdist
+from repro_torch.core import dispatch, stackdist
 from repro_torch.core.sparta import TLBConfig
 from repro_torch.core.tlbsim import (
     LINE_SHIFT,
@@ -53,13 +55,14 @@ from repro_torch.core.tlbsim import (
     system_geoms,
     system_keys,
 )
-from repro_torch.kernels.common import SWEEP_MODES, as_device, resolve_mode
+from repro_torch.kernels.common import as_device, resolve_mode
 from repro_torch.kernels.system_sim import (
     resolve_system_mode,
     system_sim_batched,
     system_sim_batched_carry,
 )
 from repro_torch.kernels.tlb_sim import tlb_sim_batched, tlb_sim_batched_carry
+from repro_torch.runtime import telemetry
 
 __all__ = [
     "TLBSweepSpec",
@@ -71,6 +74,32 @@ __all__ = [
     "sweep_tlb",
     "sweep_system",
 ]
+
+
+def _note_envelope(stream) -> None:
+    """Telemetry event + gauge describing a stream's state grouping (how the
+    batch was split into groups, and the carried-state footprint), under the
+    reference's names (``vmem_envelope``, ``<engine>.state_bytes``).  Free
+    when no telemetry run is active."""
+    tr = telemetry.get_tracer()
+    if not tr.active:
+        return
+    state = stream.export_state()
+    state_bytes = int(sum(v.nbytes for k, v in state.items() if k != "now"))
+    tr.event("vmem_envelope", engine=stream.engine, configs=stream.batch_size,
+             groups=len(stream.groups), group_sizes=[len(g) for g in stream.groups],
+             state_bytes=state_bytes, block=stream.block)
+    tr.gauge(f"{stream.engine}.state_bytes").set(state_bytes)
+
+
+def _count_sim_accesses(stream, n: int) -> None:
+    """Counters for one committed chunk: trace accesses consumed and
+    simulated (config x access) pairs advanced."""
+    tr = telemetry.get_tracer()
+    if not tr.active:
+        return
+    tr.counter(f"{stream.engine}.trace_accesses").add(int(n))
+    tr.counter(f"{stream.engine}.sim_accesses").add(int(n) * stream.batch_size)
 
 
 # ---------------------------------------------------------------------------
@@ -253,21 +282,6 @@ def _check_specs(specs: Sequence[TLBSweepSpec], what: str) -> None:
             f"page_shift-set (line-stream) specs; one input stream cannot be both")
 
 
-def _stackdist_eligible(specs: Sequence[TLBSweepSpec]) -> bool:
-    """May ``"auto"`` take the exact stack-distance engine for this TLB sweep?
-    Every spec is a pure-LRU TLB, so eligibility is the associativity staying
-    within the capped-stack state (the JAX package's rule,
-    ``src/repro/core/dispatch.py:131-140``)."""
-    return max(sp.cfg.effective_ways for sp in specs) <= stackdist.AUTO_MAX_WAYS
-
-
-def _tlb_mode(kernel_mode: str, specs: Sequence[TLBSweepSpec], device: Device) -> str:
-    mode = resolve_mode(kernel_mode, device, valid=SWEEP_MODES)
-    if kernel_mode == "auto" and _stackdist_eligible(specs):
-        return "stackdist"
-    return mode
-
-
 def _sweep_tlb_stackdist(addrs: torch.Tensor, specs: Sequence[TLBSweepSpec]) -> torch.Tensor:
     """Hit bits [B, N] via one stack-depth pass per distinct set-mapping.
 
@@ -306,7 +320,10 @@ def sweep_tlb(
     envelope.
     """
     _check_specs(specs, "sweep_tlb")
-    mode = _tlb_mode(kernel_mode, specs, device)
+    # A bare (unorchestrated) call makes the dispatch layer's cold-start
+    # decision; the orchestrator passes calibrated, concrete modes.
+    mode = dispatch.decide_tlb(kernel_mode, specs, n_accesses=len(addrs),
+                               device=device).mode
     addrs = as_tensor(addrs, device)
     if mode == "stackdist":
         hits = _sweep_tlb_stackdist(addrs, specs)
@@ -349,6 +366,7 @@ class TLBSweepStream:
             self._state.append(
                 padded_tlb_state(len(g), sets + 1, ways, valid, device=self.device))
         self.now = 0
+        _note_envelope(self)
 
     @property
     def batch_size(self) -> int:
@@ -383,6 +401,7 @@ class TLBSweepStream:
             new_state.append((tags, last))
         self._state = new_state
         self.now += n
+        _count_sim_accesses(self, n)
         return hits
 
     def export_state(self) -> dict:
@@ -462,7 +481,8 @@ def sweep_system(
     """
     if not cfgs:
         raise ValueError("sweep_system needs at least one config")
-    mode = resolve_system_mode(kernel_mode, device)
+    mode = dispatch.decide_system(kernel_mode, cfgs, n_accesses=len(lines),
+                                  device=device).mode
     lines = as_tensor(lines, device)
     streams = _system_streams(lines, cfgs)
     flags = system_flags(cfgs, lines.device)
@@ -508,6 +528,7 @@ class SystemSweepStream:
                 st += padded_tlb_state(len(g), sets + 1, ways, valid, device=self.device)
             self._state.append(tuple(st))
         self.now = 0
+        _note_envelope(self)
 
     @property
     def batch_size(self) -> int:
@@ -545,6 +566,7 @@ class SystemSweepStream:
             new_state.append(st)
         self._state = new_state
         self.now += n
+        _count_sim_accesses(self, n)
         return tuple(hits)
 
     def export_state(self) -> dict:

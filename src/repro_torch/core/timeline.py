@@ -36,7 +36,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import sweep
+from repro_torch.core import dispatch, sweep
 from repro_torch.core.cpi import DIPTA_WAY_PREDICTION_ACCURACY
 from repro_torch.core.sparta import SystemLatencies
 from repro_torch.core.tlbsim import LINE_SHIFT, Device, SystemEvents
@@ -374,8 +374,12 @@ def sweep_timeline(
     """
     dev = as_device(device)
     stacked, fparams, iparams, lens = _prepare(specs, lat, "sweep_timeline")
+    # A bare call makes the dispatch layer's cold-start decision; the
+    # orchestrator makes the calibrated one and passes a concrete mode.
+    mode = dispatch.decide_timeline(kernel_mode, batch=len(specs), n_accesses=max(lens),
+                                    device=dev).mode
     out = timeline_sim_batched(*(torch.from_numpy(s).to(dev) for s in stacked),
-                               fparams, iparams, kernel_mode=kernel_mode)
+                               fparams, iparams, kernel_mode=mode)
     lat_b, ov_b, done_b = (_host(o) for o in out)
     return [_result(lat_b[i, :n], ov_b[i, :n], done_b[i, :n], sp.events)
             for i, (sp, n) in enumerate(zip(specs, lens))]
@@ -397,7 +401,10 @@ class TimelineSweepStream:
     (:func:`repro_torch.convert.stream_state_from_numpy`): every chunk
     except the final one must be a multiple of ``block`` (or at most
     ``block`` long), the final chunk is tail-padded with ``_PAD_VALS``, and
-    the sims are grouped as the reference groups them.
+    the sims are grouped as the reference groups them.  ``host_columns``
+    keeps the eight stacked columns as host numpy arrays, the reference's
+    dtypes and shapes, which the orchestrator hashes into its checkpoints'
+    fingerprint.
     """
 
     engine = "sweep_timeline"
@@ -411,6 +418,7 @@ class TimelineSweepStream:
         self.specs = tuple(specs)
         self.block = int(block)
         self.n = max(self.lens)
+        self.host_columns = stacked
         self._stacked = [torch.from_numpy(s).to(self.device) for s in stacked]
         dims = [tuple(max(int(x), 1) for x in ip[2:7]) for ip in self.iparams]
         self.groups = _timeline_state_groups(dims, block=min(self.block, max(self.n, 1)))
@@ -420,6 +428,7 @@ class TimelineSweepStream:
             len(g), envelope_of(self.iparams[g]), self.iparams[g, 5], device=self.device)
             for g in self.groups]
         self.now = 0
+        sweep._note_envelope(self)
 
     @property
     def batch_size(self) -> int:
@@ -470,6 +479,7 @@ class TimelineSweepStream:
             new_state.append(st)
         self._state = new_state
         self.now = hi
+        sweep._count_sim_accesses(self, L)
         return tuple(outs)
 
     def export_state(self) -> dict:

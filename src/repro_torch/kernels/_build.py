@@ -7,10 +7,13 @@ the repository root.  The hash covers the sources, the headers beside them
 (``*/csrc/*.cuh``) and the flags, so an edited source or header builds
 anew; a file lock keeps concurrent processes from building the same library
 twice.  The build happens at first use, never at import.  A
-missing ``nvcc`` or a failed build raises: there is no other way to a kernel.
+missing ``nvcc``, a failed build or a library that does not load raises
+:class:`KernelBuildError`: there is no other way to a kernel.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
-:func:`check` turns a non-zero code into an exception.
+:meth:`Library.check` turns a non-zero code into a :class:`CudaError`
+carrying the code, which
+:func:`repro_torch.runtime.fault_tolerance.is_transient` classifies.
 """
 from __future__ import annotations
 
@@ -74,6 +77,23 @@ SIGNATURES = {
 }
 
 
+# cudaError_t codes the callers tell apart.
+CUDA_ERROR_MEMORY_ALLOCATION = 2     # cudaErrorMemoryAllocation
+
+
+class KernelBuildError(RuntimeError):
+    """``nvcc`` is missing, a source did not compile or link, or the built
+    library did not load.  Deterministic: retrying cannot help."""
+
+
+class CudaError(RuntimeError):
+    """A kernel's launch returned a non-zero ``cudaError_t`` (``code``)."""
+
+    def __init__(self, what: str, code: int, msg: str):
+        self.what, self.code = what, int(code)
+        super().__init__(f"{what}: CUDA error {code} ({msg})")
+
+
 class Library:
     """The loaded kernels plus what their build printed."""
 
@@ -81,7 +101,10 @@ class Library:
         self.path = path
         self.log = log            # nvcc / ptxas -v output of the build
         self.build_s = build_s    # 0.0 when an earlier build was reused
-        self.cdll = ctypes.CDLL(str(path))
+        try:
+            self.cdll = ctypes.CDLL(str(path))
+        except OSError as e:
+            raise KernelBuildError(f"the kernels' library {path} did not load: {e}") from e
         for name, argtypes in SIGNATURES.items():
             fn = getattr(self.cdll, name)
             fn.argtypes = argtypes
@@ -89,8 +112,7 @@ class Library:
 
     def check(self, err: int, what: str) -> None:
         if err != 0:
-            msg = self.cdll.cuda_error_string(err).decode()
-            raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+            raise CudaError(what, err, self.cdll.cuda_error_string(err).decode())
 
 
 _LIB: Optional[Library] = None
@@ -110,7 +132,7 @@ def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     found = shutil.which("nvcc") or str(pathlib.Path(cuda_home) / "bin" / "nvcc")
     if not os.access(found, os.X_OK):
-        raise RuntimeError(
+        raise KernelBuildError(
             "nvcc not found (looked on PATH and under CUDA_HOME); the CUDA kernels "
             "are built from source at first use and need the CUDA toolkit")
     return found
@@ -120,7 +142,7 @@ def _run(cmd: list) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     out = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+        raise KernelBuildError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
     return out
 
 

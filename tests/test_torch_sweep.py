@@ -14,6 +14,7 @@ from repro.core import tlbsim as jsim
 from repro.core.sparta import SystemLatencies as JSystemLatencies
 from repro.core.sparta import TLBConfig as JTLBConfig
 from repro_torch import convert
+from repro_torch.core import dispatch as tdispatch
 from repro_torch.core import sweep as tsweep
 from repro_torch.core import tlbsim as tsim
 from repro_torch.core.sparta import TLBConfig
@@ -200,10 +201,10 @@ def test_sweep_tlb_modes_agree_with_jax_stackdist(page_shift):
         got = tsweep.sweep_tlb(addrs, tspecs, kernel_mode=mode, device="cpu")
         assert_same(got.hits, want.hits, mode)
         assert np.array_equal(got.miss_ratios, want.miss_ratios)
-    assert tsweep._tlb_mode("auto", tspecs, "cpu") == "stackdist"
+    assert tdispatch.decide_tlb("auto", tspecs, device="cpu").mode == "stackdist"
     wide = tspecs + [tsweep.TLBSweepSpec(TLBConfig(entries=64, ways=32), 1, page_shift)]
-    assert tsweep._tlb_mode("auto", wide, "cpu") == "reference"
-    assert tsweep._tlb_mode("stackdist", wide, "cpu") == "stackdist"
+    assert tdispatch.decide_tlb("auto", wide, device="cpu").mode == "reference"
+    assert tdispatch.decide_tlb("stackdist", wide, device="cpu").mode == "stackdist"
 
 
 def test_tag_overflow_raises_in_sweeps():
