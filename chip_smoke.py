@@ -36,13 +36,20 @@ K5 and K6.  One JSON line per phase:
 4. the simulator's main path, with the kernels' launch counters set to 0
    before it and read after it (``main_path``): ``fig10`` and ``fig4``,
    every hit count held against the JAX reference's golden file
-   ``tests/data/torch_golden_sweeps.json``; ``streams``, the chunked LRU
-   sweep streams over ``skip_list``, equal to the monolithic sweeps;
-   ``fig11`` and ``fig5``, every timeline spec's latency / overhead / done
-   held by sha256 of its float32 bytes, and the Fig 5 grid's hit counts,
-   against ``tests/data/torch_golden_timeline.json``; ``timeline_stream``,
-   the chunked timeline stream over Fig 11's specs, equal to the monolithic
-   sweep.  Then ``orchestrator``, a main path of its own: the crash-safe
+   ``tests/data/torch_golden_sweeps.json``; ``fig11`` and ``fig5``, every
+   timeline spec's latency / overhead / done held by sha256 of its float32
+   bytes, and the Fig 5 grid's hit counts, against
+   ``tests/data/torch_golden_timeline.json``.  The figure drivers (Figs 5,
+   8, 9, 10, 11) go through the shard scheduler unsharded, that is the
+   orchestrator: their system and timeline sweeps launch K2b and K4c chunk
+   by chunk.  So ``monolithic`` drives the engines they used before at the
+   same full sizes, K2a over Fig 10's four traces and K4b over Fig 11's and
+   Fig 5's timeline specs, every output held against the same golden files:
+   the reference that ``streams`` (the chunked LRU sweep streams over
+   ``skip_list``), ``timeline_stream`` (the chunked timeline stream over
+   Fig 11's specs) and the orchestrator and scheduler phases below compare
+   with.  Then ``orchestrator``, a
+   main path of its own: the crash-safe
    ``run_sweep_*`` of ``repro_torch.core.orchestrator`` over Fig 10's
    skip_list trace and 9 configs (K2b), Fig 11's 40 specs (K4c) and Fig
    4's specs on skip_list (``auto``: the stack-distance engine, K3,
@@ -57,13 +64,32 @@ K5 and K6.  One JSON line per phase:
    calibration table made from the log still choosing the kernels; and
    ``orchestrator_timing``, the orchestrated wall times without and with
    checkpoints beside the monolithic sweeps and the kernels' CUDA-event
-   time.  Then the paper's other figures at the JAX drivers' full sizes,
+   time.  Then ``scheduler``, a main path of its own: the shard
+   scheduler's ``run_sweep_*`` over the same four sweeps (K2b, K4c, K3,
+   K1c), each under the thread executor (2 workers, 4 shards) and the
+   process executor (2 workers forked from a server that imported torch
+   once, started during the build; each worker with its own CUDA
+   context), a process worker that SIGKILLs
+   itself mid-shard (survived: ``worker_dead``, ``worker_respawn``,
+   ``lease_expire``, ``redispatch``, nothing quarantined), a poisoned shard
+   (quarantined with zero rows, the healthy rows equal, the manifest naming
+   it, ``crash_safety`` registering the run as degraded), a straggler held
+   past its deadline (its duplicate verified identical) and a resume from
+   shard checkpoints; every result equal to the monolithic one and the
+   golden files; every sub-run's launches as its workers reported them,
+   under both executors, each held to the count its shards must make;
+   ``scheduler_timing``, each sweep's monolithic and orchestrated wall time
+   beside the sub-runs'; and ``scheduler_smoke``,
+   ``python -m repro_torch.bench.smoke_sched`` on the card (a Fig 11 run
+   whose worker is SIGKILLed from outside ends with the serial run's
+   digests).  Then the paper's other figures at the JAX drivers' full sizes,
    each a main path of its own with the counters set to 0 just before it
    and read just after, every count and claim held against
    ``tests/data/torch_golden_figs.json``: ``fig2`` (32 traces, K1 at B = 1
    exactly 32 times), ``fig7`` (arithmetic, no kernel), ``fig8`` (five
    thread mixes with the golden file's seed salts, K3 and no K1), ``fig9``
-   (K2 exactly 4 times) and ``fig6`` (the page-fault curves, no kernel);
+   (K2 exactly once per 65,536-access chunk of each trace, the orchestrator's
+   chunks) and ``fig6`` (the page-fault curves, no kernel);
    ``main_path_figures`` sums their launches.  Each phase line has its
    wall times, claims and launches;
 5. ``timing``: kernel time with CUDA events at the shapes the main path gave
@@ -197,6 +223,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import os
 import pathlib
 import re
 import sys
@@ -244,6 +271,66 @@ def main() -> int:
               "needs one CUDA card", file=sys.stderr)
         return 1
 
+    from repro_torch.core.scheduler import fork_server
+
+    # The scheduler phase forks its process workers from a server that
+    # imports torch once (6-9 s on the card's host): let it start during the
+    # build.  It and the resource tracker are stopped before the last lines.
+    with fork_server():
+        kernels, name, smi = drive(torch)
+    left = stop_descendants()
+    if left:
+        fail(f"processes outlived their phases and were killed: {left}")
+
+    print(json.dumps({"kernels": kernels}), flush=True)
+    if FAILURES:
+        print(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}",
+              file=sys.stderr, flush=True)
+        return 1
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+        flush=True)
+    return 0
+
+
+def stop_descendants() -> list:
+    """SIGKILL and reap every process still running below this one; their
+    command lines, empty when every phase stopped what it started."""
+    import signal
+
+    def procs():
+        kids = {}
+        for d in pathlib.Path("/proc").iterdir():
+            if not d.name.isdigit():
+                continue
+            try:
+                stat = (d / "stat").read_text()
+                ppid = int(stat[stat.rindex(")") + 2:].split()[1])
+                cmd = (d / "cmdline").read_bytes().replace(b"\0", b" ").decode().strip()
+            except (OSError, ValueError):
+                continue
+            kids.setdefault(ppid, []).append((int(d.name), cmd))
+        return kids
+
+    kids, todo, left = procs(), [os.getpid()], []
+    while todo:
+        for pid, cmd in kids.get(todo.pop(), []):
+            if cmd:   # a zombie has no command line; its parent reaps it
+                left.append((pid, cmd[:160]))
+            todo.append(pid)
+    for pid, _ in left:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(pid, signal.SIGKILL)
+    for pid, _ in left:
+        with contextlib.suppress(ChildProcessError):
+            os.waitpid(pid, 0)
+    return left
+
+
+def drive(torch):
+    """Every phase on the card; the kernels' line, the card's name and its
+    ``nvidia-smi`` line."""
     from repro_torch.bench import fig2, fig4, fig5, fig6, fig7, fig8, fig9, fig10, fig11
     from repro_torch.bench.common import trace
     from repro_torch.core.benchtime import device_metadata
@@ -271,10 +358,12 @@ def main() -> int:
     figs = {"fig4": fig4, "fig5": fig5, "fig10": fig10, "fig11": fig11}
     launches, runs = run_main_path(torch, figs, trace, golden, golden_tl)
     orch_launches = run_orchestrator(torch, figs, trace, runs, golden, golden_tl)
+    sched_launches = run_scheduler(torch, figs, trace, runs, golden, golden_tl)
     paper = {"fig2": fig2, "fig7": fig7, "fig8": fig8, "fig9": fig9, "fig6": fig6}
     paper_launches, paper_runs = run_paper_figures(
         torch, paper, trace, json.loads(GOLDEN_FIGS.read_text()))
-    launches = {k: v + paper_launches[k] + orch_launches[k] for k, v in launches.items()}
+    launches = {k: v + paper_launches[k] + orch_launches[k] + sched_launches[k]
+                for k, v in launches.items()}
     kernels = time_kernels(torch, figs, trace, errs, launches, runs)
     del runs
     time_paper_figures(torch, paper, paper_runs)
@@ -283,17 +372,7 @@ def main() -> int:
 
     kernels += run_serving(torch)
     kernels += run_ssm(torch)
-
-    print(json.dumps({"kernels": kernels}), flush=True)
-    if FAILURES:
-        print(f"chip_smoke: {len(FAILURES)} check(s) failed: {FAILURES}",
-              file=sys.stderr, flush=True)
-        return 1
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
-        flush=True)
-    return 0
+    return kernels, name, smi
 
 
 def _spills(log: str, kernels) -> list:
@@ -828,7 +907,51 @@ def run_fig5(fig5, golden: dict, before: dict) -> dict:
     return res
 
 
-def check_timeline_stream(torch, res11: dict, before: dict) -> None:
+def run_monolithic(torch, figs, trace, runs, golden, golden_tl, before: dict) -> dict:
+    """The monolithic engines at the routed figures' full sizes: K2a
+    (``sweep_system``) over each of Fig 10's traces and its 9 configs, K4b
+    (``sweep_timeline``) over Fig 11's 40 specs and Fig 5's 16 timeline
+    specs, each output held against the golden files.  These are the
+    reference every chunked, orchestrated and sharded result below is
+    compared with.  Returns ``{"fig10": {workload: events}, "fig11":
+    results, "fig5": results}``."""
+    from repro_torch.core.sparta import SystemLatencies
+    from repro_torch.core.sweep import sweep_system
+    from repro_torch.core.timeline import sweep_timeline
+
+    t0 = time.perf_counter()
+    lat = SystemLatencies(n_sockets=8)
+    cfgs = figs["fig10"].system_configs()
+    out, bad = {"fig10": {}}, 0
+    for w, entry in golden["fig10"]["workloads"].items():
+        lines = trace(w, n_ops=golden["fig10"]["n_ops"]).lines
+        ev = out["fig10"][w] = sweep_system(lines, cfgs)
+        counts = {k: _counts(getattr(ev, f), ev.n_warm) for k, f in (
+            ("cache", "cache_hit"), ("accel", "accel_tlb_hit"), ("mem", "mem_tlb_hit"))}
+        bad += _check_golden(f"monolithic/fig10/{w}", entry, lines, counts)
+    for fig, specs in (("fig11", runs["fig11"]["specs"]),
+                       ("fig5", runs["fig5"]["timeline_specs"])):
+        out[fig] = sweep_timeline(specs, lat)
+        k = 0
+        for w, entries in golden_tl[fig]["timeline"].items():
+            bad += _check_timeline_golden(f"monolithic/{fig}/{w}",
+                                          out[fig][k:k + len(entries)], entries)
+            k += len(entries)
+        if k != len(specs):
+            fail(f"monolithic/{fig}: {len(specs)} specs, golden {k}")
+            bad += 1
+    torch.cuda.synchronize()
+    launches = {k: v - before[k] for k, v in _launches().items()}
+    emit("monolithic", seconds=time.perf_counter() - t0, golden_mismatches=bad,
+         fig10_traces=len(out["fig10"]), fig11_specs=len(out["fig11"]),
+         fig5_specs=len(out["fig5"]), launches=launches)
+    if launches["system_sim"] != len(out["fig10"]) or launches["timeline"] != 2:
+        fail(f"monolithic: {launches['system_sim']} K2a and {launches['timeline']} K4b "
+             f"launches, expected {len(out['fig10'])} and 2 (one a sweep)")
+    return out
+
+
+def check_timeline_stream(torch, runs, before: dict) -> None:
     """``TimelineSweepStream`` over Fig 11's specs in block-multiple chunks
     equals the monolithic sweep."""
     import numpy as np
@@ -837,13 +960,14 @@ def check_timeline_stream(torch, res11: dict, before: dict) -> None:
     from repro_torch.core.timeline import TimelineSweepStream
 
     t0 = time.perf_counter()
-    stream = TimelineSweepStream(res11["specs"], SystemLatencies(n_sockets=8),
+    stream = TimelineSweepStream(runs["fig11"]["specs"], SystemLatencies(n_sockets=8),
                                  block=TL_BLOCK)
     bounds = list(range(0, stream.n, TL_STREAM_CHUNK)) + [stream.n]
     parts = [stream.run_chunk(lo, hi) for lo, hi in zip(bounds, bounds[1:])]
     got = stream.finalize(*(np.concatenate([p[k] for p in parts], 1) for k in range(3)))
     equal = all(np.array_equal(getattr(g, k), getattr(w, k))
-                for g, w in zip(got, res11["results"]) for k in ("latency", "overhead", "done"))
+                for g, w in zip(got, runs["monolithic"]["fig11"])
+                for k in ("latency", "overhead", "done"))
     launches = {k: v - before[k] for k, v in _launches().items()}
     emit("timeline_stream", specs=len(got), chunk=TL_STREAM_CHUNK, chunks=len(parts),
          groups=len(stream.groups), equal=equal, seconds=time.perf_counter() - t0,
@@ -892,12 +1016,12 @@ def run_main_path(torch, figs, trace, golden, golden_tl):
          launches={k: after4[k] - after10[k] for k in after4})
 
     runs = {"fig10": res10, "fig4": res4}
-    check_streams(torch, fig10, fig4, trace, runs, after4)
-    before = _launches()
-    runs["fig11"] = run_fig11(figs["fig11"], golden_tl["fig11"], before)
-    before = _launches()
-    runs["fig5"] = run_fig5(figs["fig5"], golden_tl["fig5"], before)
-    check_timeline_stream(torch, runs["fig11"], _launches())
+    runs["fig11"] = run_fig11(figs["fig11"], golden_tl["fig11"], _launches())
+    runs["fig5"] = run_fig5(figs["fig5"], golden_tl["fig5"], _launches())
+    runs["monolithic"] = run_monolithic(torch, figs, trace, runs, golden, golden_tl,
+                                        _launches())
+    check_streams(torch, fig10, fig4, trace, runs, _launches())
+    check_timeline_stream(torch, runs, _launches())
     total = _launches()
     emit("main_path", launches=total)
     for k in SIM_KERNELS:
@@ -974,7 +1098,6 @@ def run_orchestrator(torch, figs, trace, runs, golden, golden_tl) -> dict:
 def _orchestrate(torch, figs, trace, runs, golden, golden_tl, root: pathlib.Path) -> dict:
     """The body of :func:`run_orchestrator`, its checkpoints, run log and
     calibration table under ``root``."""
-    import os
     import signal
 
     import numpy as np
@@ -994,11 +1117,11 @@ def _orchestrate(torch, figs, trace, runs, golden, golden_tl, root: pathlib.Path
     cfgs, specs4 = fig10.system_configs(), fig4.specs()
     lines10 = trace("skip_list", n_ops=golden["fig10"]["n_ops"]).lines
     lines4 = trace("skip_list", n_ops=golden["fig4"]["n_ops"]).lines
-    ev10 = runs["fig10"]["events"]["skip_list"]
-    want10 = [getattr(ev10, f).cpu().numpy() for f in HIT_FIELDS]
+    mono = runs["monolithic"]
+    want10 = [getattr(mono["fig10"]["skip_list"], f).cpu().numpy() for f in HIT_FIELDS]
     want4 = runs["fig4"]["hits"]["skip_list"].hits.cpu().numpy()
-    specs11, res11 = runs["fig11"]["specs"], runs["fig11"]["results"]
-    want11 = [getattr(r, k) for r in res11 for k in ("latency", "overhead", "done")]
+    specs11 = runs["fig11"]["specs"]
+    want11 = [getattr(r, k) for r in mono["fig11"] for k in ("latency", "overhead", "done")]
     rows, sim = {}, {"sweep_system": 0, "sweep_timeline": 0, "sweep_tlb": 0}
 
     def cfg(sub=None, **kw):
@@ -1032,7 +1155,7 @@ def _orchestrate(torch, figs, trace, runs, golden, golden_tl, root: pathlib.Path
 
     def system(c, lines=lines10):
         bev, meta = orch.run_sweep_system(lines, cfgs, run=c, name="fig10_skip_list")
-        return [getattr(bev, f).numpy() for f in HIT_FIELDS], meta
+        return [getattr(bev, f).cpu().numpy() for f in HIT_FIELDS], meta
 
     def timeline(c, specs=specs11, name="fig11"):
         res, meta = orch.run_sweep_timeline(specs, lat, run=c, name=name)
@@ -1201,6 +1324,268 @@ def _orchestrate(torch, figs, trace, runs, golden, golden_tl, root: pathlib.Path
 
 
 # ---------------------------------------------------------------------------
+# Phase 4c: the shard scheduler over the same full-size sweeps.
+# ---------------------------------------------------------------------------
+
+SCHED_THREAD = {"executor": "thread", "workers": 2, "shards": 4}
+SCHED_PROCESS = {"executor": "process", "workers": 2, "mp_context": "forkserver"}
+SCHED_KILL_TTL_S = 1.0             # the killed worker's lease expires after this
+SCHED_HOLD_S = 2.0                 # the straggler's hold, against a 0.3 s deadline
+
+
+def run_scheduler(torch, figs, trace, runs, golden, golden_tl) -> dict:
+    """Phase 4c, a main path of its own: ``repro_torch.core.scheduler``'s
+    ``run_sweep_*`` over the orchestrator phase's sweeps (Fig 10's skip_list
+    trace x 9 configs on K2b, Fig 11's 40 specs on K4c, Fig 4's specs on
+    skip_list under ``auto`` on K3 and under ``kernel_mode="cuda"`` on K1c),
+    each under the thread executor (2 workers, 4 shards) and the process
+    executor (2 workers, forked from a server that imported torch once), then
+    a process worker that SIGKILLs itself mid-shard, a poisoned shard, a
+    straggler duplicated past its deadline and a resume from shard
+    checkpoints; every result equal to the monolithic one in ``runs`` (so the
+    golden files), nothing quarantined outside the poisoned run.  The phase's
+    launches are the workers' own counts, threads and processes alike: each
+    shard attempt opens a fresh tally that the wrappers add one to where they
+    launch (``launch_tally``), and the scheduler sums them into
+    ``meta["scheduler"]["launches"]``.  Each sub-run's sum is held to the
+    launches its shards must make (:func:`_shard_launches`).  Then ``scheduler_timing`` (each sweep monolithic and orchestrated, beside
+    the sub-runs' wall times) and ``scheduler_smoke``
+    (``python -m repro_torch.bench.smoke_sched`` on the card).  Returns the
+    launches."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="scheduler-") as tmp:
+        return _scheduled(torch, figs, trace, runs, golden, golden_tl, pathlib.Path(tmp))
+
+
+def _scheduled(torch, figs, trace, runs, golden, golden_tl, root: pathlib.Path) -> dict:
+    """The body of :func:`run_scheduler`, its checkpoints and leases under
+    ``root``."""
+    import numpy as np
+
+    from repro_torch.bench import common
+    from repro_torch.bench.faultinject import HoldShard, KillWorkerOnShard, PoisonShard
+    from repro_torch.core import orchestrator as orch
+    from repro_torch.core import scheduler as sch
+    from repro_torch.core.sparta import SystemLatencies
+    from repro_torch.core.sweep import sweep_system, sweep_tlb
+    from repro_torch.core.timeline import sweep_timeline
+
+    fig4, fig10 = figs["fig4"], figs["fig10"]
+    lat = SystemLatencies(n_sockets=8)
+    cfgs, specs4 = fig10.system_configs(), fig4.specs()
+    lines10 = trace("skip_list", n_ops=golden["fig10"]["n_ops"]).lines
+    lines4 = trace("skip_list", n_ops=golden["fig4"]["n_ops"]).lines
+    mono = runs["monolithic"]
+    want10 = [getattr(mono["fig10"]["skip_list"], f).cpu().numpy() for f in HIT_FIELDS]
+    want4 = runs["fig4"]["hits"]["skip_list"].hits.cpu().numpy()
+    specs11 = runs["fig11"]["specs"]
+    want11 = [getattr(r, k) for r in mono["fig11"] for k in ("latency", "overhead", "done")]
+    golden11 = [e for w in runs["fig11"]["lines"] for e in golden_tl["fig11"]["timeline"][w]]
+    n10 = len(lines10)
+    rows, launches = {}, {}
+
+    def system(c, s, name="fig10_skip_list"):
+        bev, meta = sch.run_sweep_system(lines10, cfgs, run=c, sched=s, name=name)
+        return [getattr(bev, f).cpu().numpy() for f in HIT_FIELDS], meta
+
+    def timeline(c, s, name="fig11"):
+        res, meta = sch.run_sweep_timeline(specs11, lat, run=c, sched=s, name=name)
+        return [getattr(r, k) for r in res for k in ("latency", "overhead", "done")], meta
+
+    def tlb(c, s, mode="auto", name="fig4_skip_list"):
+        res, meta = sch.run_sweep_tlb(lines4, specs4, kernel_mode=mode, run=c, sched=s,
+                                      name=name)
+        return [res.hits.cpu().numpy()], meta
+
+    engines = {  # sub-run stem -> (driver, monolithic result, kernel, mode)
+        "system": (system, want10, "system_sim", "cuda"),
+        "timeline": (timeline, want11, "timeline", "cuda"),
+        "tlb auto": (tlb, [want4], "stackdist", "stackdist"),
+        "tlb cuda": (lambda c, s: tlb(c, s, "cuda", "fig4_skip_list_cuda"), [want4],
+                     "tlb_sim", "cuda"),
+    }
+    # Each shard's kernel launches, for the shard layouts the sub-runs use.
+    per_shard = {(stem, n): _shard_launches(stem, n, cfgs, specs4, specs11, lines4, n10)
+                 for stem, n in [(stem, 4) for stem in engines] + [("system", 2)]}
+
+    def expect(stem, n_shards=4, *, drop=(), twice=()):
+        """The launches of a run over ``n_shards`` shards whose shards
+        ``drop`` never ran their engine and whose shards ``twice`` ran it
+        twice (a verified duplicate)."""
+        n = per_shard[stem, n_shards]
+        return sum(c for i, c in enumerate(n) if i not in drop) + sum(n[i] for i in twice)
+
+    def cfg(sub=None, **kw):
+        return orch.SweepRunConfig(checkpoint_dir=str(root / sub) if sub else None, **kw)
+
+    def record(name, wall, got, want, meta, kernel, mode, expected, *, quarantined=0):
+        s = meta["scheduler"]
+        equal = len(got) == len(want) and all(np.array_equal(g, w) for g, w in zip(got, want))
+        reported = {k: v for k, v in s["launches"].items() if v}
+        rows[name] = {"seconds": wall, "equal": equal, "executor": s["executor"],
+                      "shards": s["shards"], "workers": s["workers"],
+                      "final_mode": meta["final_mode"],
+                      "events": [e["event"] for e in s["events"]],
+                      "quarantined": [q["name"] for q in s["quarantined_shards"]],
+                      "launches_reported": reported, "launches_expected": {kernel: expected},
+                      "worker_boots": s["worker_boots"]}
+        for k, v in reported.items():
+            launches[k] = launches.get(k, 0) + v
+        if reported != ({kernel: expected} if expected else {}):
+            fail(f"scheduler {name}: the workers reported {reported} launches, expected "
+                 f"{expected} of {kernel}")
+        if not equal and not quarantined:
+            fail(f"scheduler {name}: differs from the monolithic result")
+        if len(s["quarantined_shards"]) != quarantined:
+            fail(f"scheduler {name}: {len(s['quarantined_shards'])} shards quarantined, "
+                 f"expected {quarantined}")
+        if meta["final_mode"] != mode:
+            fail(f"scheduler {name}: ran {meta['final_mode']!r}, not {mode!r}")
+        if name in ("system thread", "system process"):
+            counts = {k: _counts(torch.from_numpy(x), n10 - int(n10 * 0.25))
+                      for k, x in zip(("cache", "accel", "mem"), got)}
+            rows[name]["golden_mismatches"] = _check_golden(
+                f"scheduler/{name}", golden["fig10"]["workloads"]["skip_list"], lines10, counts)
+        if name in ("timeline thread", "timeline process"):
+            rows[name]["golden_mismatches"] = abs(len(got) - 3 * len(golden11)) + sum(
+                _f32_digest(g) != e[k] for i, e in enumerate(golden11)
+                for g, k in zip(got[3 * i:3 * i + 3], ("latency", "overhead", "done")))
+
+    t0 = time.perf_counter()
+    for stem, (drive, want, kernel, mode) in engines.items():
+        for label, kw in (("thread", SCHED_THREAD), ("process", SCHED_PROCESS)):
+            wall, (got, meta) = _wall(torch, lambda: drive(cfg(), sch.ScheduleConfig(
+                poll_s=0.01, **kw)))
+            record(f"{stem} {label}", wall, got, want, meta, kernel, mode, expect(stem))
+
+    # A process worker SIGKILLs itself as it starts shard 0: the parent sees
+    # it dead, respawns the slot, waits out the lease, re-dispatches.
+    wall, (got, meta) = _wall(torch, lambda: system(cfg("kill"), sch.ScheduleConfig(
+        poll_s=0.01, lease_ttl_s=SCHED_KILL_TTL_S, heartbeat_s=0.2,
+        on_shard_start=KillWorkerOnShard(0), **SCHED_PROCESS)))
+    record("system process, worker killed", wall, got, want10, meta, "system_sim", "cuda",
+           expect("system"))
+    missing = [e for e in ("worker_dead", "worker_respawn", "lease_expire", "redispatch")
+               if e not in rows["system process, worker killed"]["events"]]
+    if missing:
+        fail(f"scheduler: the killed worker's run records no {missing}")
+
+    # A poisoned shard: quarantined with zero rows, the healthy rows equal,
+    # the manifest names it and crash_safety registers the run as degraded.
+    wall, (got, meta) = _wall(torch, lambda: system(cfg(), sch.ScheduleConfig(
+        poll_s=0.01, max_shard_attempts=2, on_shard_start=PoisonShard(1), **SCHED_THREAD),
+        name="fig10_poisoned"))
+    record("system thread, shard 1 poisoned", wall, got, want10, meta, "system_sim", "cuda",
+           expect("system", drop=(1,)), quarantined=1)
+    lo, hi = meta["scheduler"]["quarantined_shards"][0]["items"]
+    healthy = all(np.array_equal(np.delete(g, np.s_[lo:hi], 0), np.delete(w, np.s_[lo:hi], 0))
+                  for g, w in zip(got, want10))
+    zero = not any(g[lo:hi].any() for g in got)
+    before = list(common._DEGRADED_RUNS)
+    common._DEGRADED_RUNS.clear()
+    cs = common.crash_safety({"fig10_poisoned": meta})
+    degraded = common.degraded_runs()
+    common._DEGRADED_RUNS[:] = before
+    named = [q["name"] for q in cs["quarantined_shards"].get("fig10_poisoned", [])]
+    rows["system thread, shard 1 poisoned"].update(
+        items=[lo, hi], healthy_equal=healthy, quarantined_zero=zero, manifest=named,
+        degraded=degraded)
+    if not (healthy and zero and named == ["fig10_poisoned.s01of04"] and degraded):
+        fail(f"scheduler: the poisoned run: healthy rows equal {healthy}, quarantined rows "
+             f"zero {zero}, manifest {named}, degraded runs {degraded}")
+
+    # A straggler: shard 0's first attempt held past the deadline is
+    # duplicated onto the idle worker; the loser is verified identical.
+    wall, (got, meta) = _wall(torch, lambda: system(cfg(), sch.ScheduleConfig(
+        poll_s=0.01, deadline_s=0.3, on_shard_start=HoldShard(0, SCHED_HOLD_S),
+        **dict(SCHED_THREAD, shards=2))))
+    record("system thread, straggler", wall, got, want10, meta, "system_sim", "cuda",
+           expect("system", 2, twice=(0,)))
+    dup = [e["identical"] for e in meta["scheduler"]["events"]
+           if e["event"] == "duplicate_verified"]
+    rows["system thread, straggler"]["duplicates_identical"] = dup
+    if not dup or not all(dup):
+        fail(f"scheduler: the straggler's duplicate was verified {dup}")
+
+    # Shard checkpoints: a checkpointed run, then a rerun that completes from
+    # them alone.
+    c = cfg("resume", keep_checkpoint=True)
+    wall, (got, meta) = _wall(torch, lambda: timeline(c, sch.ScheduleConfig(
+        poll_s=0.01, **SCHED_THREAD)))
+    record("timeline thread, checkpointed", wall, got, want11, meta, "timeline", "cuda",
+           expect("timeline"))
+    blobs = sorted(p.name for p in (root / "resume").glob("*.ckpt"))
+    got, meta = timeline(cfg("resume", resume=True), sch.ScheduleConfig(
+        poll_s=0.01, **SCHED_THREAD))
+    equal = all(np.array_equal(g, w) for g, w in zip(got, want11))
+    resumed = {k: v for k, v in meta["scheduler"]["launches"].items() if v}
+    rows["timeline thread, resumed"] = {
+        "equal": equal, "blobs": blobs,
+        "completed_from_checkpoint": meta["completed_from_checkpoint"],
+        "launches_reported": resumed}
+    if not (equal and meta["completed_from_checkpoint"] and len(blobs) == 4) or resumed:
+        fail(f"scheduler: the resume from {blobs}: equal {equal}, completed from "
+             f"checkpoint {meta['completed_from_checkpoint']}, launches {resumed}")
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t0
+
+    bad = sum(r.get("golden_mismatches", 0) for r in rows.values())
+    launches = {k: launches.get(k, 0) for k in _counters()}
+    for k in SIM_KERNELS:
+        if not launches[k]:
+            fail(f"scheduler: the workers reported no launch of the {k} kernel")
+    boots = [b for r in rows.values() for b in r.get("worker_boots", [])]
+    emit("scheduler", runs=rows, seconds=phase_s, golden_mismatches=bad,
+         launches_per_shard={f"{stem}, {n} shards": c for (stem, n), c in per_shard.items()},
+         launches=launches,
+         worker_spawn_s=[b["spawn_s"] for b in boots],
+         worker_context_s=[b["context_s"] for b in boots], python=sys.version.split()[0])
+    if bad:
+        fail(f"scheduler: {bad} outputs differ from the golden files")
+
+    # Each sweep monolithic and orchestrated, beside the sub-runs above.
+    t1 = time.perf_counter()
+    timing = {
+        "system": {"monolithic_s": _wall(torch, lambda: sweep_system(lines10, cfgs))[0],
+                   "orchestrated_s": _wall(torch, lambda: system(cfg(), None))[0]},
+        "timeline": {"monolithic_s": _wall(torch, lambda: sweep_timeline(specs11, lat))[0],
+                     "orchestrated_s": _wall(torch, lambda: timeline(cfg(), None))[0]},
+        "tlb auto": {"monolithic_s": _wall(torch, lambda: sweep_tlb(lines4, specs4))[0],
+                     "orchestrated_s": _wall(torch, lambda: tlb(cfg(), None))[0]},
+        "tlb cuda": {"monolithic_s": _wall(torch, lambda: sweep_tlb(
+            lines4, specs4, kernel_mode="cuda"))[0],
+                     "orchestrated_s": _wall(torch, lambda: tlb(cfg(), None, "cuda"))[0]},
+    }
+    for stem, t in timing.items():
+        t.update({label: rows[f"{stem} {label}"]["seconds"] for label in ("thread", "process")})
+    emit("scheduler_timing", sweeps=timing, seconds=time.perf_counter() - t1,
+         shape={"system": f"Fig 10's skip_list trace ({n10} accesses) x {len(cfgs)} configs",
+                "timeline": f"Fig 11's {len(specs11)} specs",
+                "tlb": f"Fig 4's {len(specs4)} specs over skip_list ({len(lines4)} accesses)"})
+    run_smoke_sched()
+    return launches
+
+
+def run_smoke_sched() -> None:
+    """``python -m repro_torch.bench.smoke_sched`` on the card: two Fig 11
+    ``--quick`` children, the second sharded over process workers one of
+    which this smoke SIGKILLs mid-shard."""
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.bench.smoke_sched"],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    summary = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    emit("scheduler_smoke", exit=proc.returncode, seconds=time.perf_counter() - t0,
+         summary=summary[-1] if summary else None,
+         lines=[ln for ln in proc.stdout.splitlines() if ln.startswith("[smoke_sched]")])
+    if proc.returncode != 0:
+        fail(f"smoke_sched exited {proc.returncode}: {proc.stderr[-2000:]}")
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: chunked streams equal the monolithic sweeps.
 # ---------------------------------------------------------------------------
 
@@ -1212,7 +1597,7 @@ def check_streams(torch, fig10, fig4, trace, runs, before: dict) -> None:
     stream = SystemSweepStream(fig10.system_configs())
     parts = [stream.run_chunk(lines[i:i + STREAM_CHUNK])
              for i in range(0, len(lines), STREAM_CHUNK)]
-    ev = runs["fig10"]["events"]["skip_list"]
+    ev = runs["monolithic"]["fig10"]["skip_list"]
     sys_equal = all(
         torch.equal(torch.cat([p[k] for p in parts], 1), getattr(ev, f))
         for k, f in enumerate(("cache_hit", "accel_tlb_hit", "mem_tlb_hit")))
@@ -1806,7 +2191,7 @@ def time_sites(torch, figs, trace, runs) -> None:
 
     cfgs = figs["fig10"].system_configs()
     skip10 = trace("skip_list", n_ops=25_000).lines
-    ev = runs["fig10"]["events"]["skip_list"]
+    ev = runs["monolithic"]["fig10"]["skip_list"]
     calls = _system_stream_calls(torch, cfgs, skip10, STREAM_CHUNK, ev)
     m = _measure(torch, "system_sim", system_sim_carry_cuda, system_sim_batched_carry_ref,
                  calls, _system_stream_calls(torch, cfgs, skip10[:PREFIX], PREFIX, ev), PREFIX)
@@ -1958,7 +2343,7 @@ def time_kernels(torch, figs, trace, errs, launches, runs) -> list:
     fig10_lines = [trace(w, n_ops=25_000).lines for w in W4]
     skip4 = trace("skip_list", n_ops=40_000).lines
     skip10 = trace("skip_list", n_ops=25_000).lines
-    events = runs["fig10"]["events"]
+    events = runs["monolithic"]["fig10"]
     kernels = (
         ("tlb_sim", tlb_sim_carry_cuda, tlb_sim_batched_carry_ref,
          lambda: _tlb_stream_calls(torch, specs, skip4, STREAM_CHUNK),
@@ -2048,6 +2433,57 @@ def _paper_phase(torch, fig: str, drive, expect: dict):
     return res, launches
 
 
+def _shard_launches(stem: str, n_shards: int, cfgs, specs4, specs11, lines4,
+                    n10: int) -> list:
+    """The kernel launches of each of ``n_shards`` shards of the scheduler
+    phase's sweep ``stem``, each shard run unsharded through the
+    orchestrator: one per chunk and state group for the streams (K2b, K1c,
+    K4c); K3's depend on its plan, so they are counted from a run of the
+    shard's specs here, in a tally of its own."""
+    from repro_torch.core.orchestrator import SweepRunConfig
+    from repro_torch.core.scheduler import _shard_ranges
+    from repro_torch.core.sweep import _state_groups, sweep_tlb
+    from repro_torch.core.timeline import _timeline_state_groups
+    from repro_torch.kernels.common import launch_tally
+
+    def chunks(n):
+        return -(-n // SweepRunConfig.chunk_accesses)
+
+    out = []
+    for lo, hi in _shard_ranges(len(specs4 if stem.startswith("tlb") else
+                                    specs11 if stem == "timeline" else cfgs), n_shards):
+        if stem == "system":
+            out.append(_stream_launches(cfgs[lo:hi], n10))
+        elif stem == "tlb cuda":
+            out.append(chunks(len(lines4)) * len(_state_groups(
+                [sp.geometry for sp in specs4[lo:hi]], block=512)))
+        elif stem == "timeline":
+            # A sim's queueing state is (A, M, P, T, D): accelerators, MSHRs,
+            # partitions (SPARTA's only), TLB ports, DRAM banks, each >= 1.
+            specs = specs11[lo:hi]
+            n = max(len(sp.lines) for sp in specs)
+            dims = [(max(sp.num_accelerators, 1), max(sp.cfg.mshrs, 1),
+                     max(sp.num_partitions if sp.design == "sparta" else 1, 1),
+                     max(sp.cfg.tlb_ports, 1), max(sp.cfg.dram_banks, 1)) for sp in specs]
+            out.append(chunks(n) * len(_timeline_state_groups(dims, block=min(512, n))))
+        else:
+            with launch_tally() as tally:
+                sweep_tlb(lines4, specs4[lo:hi], kernel_mode="stackdist")
+            out.append(tally.get("stackdist", 0))
+    return out
+
+
+def _stream_launches(cfgs, n: int) -> int:
+    """K2 launches of the orchestrator's system sweep over ``n`` accesses:
+    one per state group and chunk (``SweepRunConfig.chunk_accesses``, a
+    whole number of the stream's 512-access blocks)."""
+    from repro_torch.core.orchestrator import SweepRunConfig
+    from repro_torch.core.sweep import _system_layout, _system_state_groups
+
+    chunk = SweepRunConfig.chunk_accesses
+    return -(-n // chunk) * len(_system_state_groups(_system_layout(cfgs)[1], block=512))
+
+
 def _phase_line(fig: str, res: dict, launches: dict, **fields) -> None:
     seconds = res["seconds"]
     emit(fig, seconds=seconds,
@@ -2111,7 +2547,9 @@ def run_paper_figures(torch, paper, trace, golden: dict):
 
     g = golden["fig9"]
     res, launches = _paper_phase(torch, "fig9", lambda: fig9.run(device="cuda", verbose=False),
-                                 {"system_sim": len(W4)})
+                                 {"system_sim": sum(_stream_launches(
+                                     fig9.system_configs(), len(trace(w, n_ops=g["n_ops"]).lines))
+                                     for w in W4)})
     bad, res["lines"] = 0, {}
     for w, ev in res["events"].items():
         counts = {k: _counts(getattr(ev, f), ev.n_warm) for k, f in (

@@ -6,6 +6,9 @@ configs, trace sizes and claim bands).  Per workload the joint trace
 simulation (:func:`repro_torch.core.sweep.sweep_system`, one batched pass for
 all nine designs) provides (cache, accel-TLB, memory-TLB) hit rates, and the
 Fig 3 timeline/CPI model turns them into speedups over conventional-4K.
+Each workload's sweep goes through the shard scheduler
+(:func:`repro_torch.core.scheduler.run_sweep_system`), as the JAX driver's
+does: crash-safe and resumable, sharded when ``sched`` asks for it.
 Claims (C6): conventional 2MB gains only ~14%; SPARTA-32 improves ~1.57x
 (4K), within ~94% of ideal; translation overhead drops ~31.5x on average (up
 to 47x); (C8) idealized DIPTA trails SPARTA due to way misprediction.
@@ -15,14 +18,17 @@ to 47x); (C8) idealized DIPTA trails SPARTA due to way misprediction.
 from __future__ import annotations
 
 import argparse
+import sys
 from typing import Optional
 
 import numpy as np
 
-from repro_torch.bench.common import W4, Claim, print_csv, synced_clock, trace
+from repro_torch.bench.common import (W4, Claim, crash_safety, print_csv, run_config,
+                                     synced_clock, trace)
 from repro_torch.core import cpi
+from repro_torch.core.orchestrator import Preempted, SweepRunConfig
+from repro_torch.core.scheduler import run_sweep_system
 from repro_torch.core.sparta import SystemLatencies, TLBConfig
-from repro_torch.core.sweep import sweep_system
 from repro_torch.core.tlbsim import SystemSimConfig
 
 CACHE = TLBConfig(entries=256, ways=4)      # 16 KB virtual cache
@@ -55,13 +61,19 @@ def system_configs():
 
 
 def run(quick: bool = False, kernel_mode: str = "auto", *, device="cuda",
-        n_ops: Optional[int] = None, verbose: bool = True) -> dict:
+        n_ops: Optional[int] = None, verbose: bool = True,
+        run_cfg: Optional[SweepRunConfig] = None, sched=None) -> dict:
     """Run Fig 10 on ``device``; returns the claims and what they came from:
     ``rows`` (speedups), ``perfs`` (per workload and design), ``events``
     (the batched hit bits), ``seconds`` (per-workload sweep wall time, host
-    clock ending in a device synchronise) and ``accesses``."""
+    clock ending in a device synchronise), ``accesses`` and
+    ``crash_safety`` (:func:`repro_torch.bench.common.crash_safety`).
+    ``run_cfg`` (default: no checkpoints) and ``sched`` (default: unsharded)
+    go to the scheduler."""
     n_ops = n_ops or (8_000 if quick else 25_000)
     lat = SystemLatencies(n_sockets=8)
+    rc = run_cfg or SweepRunConfig()
+    metas = {}
     speedups = {c[0]: [] for c in CONFIGS}
     overhead_reduction = []
     overhead_reduction_2m = []
@@ -70,8 +82,9 @@ def run(quick: bool = False, kernel_mode: str = "auto", *, device="cuda",
         tr = trace(w, n_ops=n_ops)
         ipa = tr.instr_per_access
         t0 = synced_clock(device)
-        evs = sweep_system(tr.lines, system_configs(), kernel_mode=kernel_mode,
-                           device=device)
+        evs, metas[f"system-{w}"] = run_sweep_system(
+            tr.lines, system_configs(), kernel_mode=kernel_mode, run=rc,
+            name=f"system-{w}", sched=sched, device=device)
         seconds[w] = synced_clock(device) - t0
         events[w], accesses[w] = evs, tr.num_accesses
         perfs = {}
@@ -125,7 +138,7 @@ def run(quick: bool = False, kernel_mode: str = "auto", *, device="cuda",
             "overhead_reduction": [float(x) for x in overhead_reduction],
             "overhead_reduction_2m": [float(x) for x in overhead_reduction_2m],
             "perfs": perfs_all, "events": events, "seconds": seconds,
-            "accesses": accesses}
+            "accesses": accesses, "crash_safety": crash_safety(metas)}
 
 
 def main(argv=None) -> int:
@@ -134,7 +147,12 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--kernel-mode", default="auto", choices=("auto", "cuda", "reference"))
     args = ap.parse_args(argv)
-    claims = run(args.quick, args.kernel_mode, device=args.device)["claims"]
+    try:
+        claims = run(args.quick, args.kernel_mode, device=args.device,
+                     run_cfg=run_config("fig10"))["claims"]
+    except Preempted as p:
+        print(f"fig10: {p}", file=sys.stderr)
+        return 75   # EX_TEMPFAIL: the checkpoints under build/repro_torch/cache/ckpt stay
     return 0 if sum(not c.ok for c in claims) <= 1 else 1
 
 

@@ -3,17 +3,19 @@
 The port of the JAX package's ``benchmarks/fig5_contention.py``, both
 halves, with its sizes, tables and claim bands.  Miss rate vs (threads x
 partitions) with 128-entry 4-way TLBs per partition: each interleaved
-thread trace runs ONE :func:`~repro_torch.core.sweep.sweep_tlb` call for all
-partition counts, which under ``"auto"`` takes the exact stack-distance
-engine, as the JAX driver's does.
+thread trace runs ONE :func:`~repro_torch.core.scheduler.run_sweep_tlb` call
+for all partition counts, which under ``"auto"`` takes the exact
+stack-distance engine, as the JAX driver's does.
 
 The beyond-paper **timeline half** asks what the contention costs in
 cycles: at 16 threads, the p99 translation-induced latency of a SPARTA
 memory side with P partitions (bounded TLB ports + banked DRAM, Fig 11's
 queueing config), over the first 40,000 accesses of each workload's
-16-thread trace.  One :func:`~repro_torch.core.sweep.sweep_system` per
-workload feeds all partition counts and all 16 cells run as ONE
-:func:`~repro_torch.core.timeline.sweep_timeline` launch.
+16-thread trace.  One :func:`~repro_torch.core.scheduler.run_sweep_system`
+per workload feeds all partition counts and all 16 cells run as ONE
+:func:`~repro_torch.core.scheduler.run_sweep_timeline` call.  Every sweep
+goes through the shard scheduler, crash-safe and resumable, sharded when
+``sched`` asks for it.
 
 Claims (C3): contention on a single shared TLB grows with threads, but
 partitioning makes it vanish; (16 partitions, 16 threads) beats (1
@@ -24,16 +26,19 @@ partition, 1 thread) at equal aggregate entries/thread.
 from __future__ import annotations
 
 import argparse
+import sys
 import logging
 import time
 from typing import Optional
 
 import numpy as np
 
-from repro_torch.bench.common import W4, Claim, print_csv, synced_clock
+from repro_torch.bench.common import W4, Claim, crash_safety, print_csv, run_config, synced_clock
 from repro_torch.core import timeline, traces
+from repro_torch.core.orchestrator import Preempted, SweepRunConfig
+from repro_torch.core.scheduler import run_sweep_system, run_sweep_timeline, run_sweep_tlb
 from repro_torch.core.sparta import SystemLatencies, TLBConfig
-from repro_torch.core.sweep import TLBSweepSpec, sweep_system, sweep_tlb
+from repro_torch.core.sweep import TLBSweepSpec
 from repro_torch.core.tlbsim import SystemSimConfig
 
 THREADS = (1, 2, 4, 8, 16)
@@ -59,16 +64,21 @@ def system_configs():
 
 def run(quick: bool = False, kernel_mode: str = "auto", *, device="cuda",
         n_ops: Optional[int] = None, tl_cap: Optional[int] = None,
-        verbose: bool = True) -> dict:
+        verbose: bool = True, run_cfg: Optional[SweepRunConfig] = None,
+        sched=None) -> dict:
     """Run Fig 5 on ``device``; returns the claims and what they came from:
     ``results`` (miss ratios per workload and partition count, over
     threads), ``rows``, ``hits`` (the grid's batched hit bits per
     ``"{workload}/t{threads}"``), ``lines`` (the grid's traces), the
     timeline half's ``timeline_specs``, ``timeline`` results,
     ``timeline_p99`` and ``timeline_rows``, ``seconds`` (per-phase wall
-    time, host clock ending in a device synchronise) and ``accesses``."""
+    time, host clock ending in a device synchronise), ``accesses`` and
+    ``crash_safety``.  ``run_cfg`` (default: no checkpoints) and ``sched``
+    (default: unsharded) go to the scheduler."""
     n_ops = n_ops or (4_000 if quick else 12_000)
     tl_cap = tl_cap or (12_000 if quick else 40_000)
+    rc = run_cfg or SweepRunConfig()
+    metas = {}
     t_max = THREADS[-1]
     seconds = {"traces": 0.0, "grid": 0.0}
     results, hits, lines, accesses = {}, {}, {}, {}
@@ -83,7 +93,9 @@ def run(quick: bool = False, kernel_mode: str = "auto", *, device="cuda",
             if t == t_max:
                 inter_max[w] = inter
             t0 = synced_clock(device)
-            batched = sweep_tlb(inter, specs(), kernel_mode=kernel_mode, device=device)
+            batched, metas[f"tlb-{w}-t{t}"] = run_sweep_tlb(
+                inter, specs(), kernel_mode=kernel_mode, run=rc,
+                name=f"tlb-{w}-t{t}", sched=sched, device=device)
             grid[:, i_t] = batched.miss_ratios
             seconds["grid"] += synced_clock(device) - t0
             key = f"{w}/t{t}"
@@ -119,14 +131,18 @@ def run(quick: bool = False, kernel_mode: str = "auto", *, device="cuda",
     t0 = synced_clock(device)
     for w in W4:
         sl = inter_max[w][:tl_cap]  # slice of the already-streamed trace
-        evs = sweep_system(sl, system_configs(), kernel_mode=tl_mode, device=device)
+        evs, metas[f"system-{w}"] = run_sweep_system(
+            sl, system_configs(), kernel_mode=tl_mode, run=rc, name=f"system-{w}",
+            sched=sched, device=device)
         for i_p, p in enumerate(PARTS):
             tl_specs.append(timeline.TimelineSpec(
                 sl, evs[i_p], "sparta", cfg=QUEUES, num_partitions=p,
                 num_accelerators=t_max))
     seconds["system"] = synced_clock(device) - t0
     t0 = synced_clock(device)
-    tl_res = timeline.sweep_timeline(tl_specs, lat, kernel_mode=tl_mode, device=device)
+    tl_res, metas["timeline"] = run_sweep_timeline(
+        tl_specs, lat, kernel_mode=tl_mode, run=rc, name="timeline", sched=sched,
+        device=device)
     seconds["timeline"] = synced_clock(device) - t0
     tl_p99, tl_rows = {}, []
     for i, w in enumerate(W4):
@@ -145,7 +161,8 @@ def run(quick: bool = False, kernel_mode: str = "auto", *, device="cuda",
     return {"claims": [c3a, c3b], "results": results, "rows": rows, "hits": hits,
             "lines": lines, "tl_cap": tl_cap,
             "timeline_specs": tl_specs, "timeline": tl_res, "timeline_p99": tl_p99,
-            "timeline_rows": tl_rows, "seconds": seconds, "accesses": accesses}
+            "timeline_rows": tl_rows, "seconds": seconds, "accesses": accesses,
+            "crash_safety": crash_safety(metas)}
 
 
 def main(argv=None) -> int:
@@ -156,7 +173,12 @@ def main(argv=None) -> int:
     ap.add_argument("--kernel-mode", default="auto",
                     choices=("auto", "stackdist", "cuda", "reference"))
     args = ap.parse_args(argv)
-    claims = run(args.quick, args.kernel_mode, device=args.device)["claims"]
+    try:
+        claims = run(args.quick, args.kernel_mode, device=args.device,
+                     run_cfg=run_config("fig5"))["claims"]
+    except Preempted as p:
+        print(f"fig5: {p}", file=sys.stderr)
+        return 75   # EX_TEMPFAIL: the checkpoints under build/repro_torch/cache/ckpt stay
     return 0 if sum(not c.ok for c in claims) <= 1 else 1
 
 

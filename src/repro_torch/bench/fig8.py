@@ -5,10 +5,9 @@ trace sizes, cap and claim bands).  Thread mixes: 1/2/4 BST-E threads
 (shared dataset — SPARTA avoids redundant caching of shared translations),
 then unrelated apps join: +4 HashTable, then +4 BST-I and +4 SkipList.
 Partitioning absorbs the added contention (claims C3c, C3d).  Each mix's
-interleaved trace runs ONE :func:`repro_torch.core.sweep.sweep_tlb` call for
-all partition counts, which under ``"auto"`` takes the exact stack-distance
-engine (K3; 4 ways), as the JAX driver's does; the JAX driver goes through
-its scheduler, which the port does not have yet, to the same sweep.
+interleaved trace runs ONE :func:`repro_torch.core.scheduler.run_sweep_tlb`
+call for all partition counts, as the JAX driver's does, which under
+``"auto"`` takes the exact stack-distance engine (K3; 4 ways).
 
 A thread's trace seed is ``seed + 31 * i + hash(w) % 97`` in the JAX
 driver: Python's string hash is salted per process (``PYTHONHASHSEED``), so
@@ -21,15 +20,18 @@ reproduce a given process's mixes.
 from __future__ import annotations
 
 import argparse
+import sys
 import time
 from typing import Dict, Mapping, Optional
 
 import numpy as np
 
-from repro_torch.bench.common import GIB, Claim, print_csv, synced_clock
+from repro_torch.bench.common import GIB, Claim, crash_safety, print_csv, run_config, synced_clock
 from repro_torch.core import traces
+from repro_torch.core.orchestrator import Preempted, SweepRunConfig
+from repro_torch.core.scheduler import run_sweep_tlb
 from repro_torch.core.sparta import TLBConfig
-from repro_torch.core.sweep import TLBSweepSpec, sweep_tlb
+from repro_torch.core.sweep import TLBSweepSpec
 
 PARTS = (1, 4, 16, 64)
 TLB = TLBConfig(entries=128, ways=4)
@@ -78,16 +80,20 @@ def _mix(n_ops, seed, spec, salts: Optional[Mapping[str, int]] = None):
 
 def run(quick: bool = False, kernel_mode: str = "auto", *, device="cuda",
         n_ops: Optional[int] = None, salts: Optional[Mapping[str, int]] = None,
-        verbose: bool = True) -> dict:
+        verbose: bool = True, run_cfg: Optional[SweepRunConfig] = None,
+        sched=None) -> dict:
     """Run Fig 8 on ``device``; returns the claims and what they came from:
     ``results`` (BST-E miss ratio per mix over ``PARTS``), ``rows``,
     ``bste`` (per mix and P, the BST-E threads' [post-warm-up hits,
     accesses]), ``hits`` (the batched hit bits per mix), ``lines`` (the
     capped interleaved traces), ``salts``, ``seconds`` (trace generation and
-    the sweeps, host clock ending in a device synchronise) and
-    ``accesses``."""
+    the sweeps, host clock ending in a device synchronise), ``accesses`` and
+    ``crash_safety``.  ``run_cfg`` (default: no checkpoints) and ``sched``
+    (default: unsharded) go to the scheduler."""
     n_ops = n_ops or (4_000 if quick else 10_000)
     salts = dict(default_salts() if salts is None else salts)
+    rc = run_cfg or SweepRunConfig()
+    metas = {}
     results, rows, bste, hits, lines, accesses = {}, [], {}, {}, {}, {}
     seconds = {"traces": 0.0, "sweeps": 0.0}
     for name, spec in MIXES.items():
@@ -97,7 +103,9 @@ def run(quick: bool = False, kernel_mode: str = "auto", *, device="cuda",
         who = who[:inter.shape[0]]
         seconds["traces"] += time.perf_counter() - t0
         t0 = synced_clock(device)
-        batched = sweep_tlb(inter >> (12 - 6), specs(), kernel_mode=kernel_mode, device=device)
+        batched, metas[f"tlb-{name}"] = run_sweep_tlb(
+            inter >> (12 - 6), specs(), kernel_mode=kernel_mode, run=rc,
+            name=f"tlb-{name}", sched=sched, device=device)
         seconds["sweeps"] += synced_clock(device) - t0
         n0 = batched.hits.shape[1] - batched.n_warm
         # Miss ratio observed by the BST-E threads only; the hit bits leave
@@ -126,7 +134,8 @@ def run(quick: bool = False, kernel_mode: str = "auto", *, device="cuda",
         for c in claims:
             print(c)
     return {"claims": claims, "results": results, "rows": rows, "bste": bste, "hits": hits,
-            "lines": lines, "salts": salts, "seconds": seconds, "accesses": accesses}
+            "lines": lines, "salts": salts, "seconds": seconds, "accesses": accesses,
+            "crash_safety": crash_safety(metas)}
 
 
 def main(argv=None) -> int:
@@ -136,7 +145,12 @@ def main(argv=None) -> int:
     ap.add_argument("--kernel-mode", default="auto",
                     choices=("auto", "stackdist", "cuda", "reference"))
     args = ap.parse_args(argv)
-    claims = run(args.quick, args.kernel_mode, device=args.device)["claims"]
+    try:
+        claims = run(args.quick, args.kernel_mode, device=args.device,
+                     run_cfg=run_config("fig8"))["claims"]
+    except Preempted as p:
+        print(f"fig8: {p}", file=sys.stderr)
+        return 75   # EX_TEMPFAIL: the checkpoints under build/repro_torch/cache/ckpt stay
     return 0 if sum(not c.ok for c in claims) <= 1 else 1
 
 

@@ -7,9 +7,9 @@ point is SPARTA with a virtual cache and NO accelerator-side translation
 hardware.  Baseline: conventional translation with a 128-entry accel TLB
 and perfect MMU caches (virtual cache).  Per workload the baseline, the
 eight capacities and the no-TLB point ride ONE
-:func:`repro_torch.core.sweep.sweep_system` call (on the card, one K2
-launch of 10 configs); the JAX driver goes through its scheduler, which
-the port does not have yet, to the same sweep.
+:func:`repro_torch.core.scheduler.run_sweep_system` call of 10 configs, as
+the JAX driver's does: crash-safe and resumable (on the card, K2 over the
+trace's chunks), sharded when ``sched`` asks for it.
 
 Claims (C7): ~8 accel-TLB entries suffice to beat the 128-entry baseline;
 capacity beyond that gives diminishing returns.
@@ -19,14 +19,17 @@ capacity beyond that gives diminishing returns.
 from __future__ import annotations
 
 import argparse
+import sys
 from typing import Optional
 
 import numpy as np
 
-from repro_torch.bench.common import W4, Claim, print_csv, synced_clock, trace
+from repro_torch.bench.common import (W4, Claim, crash_safety, print_csv, run_config,
+                                     synced_clock, trace)
 from repro_torch.core import cpi
+from repro_torch.core.orchestrator import Preempted, SweepRunConfig
+from repro_torch.core.scheduler import run_sweep_system
 from repro_torch.core.sparta import SystemLatencies, TLBConfig
-from repro_torch.core.sweep import sweep_system
 from repro_torch.core.tlbsim import SystemSimConfig
 
 ENTRIES = (1, 2, 4, 8, 16, 32, 64, 128)
@@ -51,21 +54,28 @@ def system_configs():
 
 
 def run(quick: bool = False, kernel_mode: str = "auto", *, device="cuda",
-        n_ops: Optional[int] = None, verbose: bool = True) -> dict:
+        n_ops: Optional[int] = None, verbose: bool = True,
+        run_cfg: Optional[SweepRunConfig] = None, sched=None) -> dict:
     """Run Fig 9 on ``device``; returns the claims and what they came from:
     ``results`` (speedups over the baseline per workload, ``ENTRIES`` then
     the no-TLB point), ``rows``, ``events`` (the batched hit bits),
     ``seconds`` (per-workload sweep wall time, host clock ending in a device
-    synchronise) and ``accesses``."""
+    synchronise), ``accesses`` and ``crash_safety``.  ``run_cfg`` (default:
+    no checkpoints) and ``sched`` (default: unsharded) go to the
+    scheduler."""
     n_ops = n_ops or (8_000 if quick else 25_000)
     lat = SystemLatencies()
     cfgs = system_configs()
+    rc = run_cfg or SweepRunConfig()
+    metas = {}
     results, rows, events, seconds, accesses = {}, [], {}, {}, {}
     for w in W4:
         tr = trace(w, n_ops=n_ops)
         ipa = tr.instr_per_access
         t0 = synced_clock(device)
-        evs = sweep_system(tr.lines, cfgs, kernel_mode=kernel_mode, device=device)
+        evs, metas[f"system-{w}"] = run_sweep_system(
+            tr.lines, cfgs, kernel_mode=kernel_mode, run=rc, name=f"system-{w}",
+            sched=sched, device=device)
         seconds[w] = synced_clock(device) - t0
         events[w], accesses[w] = evs, tr.num_accesses
         base = cpi.evaluate_design("conventional", evs[0], lat, instr_per_access=ipa)
@@ -94,7 +104,7 @@ def run(quick: bool = False, kernel_mode: str = "auto", *, device="cuda",
         for c in claims:
             print(c)
     return {"claims": claims, "results": results, "rows": rows, "events": events,
-            "seconds": seconds, "accesses": accesses}
+            "seconds": seconds, "accesses": accesses, "crash_safety": crash_safety(metas)}
 
 
 def main(argv=None) -> int:
@@ -103,7 +113,12 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--kernel-mode", default="auto", choices=("auto", "cuda", "reference"))
     args = ap.parse_args(argv)
-    claims = run(args.quick, args.kernel_mode, device=args.device)["claims"]
+    try:
+        claims = run(args.quick, args.kernel_mode, device=args.device,
+                     run_cfg=run_config("fig9"))["claims"]
+    except Preempted as p:
+        print(f"fig9: {p}", file=sys.stderr)
+        return 75   # EX_TEMPFAIL: the checkpoints under build/repro_torch/cache/ckpt stay
     return 0 if sum(not c.ok for c in claims) <= 1 else 1
 
 

@@ -24,7 +24,6 @@ Exit 0 on success, 1 on any mismatch or unexpected exit code.
 from __future__ import annotations
 
 import argparse
-import hashlib
 import json
 import pathlib
 import shutil
@@ -38,20 +37,12 @@ EX_TEMPFAIL = 75        # sysexits.h: temporary failure, rerun with --resume
 NAME = "fig11_smoke"
 
 
-def _digests(results) -> list:
-    import numpy as np
-
-    return [{k: hashlib.sha256(np.ascontiguousarray(getattr(r, k), np.float32)
-                               .tobytes()).hexdigest()
-             for k in ("latency", "overhead", "done")} for r in results]
-
-
 def child(args) -> int:
     """One sweep: Fig 11's specs over the first workload, through the
     orchestrator, checkpointing into ``args.ckpt``; writes the digests to
     ``args.out``.  Exits 75 when preempted."""
     from repro_torch.bench import fig11
-    from repro_torch.bench.common import W4
+    from repro_torch.bench.common import W4, timeline_digests
     from repro_torch.core import timeline
     from repro_torch.core.orchestrator import Preempted, SweepRunConfig, run_sweep_timeline
     from repro_torch.core.sparta import SystemLatencies
@@ -77,7 +68,7 @@ def child(args) -> int:
         print(f"[smoke_resume] preempted: {p}", flush=True)
         return EX_TEMPFAIL
     pathlib.Path(args.out).write_text(json.dumps(
-        {"digests": _digests(results), "resumed_from": meta["resumed_from"],
+        {"digests": timeline_digests(results), "resumed_from": meta["resumed_from"],
          "events": [e["event"] for e in meta["events"]]}))
     return 0
 

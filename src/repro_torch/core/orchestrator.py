@@ -11,9 +11,12 @@ loop, and return results bit-identical to the monolithic engines:
 
 * **Bounded-memory streaming.**  The trace is consumed in
   ``chunk_accesses``-sized slices (whole blocks); the carried per-config
-  state lives in the stream on the data's device.  Each chunk's outputs are
-  copied to host result buffers (numpy [B, total]): a checkpoint is host
-  bytes.
+  state lives in the stream on the data's device.  With no checkpoint
+  directory the TLB and system sweeps keep each chunk's outputs in result
+  buffers on that device; with one they are copied to host buffers (numpy
+  [B, total]), since a checkpoint is host bytes.  Either way their results
+  come back on the data's device.  The timeline stream's chunks, and so its
+  results, are host numpy, as the monolithic engine's are.
 
 * **Checkpoint/resume.**  With ``SweepRunConfig.checkpoint_dir`` set, every
   committed chunk atomically replaces one checkpoint blob
@@ -106,6 +109,7 @@ __all__ = [
 ]
 
 CKPT_FORMAT = "repro-sweep-ckpt-v1"
+_TORCH_DTYPES = {bool: torch.bool, np.float32: torch.float32}
 
 
 class Preempted(BaseException):
@@ -171,8 +175,9 @@ class _ChunkRunner:
 
     def __init__(self, stream, total: int, out_names: Sequence[str],
                  out_dtypes: Sequence, run_chunk: Callable, start_mode: str,
-                 cfg: SweepRunConfig, *, name: str, trace_sha: str,
-                 decision: Optional[dispatch.DispatchDecision] = None):
+                 cfg: SweepRunConfig, *, name: str, trace_sha: Callable[[], str],
+                 decision: Optional[dispatch.DispatchDecision] = None,
+                 device_outputs: bool = True):
         self.stream = stream
         self.decision = decision
         self.total = int(total)
@@ -181,7 +186,16 @@ class _ChunkRunner:
         self.cfg = cfg
         self.name = name
         self.batch = stream.batch_size
-        self.bufs = [np.zeros((self.batch, self.total), dt) for dt in out_dtypes]
+        self.path = (pathlib.Path(cfg.checkpoint_dir) / f"{name}.ckpt"
+                     if cfg.checkpoint_dir else None)
+        # Unless a checkpoint needs them as host bytes (or the stream hands
+        # them over as numpy), the outputs never leave the device.
+        self.on_device = device_outputs and self.path is None
+        if self.on_device:
+            self.bufs = [torch.zeros((self.batch, self.total), dtype=_TORCH_DTYPES[dt],
+                                     device=stream.device) for dt in out_dtypes]
+        else:
+            self.bufs = [np.zeros((self.batch, self.total), dt) for dt in out_dtypes]
         # mode -> {chunks, accesses, sim_accesses, elapsed_s}: achieved
         # throughput per backend actually executed (meta()["throughput"]).
         self.throughput: dict = {}
@@ -190,12 +204,12 @@ class _ChunkRunner:
         self.chunks_committed = 0
         self.resumed_from: Optional[int] = None
         self._rng = random.Random(cfg.rng_seed)
-        fp = dict(stream.fingerprint())
-        fp["trace_sha256"] = trace_sha
-        fp["total"] = self.total
-        self._fp = _fingerprint_json(fp)
-        self.path = (pathlib.Path(cfg.checkpoint_dir) / f"{name}.ckpt"
-                     if cfg.checkpoint_dir else None)
+        self._fp = None
+        if self.path is not None:   # the fingerprint guards checkpoints only
+            fp = dict(stream.fingerprint())
+            fp["trace_sha256"] = trace_sha()
+            fp["total"] = self.total
+            self._fp = _fingerprint_json(fp)
 
     # -- checkpointing ------------------------------------------------------
 
@@ -271,6 +285,10 @@ class _ChunkRunner:
                   completed=bool(meta.get("completed")), blob_mode=blob_mode)
         return meta if meta.get("completed") else None
 
+    def results(self) -> List[torch.Tensor]:
+        """The result buffers as tensors on the stream's device."""
+        return [torch.as_tensor(b).to(self.stream.device) for b in self.bufs]
+
     # -- the ladder ---------------------------------------------------------
 
     def _commit(self, lo: int, hi: int, outs) -> None:
@@ -337,13 +355,16 @@ class _ChunkRunner:
             # the stream still stands at `lo`: once it has advanced, a retry
             # would apply the chunk twice.  _commit stays outside the try: a
             # failed checkpoint write propagates, leaving the previous blob
-            # as the resume point.  The copy of the outputs to the host is
-            # inside, so the chunk's time includes its kernels.
+            # as the resume point.  The copy of the outputs to the host (or,
+            # with no checkpoint, a synchronise) is inside, so the chunk's
+            # time includes its kernels.
             t0 = time.perf_counter()
             try:
                 if self.cfg.fault_hook is not None:
                     self.cfg.fault_hook(self.stream.engine, lo, hi, mode, attempt)
-                outs = tuple(_host(o) for o in self.run_chunk(lo, hi, mode))
+                outs = self.run_chunk(lo, hi, mode)
+                outs = (benchtime.block(tuple(outs)) if self.on_device
+                        else tuple(_host(o) for o in outs))
             except Exception as exc:
                 if not is_transient(exc) or int(self.stream.now) != lo:
                     raise
@@ -478,10 +499,10 @@ def run_sweep_tlb(
     """Crash-safe :func:`repro_torch.core.sweep.sweep_tlb`.
 
     Returns ``(BatchedTLBResult, meta)``, the hits bit-identical to the
-    monolithic engine's (streamed: a host tensor, the result buffer).
+    monolithic engine's, on ``device``.
     ``"stackdist"`` (and ``"auto"`` resolving to it) runs monolithically:
     the stack-distance engine needs the whole trace, so it is not resumable
-    (``meta["resumable"] = False``) and its hits stay on ``device``.
+    (``meta["resumable"] = False``).
     """
     host = _host(addrs)
     n = int(host.shape[0])
@@ -520,10 +541,11 @@ def run_sweep_tlb(
         runner = _ChunkRunner(
             stream, n, ("hits",), (bool,),
             lambda lo, hi, m: (stream.run_chunk(trace[lo:hi], kernel_mode=m),),
-            mode, run, name=name, trace_sha=_sha256_arrays(host), decision=decision)
+            mode, run, name=name, trace_sha=lambda: _sha256_arrays(host),
+            decision=decision)
         meta = _run_streamed(runner, store, name)
         n0 = int(n * warmup_frac)
-        return BatchedTLBResult(hits=torch.from_numpy(runner.bufs[0]), n_warm=n - n0), meta
+        return BatchedTLBResult(hits=runner.results()[0], n_warm=n - n0), meta
     finally:
         if handler is not None:
             handler.uninstall()
@@ -541,8 +563,8 @@ def run_sweep_system(
     device: Device = "cuda",
 ) -> Tuple[BatchedSystemEvents, dict]:
     """Crash-safe :func:`repro_torch.core.sweep.sweep_system`; returns
-    ``(BatchedSystemEvents, meta)``, bit-identical to the monolithic engine
-    (host tensors, the result buffers)."""
+    ``(BatchedSystemEvents, meta)``, bit-identical to the monolithic engine,
+    on ``device``."""
     host = _host(lines)
     n = int(host.shape[0])
     store = dispatch.store_for(run.calibration_dir, device)
@@ -556,11 +578,11 @@ def run_sweep_system(
         runner = _ChunkRunner(
             stream, n, ("cache_hit", "accel_tlb_hit", "mem_tlb_hit"), (bool, bool, bool),
             lambda lo, hi, m: stream.run_chunk(trace[lo:hi], kernel_mode=m),
-            decision.mode, run, name=name, trace_sha=_sha256_arrays(host),
+            decision.mode, run, name=name, trace_sha=lambda: _sha256_arrays(host),
             decision=decision)
         meta = _run_streamed(runner, store, name)
         n0 = int(n * warmup_frac)
-        return BatchedSystemEvents(*(torch.from_numpy(b) for b in runner.bufs),
+        return BatchedSystemEvents(*runner.results(),
                                    n_warm=n - n0), meta
     finally:
         if handler is not None:
@@ -592,7 +614,8 @@ def run_sweep_timeline(
             (np.float32, np.float32, np.float32),
             lambda lo, hi, m: stream.run_chunk(lo, hi, kernel_mode=m),
             decision.mode, run, name=name,
-            trace_sha=_sha256_arrays(*stream.host_columns), decision=decision)
+            trace_sha=lambda: _sha256_arrays(*stream.host_columns), decision=decision,
+            device_outputs=False)
         meta = _run_streamed(runner, store, name)
         return stream.finalize(*runner.bufs), meta
     finally:

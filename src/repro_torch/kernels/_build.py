@@ -90,8 +90,13 @@ class CudaError(RuntimeError):
     """A kernel's launch returned a non-zero ``cudaError_t`` (``code``)."""
 
     def __init__(self, what: str, code: int, msg: str):
-        self.what, self.code = what, int(code)
+        self.what, self.code, self.msg = what, int(code), msg
         super().__init__(f"{what}: CUDA error {code} ({msg})")
+
+    def __reduce__(self):
+        # Pickled by its own arguments, so that a scheduler worker process
+        # can report one to its parent.
+        return CudaError, (self.what, self.code, self.msg)
 
 
 class Library:

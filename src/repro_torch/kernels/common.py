@@ -17,10 +17,16 @@ The TLB sweep (:mod:`repro_torch.core.sweep`) accepts one extra mode,
 
 There is no fallback from the card to the CPU: a CUDA device on a machine
 without one raises.
+
+Each kernel's wrapper counts its launches in its module's ``launches`` and
+in the calling thread's open :func:`launch_tally`, which is how the shard
+scheduler's workers (threads or processes) report what they launched.
 """
 from __future__ import annotations
 
-from typing import Sequence, Union
+import contextlib
+import threading
+from typing import Dict, Iterator, Sequence, Union
 
 import torch
 
@@ -55,3 +61,29 @@ def resolve_mode(
         raise ValueError(
             f"kernel_mode='cuda' needs data on a CUDA device, got device={str(dev)!r}")
     return kernel_mode
+
+
+_TALLY = threading.local()
+
+
+@contextlib.contextmanager
+def launch_tally() -> Iterator[Dict[str, int]]:
+    """Count the kernel launches the calling thread makes inside the block:
+    yields a dict, kernel name -> launches, filled as the wrappers launch.
+    Tallies nest; the inner one counts alone while it is open."""
+    outer = getattr(_TALLY, "counts", None)
+    counts: Dict[str, int] = {}
+    _TALLY.counts = counts
+    try:
+        yield counts
+    finally:
+        _TALLY.counts = outer
+
+
+def note_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` to the calling thread's open
+    tally, if it has one (each wrapper calls this where it adds one to its
+    module's ``launches``)."""
+    counts = getattr(_TALLY, "counts", None)
+    if counts is not None:
+        counts[name] = counts.get(name, 0) + 1

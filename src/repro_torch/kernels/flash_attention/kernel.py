@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.common import note_launch
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 # Launches of the CUDA kernel in this process; chip_smoke.py resets and reads
@@ -122,4 +123,5 @@ def flash_attention_cuda(
             *plan[1:], stream)
     lib.check(err, "flash_attention_launch")
     launches += 1
+    note_launch("flash_attention")
     return o

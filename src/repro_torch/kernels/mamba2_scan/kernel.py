@@ -19,6 +19,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.common import note_launch
 from repro_torch.kernels.flash_attention.kernel import DTYPE_CODES
 from repro_torch.kernels.mamba2_scan.ref import mamba2_scan_ref
 from repro_torch.kernels.paged_attention.kernel import sm_count
@@ -124,4 +125,5 @@ def mamba2_scan_cuda(
             DTYPE_CODES[x.dtype], hb, smem, stream)
     lib.check(err, "mamba2_scan_launch")
     launches += 1
+    note_launch("mamba2_scan")
     return y, s

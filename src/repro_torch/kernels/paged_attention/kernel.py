@@ -21,6 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.common import note_launch
 from repro_torch.kernels.flash_attention.kernel import (DTYPE_CODES, SMEM_LIMIT,
                                                         check_head_dim)
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -146,6 +147,7 @@ def paged_attention_cuda(
             B, Hq, Hkv, D, page, pages, float(scale), DTYPE_CODES[q.dtype], *plan, stream)
     lib.check(err, "paged_attention_launch")
     launches += 1
+    note_launch("paged_attention")
     return acc, m, l
 
 

@@ -18,6 +18,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.common import note_launch
 from repro_torch.kernels.flash_attention.kernel import DTYPE_CODES
 from repro_torch.kernels.paged_attention.kernel import sm_count
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
@@ -153,4 +154,5 @@ def rwkv6_scan_cuda(
             stream)
     lib.check(err, "rwkv6_scan_launch")
     launches += 1
+    note_launch("rwkv6_scan")
     return o, s

@@ -15,6 +15,7 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.common import note_launch
 from repro_torch.kernels.paged_attention.kernel import sm_count
 from repro_torch.kernels.stackdist.ref import stack_scan_ref
 from repro_torch.kernels.tlb_sim.kernel import check_int32
@@ -161,4 +162,5 @@ def stack_scan_cuda(
             plan.smem_bytes, stream)
     lib.check(err, "stack_scan_launch")
     launches += 1
+    note_launch("stackdist")
     return depths, final

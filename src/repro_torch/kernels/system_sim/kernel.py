@@ -16,6 +16,7 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.common import note_launch
 from repro_torch.kernels.system_sim.ref import system_sim_batched_carry_ref
 from repro_torch.kernels.tlb_sim.kernel import (
     bucket_plan,
@@ -78,4 +79,5 @@ def system_sim_carry_cuda(inputs, flags: torch.Tensor, state, now0: int, *,
                 raw.data_ptr(), *scratch, events, stream)
         lib.check(err, "system_sim_launch")
         launches += 1
+        note_launch("system_sim")
     return ((hits & 1).bool(), (hits & 2).bool(), (hits & 4).bool()), state

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.common import note_launch
 from repro_torch.kernels.timeline.ref import STATE_NAMES, timeline_scan_batched_carry_ref
 from repro_torch.kernels.tlb_sim.kernel import check_int32
 
@@ -87,4 +88,5 @@ def timeline_carry_cuda(cols, fparams: torch.Tensor, iparams: torch.Tensor, stat
             B, L, A, M, P, T, D, stream)
     lib.check(err, "timeline_launch")
     launches += 1
+    note_launch("timeline")
     return outs, state

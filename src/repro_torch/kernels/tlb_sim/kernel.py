@@ -17,6 +17,7 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.common import note_launch
 from repro_torch.kernels.tlb_sim.ref import tlb_sim_batched_carry_ref
 
 # Calls of the CUDA kernel in this process (one per wrapper call, however
@@ -163,4 +164,5 @@ def tlb_sim_carry_cuda(
             events, stream)
     lib.check(err, "tlb_sim_launch")
     launches += 1
+    note_launch("tlb_sim")
     return hits.view(torch.bool), tags, last

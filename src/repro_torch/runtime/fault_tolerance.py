@@ -7,7 +7,8 @@ The port of the JAX package's ``src/repro/runtime/fault_tolerance.py``.
 :func:`is_transient` classifies by the exception's type, never by its text:
 the reference keys on XLA status strings (``"INTERNAL"``, ``"out of
 memory"``, ...), which a CUDA runtime does not produce and which text such
-as an ``nvcc`` log can contain by accident.  ``run_training_loop`` and
+as an ``nvcc`` log can contain by accident; :func:`is_fatal` names the
+errors after which no kernel runs in the process.  ``run_training_loop`` and
 ``LoopConfig`` are not ported yet: they come with the training step.
 """
 from __future__ import annotations
@@ -27,7 +28,7 @@ from repro_torch.kernels._build import CUDA_ERROR_MEMORY_ALLOCATION, CudaError, 
 _LOG = logging.getLogger("repro_torch.runtime.fault_tolerance")
 
 __all__ = ["HostStats", "HeartbeatTracker", "PreemptionHandler", "is_transient",
-           "backoff_delays", "retry_step"]
+           "is_fatal", "backoff_delays", "retry_step"]
 
 
 @dataclasses.dataclass
@@ -171,6 +172,30 @@ def is_transient(exc: BaseException) -> bool:
     if isinstance(exc, OSError):
         return exc.errno in _TRANSIENT_ERRNOS
     return False
+
+
+# cudaError_t codes that leave the context dead: 700 illegal address, 716
+# misaligned address, 719 launch failure.
+STICKY_CUDA_ERRORS = frozenset({700, 716, 719})
+
+
+def is_fatal(exc: BaseException) -> bool:
+    """Does this exception leave the process without a kernel to run?
+
+    Fatal: a failed kernel build (:class:`KernelBuildError`) and a sticky
+    CUDA error (:data:`STICKY_CUDA_ERRORS`, ``torch.AcceleratorError``):
+    every later launch in the process fails the same way, whatever it runs.
+    The shard scheduler aborts its run on one instead of counting it against
+    the shard (``repro_torch.core.scheduler``); a fatal error is never
+    :func:`is_transient` either.
+    """
+    if isinstance(exc, KernelBuildError):
+        return True
+    if isinstance(exc, CudaError):
+        return exc.code in STICKY_CUDA_ERRORS
+    torch = sys.modules.get("torch")
+    accelerator_error = getattr(torch, "AcceleratorError", None) if torch is not None else None
+    return accelerator_error is not None and isinstance(exc, accelerator_error)
 
 
 def backoff_delays(retries: int, *, base_s: float = 0.05, cap_s: float = 2.0,

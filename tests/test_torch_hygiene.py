@@ -84,6 +84,41 @@ def test_default_device_raises_without_a_card():
         pagetable.page_fault_curve(lines, [4, 8])
 
 
+def test_scheduler_modules_load_no_jax_and_default_to_the_card():
+    """The shard scheduler, the smoke that SIGKILLs its workers and the fault
+    seams those workers unpickle load no JAX; the scheduler's sharded entry
+    points and the routed figures left at their default device raise
+    without a card, before any worker is started."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, repro_torch.core.scheduler, "
+         "repro_torch.bench.smoke_sched, repro_torch.bench.faultinject, "
+         "repro_torch.bench.fig11, repro_torch.bench.fig5; "
+         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))"],
+        cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "[]", proc.stdout + proc.stderr
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device is valid")
+    import multiprocessing
+
+    from repro_torch.bench import fig5, fig11
+    from repro_torch.core import scheduler, sweep, tlbsim
+    from repro_torch.core.sparta import TLBConfig
+
+    lines = np.arange(100, dtype=np.int64)
+    sched = scheduler.ScheduleConfig(workers=2, executor="process")
+    specs = [sweep.TLBSweepSpec(TLBConfig(), num_partitions=p, page_shift=12) for p in (1, 2)]
+    with pytest.raises(RuntimeError, match="cuda"):
+        scheduler.run_sweep_tlb(lines, specs, sched=sched)
+    with pytest.raises(RuntimeError, match="cuda"):
+        scheduler.run_sweep_system(lines, [tlbsim.SystemSimConfig()] * 2, sched=sched)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fig11.run(n_ops=10, cap=100, verbose=False, sched=sched)
+    with pytest.raises(RuntimeError, match="cuda"):
+        fig5.run(n_ops=10, tl_cap=100, verbose=False)
+    assert not multiprocessing.active_children()
+
+
 def test_serving_entry_points_default_to_the_card():
     """``SpartaEngine``, ``models.init`` and ``launch.serve`` left at their
     default device raise without a card; the serving modules load no JAX."""

@@ -268,6 +268,34 @@ def test_clean_run_leaves_no_blob_and_matches_oracle(tmp_path):
     assert (tmp_path / blob).exists()
 
 
+@pytest.mark.parametrize("engine", ENGINES)
+def test_a_run_with_no_checkpoint_keeps_its_results_on_the_device(tmp_path, engine,
+                                                                   monkeypatch):
+    """With no checkpoint directory the chunks' outputs stay where the
+    stream put them (tensors on the data's device for the TLB and system
+    sweeps, numpy for the timeline's) and the trace is never digested; the
+    result is the oracle's."""
+    run, _, oracle, _, chunk, _ = _engine(engine)
+    digested = []
+    real = orch._sha256_arrays
+    monkeypatch.setattr(orch, "_sha256_arrays", lambda *a: digested.append(1) or real(*a))
+    outs, meta = run(SweepRunConfig(chunk_accesses=chunk))
+    _assert_bits(outs, oracle)
+    assert meta["chunks_committed"] == 4 and meta["checkpoint"] is None
+    assert not digested and not list(tmp_path.iterdir())
+    _, _ = run(_cfg(tmp_path, chunk_accesses=chunk))
+    assert digested    # a checkpointed run fingerprints its trace
+
+
+def test_unchecked_results_are_tensors_on_the_device():
+    addrs = np.random.default_rng(5).integers(0, 1 << 22, 2048).astype(np.int64)
+    specs = [TLBSweepSpec(TLBConfig(entries=64, ways=4), num_partitions=p) for p in (1, 8)]
+    res, _ = run_sweep_tlb(addrs, specs, kernel_mode="reference", block=BLOCK,
+                           run=SweepRunConfig(chunk_accesses=512), device="cpu")
+    assert isinstance(res.hits, torch.Tensor) and res.hits.device == torch.device("cpu")
+    assert res.hits.dtype == torch.bool
+
+
 def test_completed_checkpoint_short_circuits_rerun(tmp_path):
     run, _, oracle, total, chunk, _ = _engine("system")
     with pytest.raises(SimulatedKill):

@@ -175,13 +175,21 @@ def test_disabled_tracer_overhead_under_2_percent():
 
 
 def test_setup_logging_levels_and_idempotent():
-    log = telemetry.setup_logging(0)
-    n = len(log.handlers)
-    assert log.name == "repro_torch" and log.level == logging.INFO
-    assert telemetry.setup_logging(1).level == logging.DEBUG
-    assert telemetry.setup_logging(-1).level == logging.WARNING
-    assert len(log.handlers) == n
-    telemetry.setup_logging(0)
+    root = logging.getLogger("repro_torch")
+    saved = (root.level, list(root.handlers), root.propagate)
+    try:
+        log = telemetry.setup_logging(0)
+        n = len(log.handlers)
+        assert log.name == "repro_torch" and log.level == logging.INFO
+        assert telemetry.setup_logging(1).level == logging.DEBUG
+        assert telemetry.setup_logging(-1).level == logging.WARNING
+        assert len(log.handlers) == n
+    finally:
+        # The narration handler stops propagation; later tests in this
+        # process read the port's records with caplog, through the root.
+        root.setLevel(saved[0])
+        root.handlers[:] = saved[1]
+        root.propagate = saved[2]
 
 
 # ------------------------------------------------------- orchestrator threading
