@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Drives the port's three main paths through its hand-written CUDA kernels
-and fails (exit code 1, no result line) if anything is wrong.  The simulator's:
+Drives the port's main paths through its hand-written CUDA kernels and
+fails (exit code 1, no result line) if anything is wrong.  The simulator's:
 the Fig 10 joint-system sweep and the Fig 4 TLB sweep, the Fig 11 and Fig 5
 timeline figures, Figs 2, 7, 8, 9 and 6, all at full figure size, and
 their resumable streams,
@@ -16,7 +16,10 @@ and K6 (``paged_attention``, decode).  The state-space families': rwkv6-1.6b
 and zamba2-7b at their published widths (bf16 weights from a seeded
 generator), ``make_prefill_step`` and the recurrent decode steps, through K7
 (``rwkv6_scan``), K8 (``mamba2_scan``) and, for zamba2's shared attention,
-K5 and K6.  One JSON line per phase:
+K5 and K6.  The other serving families': qwen3-moe-30b-a3b at its
+published width and depth, whisper-medium and internvl2-2b, and the
+partition-explicit serve step of all six families, through K5 and K6.  One
+JSON line per phase:
 
 1. ``device``: the card, and its name and power limit from ``nvidia-smi``;
 2. ``build``: the kernels built for ``sm_90a`` from the sources in this
@@ -212,9 +215,45 @@ K5 and K6.  One JSON line per phase:
    at the float32 and at the tensor-core rate); the same for K7 at the
    one-prompt prefill's calls as a ``timing_site`` line, and
    ``timing_site`` for K5 and K6 at zamba2's calls (K6 held to its plain
-   version in float64, as in 9, with ``device_ms`` and its split plan).
+   version in float64, as in 9, with ``device_ms`` and its split plan);
+15. ``moe_exact``: qwen3-moe-30b-a3b's width (128 experts, top-8) cut to 2
+   layers in float32, 4 prompts of 64-256 tokens, 16 tokens each at batch 4
+   and a fork through the engine with the kernels and with the plain
+   versions: equal tokens;
+16. ``serve_moe``, a main path of its own (counters set to 0 just before and
+   read just after, as for every phase below): qwen3-moe-30b-a3b at full
+   width and depth (48 layers, 61.09 GB bf16) served with phase 8's traffic
+   (16 slots a partition: finished requests keep their pages), K5 48
+   times a prefill and K6 48 times a step, the logits' gap to the plain
+   versions reported; ``serve_moe_decode``: the decode step beside its byte
+   floor (every weight but the embedding table: the dropping formulation
+   reads every expert at every step) and the device's idle share
+   (``profile``); ``timing_site`` for K5 at its prefill and K6 at its decode;
+17. ``serve_whisper``: whisper-medium, ``encode`` over frames [4, 1,500,
+   1,024], ``precompute_cross_kv``, ``decode_train`` and 32 teacher-forced
+   ``decode_step``s (K6, and K5 with one query row against 1,500 keys)
+   against ``decode_train``'s logits: within 2e-4 at 2 + 2 layers in
+   float32, reported at full depth in bf16; ``timing_site`` for K5 at the
+   encoder and the cross-attention and K6 at the decode;
+18. ``serve_vlm``: internvl2-2b at full width and depth, ``vlm.forward`` over
+   256 patch embeddings and 768 text tokens at batch 4 against the plain
+   versions (within 5e-2 of the logits' scale), then the engine serving its
+   backbone text-only;
+19. ``serve_step``: ``make_serve_step`` for all six families at a decode
+   cell of batch 4 and 4,096 tokens (cut from decode_32k's 128 x 32,768)
+   over 16 partitions from ``input_specs``, the pools' prefix written
+   through ``write_kv_global``, 8 teacher-forced steps against each family's
+   single-partition decode path over the same state (tests/_serve_cases.py):
+   within 2e-4 (logits) and 1e-4 (pools, recurrent state) in float32 at 2
+   layers / 2 groups; the gap reported in bf16 (qwen3-14b 2 layers,
+   zamba2-7b 2 groups, the rest at full depth, qwen3-moe on phase 16's
+   model); K5 launched once a layer and step by the encdec step, nothing
+   else.
 
-Then the ``{"kernels": [...]}`` line (K1-K8), the ``nvidia-smi`` name and
+Each phase from 15 on starts from a freed card and reports its peak
+memory.  Then the ``{"kernels": [...]}`` line (K1-K8; K5's and K6's
+``launches`` are phase 8's, the run their row times, and
+``launches_by_path`` adds phases 15-19's), the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Needs one card;
 imports nothing of JAX or of the JAX package.
 """
@@ -372,6 +411,12 @@ def drive(torch):
 
     kernels += run_serving(torch)
     kernels += run_ssm(torch)
+    families = run_families(torch)
+    for row in kernels:       # ``launches`` stays phase 8's, the run the row times
+        if row["name"] in FAMILY_KERNELS:
+            k = row["name"]
+            row["launches_by_path"] = {"serve": row["launches"],
+                                       **{p: n[k] for p, n in families.items()}}
     return kernels, name, smi
 
 
@@ -2733,10 +2778,20 @@ FLASH_CHECKS = [
     (1, 4, 4, 75, 75, 256, False, "bfloat16"),
     (2, 8, 2, 150, 150, 128, True, "bfloat16"),
     (1, 40, 8, 4096, 4096, 128, True, "bfloat16"),    # qwen3-14b's heads, one long call
+    # The other serving families: qwen3-moe's group of 8; whisper-medium's
+    # encoder over 1,500 frames, its decode step's cross-attention (one query
+    # row: TMA reads past Tq fill zeros, those rows are never stored; in bf16
+    # and, for the float32 cut model, in float32) and its causal decoder.
+    (1, 32, 4, 300, 300, 128, True, "bfloat16"),
+    (4, 16, 16, 1500, 1500, 64, False, "bfloat16"),
+    (4, 16, 16, 1, 1500, 64, False, "bfloat16"),
+    (4, 16, 16, 1, 1500, 64, False, "float32"),
+    (4, 16, 16, 32, 32, 64, True, "bfloat16"),
 ]
 # (B, Hq, Hkv, D, page, pages, slots, q dtype): the JAX test shapes, then
 # qwen3-14b's serving shape, the other dense head dims and zamba2's shared
-# attention (head_dim 112, group 1, 64-token pages); every case has
+# attention (head_dim 112, group 1, 64-token pages), qwen3-moe's group of 8
+# and whisper's head_dim 64; every case has
 # unmapped pages inside a context, a sequence of ctx 0 and contexts that
 # end mid-page.
 PAGED_CHECKS = [
@@ -2750,6 +2805,8 @@ PAGED_CHECKS = [
     (3, 36, 4, 128, 32, 4, 32, "float32"),
     (4, 32, 32, 112, 64, 5, 32, "bfloat16"),          # zamba2: head_dim 112, group 1
     (4, 32, 32, 112, 64, 5, 32, "float32"),
+    (4, 32, 4, 128, 256, 9, 40, "bfloat16"),          # qwen3-moe: group 8
+    (4, 16, 16, 64, 256, 2, 8, "bfloat16"),           # whisper-medium: head_dim 64, group 1
 ]
 
 
@@ -2863,6 +2920,26 @@ def _prompts(cfg, lengths, seed: int):
     return [rng.integers(0, cfg.vocab, int(n)).tolist() for n in lengths]
 
 
+def _engine_tokens(torch, cfg, params, prompts, mode: str, new: int, fork: int, **kw):
+    """The engine's greedy tokens over ``prompts`` (then a fork of the first)
+    at ``kernel_mode=mode``, and the K5 / K6 launches it made."""
+    from repro_torch.serve.engine import SpartaEngine
+
+    before = _launches()
+    eng = SpartaEngine(cfg, params, kernel_mode=mode, **kw)
+    rids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    eng.run_to_completion()
+    eng.fork_request(rids[0], max_new_tokens=fork)
+    eng.run_to_completion()
+    eng.kv.check_invariants()
+    torch.cuda.synchronize()
+    out = {str(rid): r.generated for rid, r in eng.finished.items()}
+    launches = {k: v - before[k] for k, v in _launches().items()
+                if k in ("flash_attention", "paged_attention")}
+    del eng
+    return out, launches
+
+
 def run_serve_exact(torch) -> None:
     """Phase 7: qwen3-14b's width cut to 2 layers, float32: the same prompts
     through SpartaEngine with the kernels and with the plain versions give
@@ -2881,23 +2958,13 @@ def run_serve_exact(torch) -> None:
     prompts = _prompts(cfg, lengths, SERVE_SEED)
     out, launches = {}, {}
     for mode in ("cuda", "reference"):
-        before = _launches()
-        eng = SpartaEngine(cfg, params, num_partitions=4, slots_per_partition=8, max_batch=2,
-                           kernel_mode=mode)
-        rids = [eng.submit(p, max_new_tokens=8) for p in prompts]
-        eng.run_to_completion()
-        eng.fork_request(rids[0], max_new_tokens=4)
-        eng.run_to_completion()
-        eng.kv.check_invariants()
-        torch.cuda.synchronize()
-        out[mode] = {rid: r.generated for rid, r in eng.finished.items()}
-        launches[mode] = {k: v - before[k] for k, v in _launches().items()
-                          if k in ("flash_attention", "paged_attention")}
-        del eng
+        out[mode], launches[mode] = _engine_tokens(
+            torch, cfg, params, prompts, mode, 8, 4, num_partitions=4, slots_per_partition=8,
+            max_batch=2)
     equal = out["cuda"] == out["reference"]
     emit("serve_exact", arch=SERVE_ARCH, layers=EXACT_LAYERS, dtype="float32",
          prompt_tokens=list(lengths), requests=len(out["cuda"]), equal_tokens=equal,
-         tokens={str(k): v for k, v in out["cuda"].items()}, launches=launches,
+         tokens=out["cuda"], launches=launches,
          seconds=time.perf_counter() - t0, parameters=cfg.param_count())
     if not equal:
         fail("serve_exact: the engine's tokens through K5/K6 differ from the plain versions'")
@@ -2916,23 +2983,37 @@ def _rel_err(torch, got, want) -> float:
 def run_serve(torch):
     """Phase 8, the serving main path: qwen3-14b's full CONFIG (40 layers,
     bf16 weights, 256-token pages) served by SpartaEngine at its default
-    kernel mode, with every launch counter set to 0 just before and read just
-    after.  The first prefill and the first decode steps are also run through
-    the plain versions on identical inputs (the plain run of a decode step
-    goes first: it writes the new token's KV where the kernel run, which
-    reads the pool before that position, writes it again)."""
+    kernel mode (``_serve_main_path``)."""
     from repro_torch import models
     from repro_torch.configs import registry
-    from repro_torch.models import transformer as tfm
-    from repro_torch.serve.engine import SpartaEngine
 
     cfg = registry.get_config(SERVE_ARCH)
     t0 = time.perf_counter()
     params = models.init(cfg, seed=SERVE_SEED, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    eng, rec, launches, _ = _serve_main_path(torch, "serve", SERVE_ARCH, cfg, params, init_s,
+                                             slots=SERVE_SLOTS, gate_logits=True)
+    return eng, rec, launches
+
+
+def _serve_main_path(torch, phase: str, arch: str, cfg, params, init_s: float, *,
+                     slots: int, gate_logits: bool, **fields):
+    """One serving main path: SpartaEngine over ``params`` at its default
+    kernel mode, with every launch counter set to 0 just before and read just
+    after: 8 numpy-seeded prompts of 256-2,048 tokens, 32 new tokens each,
+    batch 4, 4 SPARTA partitions x ``slots`` slots, then a fork of a finished
+    request.  The first prefill and the first decode steps are also run
+    through the plain versions on identical inputs (the plain run of a decode
+    step goes first: it writes the new token's KV where the kernel run,
+    which reads the pool before that position, writes it again); with
+    ``gate_logits`` their gap must stay within ``LOGITS_TOL_BF16``, else it
+    is reported.  Returns (engine, record, launches, the phase line)."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.serve.engine import SpartaEngine
+
     eng = SpartaEngine(cfg, params, num_partitions=SERVE_PARTITIONS,
-                       slots_per_partition=SERVE_SLOTS, max_batch=SERVE_BATCH)
+                       slots_per_partition=slots, max_batch=SERVE_BATCH)
     import numpy as np
 
     lengths = np.random.default_rng(SERVE_SEED).integers(
@@ -2999,35 +3080,38 @@ def run_serve(torch):
     decode_tokens = sum(rec["decode_B"])
     worst = max((c[2] for c in rec["checks"]), default=float("inf"))
     weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    emit("serve", arch=SERVE_ARCH, layers=cfg.num_layers, d_model=cfg.d_model,
-         parameters=cfg.param_count(), weight_gb=weight_bytes / 1e9,
-         kv_pool_gb=2 * eng.k_pool.numel() * 4 / 1e9, page=cfg.kv_page_size,
-         partitions=SERVE_PARTITIONS, slots_per_partition=SERVE_SLOTS, max_batch=SERVE_BATCH,
-         requests=len(rids), prompt_tokens=[int(x) for x in lengths],
-         new_tokens=SERVE_NEW_TOKENS, fork_new_tokens=SERVE_FORK_TOKENS,
-         finished=len(eng.finished), token_counts_ok=counts == want_counts,
-         invariants_after_run=True, invariants_after_fork=True,
-         init_s=init_s, serve_s=serve_s, prefill_s=prefill_s, prefill_calls=len(rec["prefill_s"]),
-         prefill_tok_per_s=sum(rec["prefill_T"]) / prefill_s, decode_s=decode_s,
-         decode_steps=len(rec["decode_s"]), decode_steps_before_fork=n_decode_before_fork,
-         decode_tokens=decode_tokens, decode_tok_per_s=decode_tokens / decode_s,
-         decode_step_ms_mean=decode_s / len(rec["decode_s"]) * 1e3,
-         decode_step_ms_min=min(rec["decode_s"]) * 1e3,
-         weights_read_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
-         logits_checks=[{"call": c[0], "size": c[1], "max_rel_err": c[2]} for c in rec["checks"]],
-         logits_tolerance=LOGITS_TOL_BF16,
-         peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches)
+    line = dict(
+        arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
+        parameters=cfg.param_count(), weight_gb=weight_bytes / 1e9,
+        kv_pool_gb=2 * eng.k_pool.numel() * 4 / 1e9, page=cfg.kv_page_size,
+        partitions=SERVE_PARTITIONS, slots_per_partition=slots, max_batch=SERVE_BATCH,
+        requests=len(rids), prompt_tokens=[int(x) for x in lengths],
+        new_tokens=SERVE_NEW_TOKENS, fork_new_tokens=SERVE_FORK_TOKENS,
+        finished=len(eng.finished), token_counts_ok=counts == want_counts,
+        invariants_after_run=True, invariants_after_fork=True,
+        init_s=init_s, serve_s=serve_s, prefill_s=prefill_s, prefill_calls=len(rec["prefill_s"]),
+        prefill_tok_per_s=sum(rec["prefill_T"]) / prefill_s, decode_s=decode_s,
+        decode_steps=len(rec["decode_s"]), decode_steps_before_fork=n_decode_before_fork,
+        decode_tokens=decode_tokens, decode_tok_per_s=decode_tokens / decode_s,
+        decode_step_ms_mean=decode_s / len(rec["decode_s"]) * 1e3,
+        decode_step_ms_min=min(rec["decode_s"]) * 1e3,
+        weights_read_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+        logits_checks=[{"call": c[0], "size": c[1], "max_rel_err": c[2]} for c in rec["checks"]],
+        logits_tolerance=LOGITS_TOL_BF16 if gate_logits else None,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=launches, **fields)
+    emit(phase, **line)
     if counts != want_counts:
-        fail(f"serve: token counts {counts}, expected {want_counts}")
-    if len(rec["checks"]) != 1 + SERVE_CHECKED_DECODES or worst > LOGITS_TOL_BF16:
-        fail(f"serve: logits through K5/K6 differ from the plain versions' by {worst} "
+        fail(f"{phase}: token counts {counts}, expected {want_counts}")
+    within = worst <= LOGITS_TOL_BF16 if gate_logits else worst < float("inf")  # NaN fails
+    if len(rec["checks"]) != 1 + SERVE_CHECKED_DECODES or not within:
+        fail(f"{phase}: logits through K5/K6 differ from the plain versions' by {worst} "
              f"of their scale (tolerance {LOGITS_TOL_BF16})")
     want_launches = {"flash_attention": cfg.num_layers * len(rec["prefill_s"]),
                      "paged_attention": cfg.num_layers * len(rec["decode_s"])}
     for k, n in want_launches.items():
         if launches[k] != n or n <= 0:
-            fail(f"serve: {k} launched {launches[k]} times, expected {n}")
-    return eng, rec, launches
+            fail(f"{phase}: {k} launched {launches[k]} times, expected {n}")
+    return eng, rec, launches, line
 
 
 def _paged_main_path_check(torch, op: str, call, kw: dict, **shape) -> float:
@@ -3199,7 +3283,7 @@ def time_attention(torch, eng, rec, launches, errs) -> list:
 PROFILE_STEPS = 3                  # decode steps under torch.profiler
 
 
-def profile_serving(torch, eng, rec) -> None:
+def profile_serving(torch, eng, rec, label: str = "") -> dict:
     """Phase 10: where a decode step's and a prefill's time goes, from
     ``torch.profiler`` (CUPTI) over the run's largest-batch decode step and
     its longest prompt, after the counted run: the device's busy time (the
@@ -3207,7 +3291,8 @@ def profile_serving(torch, eng, rec) -> None:
     of the wall time, and the kernels that take the most.  The profiled wall
     time is longer than the plain one (the tracer's own cost); the idle share
     is given against both (kernel durations do not change under the
-    tracer)."""
+    tracer).  ``label`` prefixes the lines' ``what``; returns the decode
+    step's line."""
     from repro_torch.models import transformer as tfm
 
     B = max(rec["decode_B"])
@@ -3215,23 +3300,42 @@ def profile_serving(torch, eng, rec) -> None:
     tokens = torch.zeros(B, dtype=torch.int32, device="cuda")
     T = max(rec["prefill_T"])
     prompt = torch.zeros((1, T), dtype=torch.int32, device="cuda")
-    profile_line(torch, "decode_step", PROFILE_STEPS, lambda: tfm.decode_step(
+    line = profile_line(torch, label + "decode_step", PROFILE_STEPS, lambda: tfm.decode_step(
         eng.params, tokens, eng.cfg, eng.k_pool, eng.v_pool, table, ctx),
         batch=B, tokens=int(ctx.sum()))
-    profile_line(torch, "prefill", 1, lambda: tfm.prefill_with_kv(eng.params, prompt, eng.cfg),
-                 batch=1, tokens=T)
+    profile_line(torch, label + "prefill", 1,
+                 lambda: tfm.prefill_with_kv(eng.params, prompt, eng.cfg), batch=1, tokens=T)
+    return line
+
+
+def host_syncs(torch, fn) -> int:
+    """How often one ``fn()`` makes the host wait for the card (PyTorch's
+    synchronising operations: ``.item()``, a copy to the host, ``bincount``,
+    ...), counted by ``torch.cuda.set_sync_debug_mode``'s warnings."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchronizing" in str(w.message) for w in caught)
 
 
 def profile_line(torch, what: str, n: int, fn, **fields) -> dict:
     """One ``profile`` line: the wall time of ``fn()`` (mean of ``n`` runs
     after a warm-up, host clock ending in a synchronise), the same under
     ``torch.profiler``, the device's busy time (the kernels' summed time; one
-    stream, so they do not overlap), its idle share of both wall times, and
-    the kernels that take the most.  Returns the line's fields."""
+    stream, so they do not overlap), its idle share of both wall times, the
+    kernels that take the most, and how often one run makes the host wait
+    for the card.  Returns the line's fields."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    syncs = host_syncs(torch, fn)                # doubles as the warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(n):
@@ -3253,7 +3357,7 @@ def profile_line(torch, what: str, n: int, fn, **fields) -> dict:
                 device_busy_ms=busy_ms,
                 device_idle_share=(1 - busy_ms / wall_ms) if busy_ms else None,
                 device_idle_share_profiled=(1 - busy_ms / prof_wall_ms) if busy_ms else None,
-                device_ops_per_run=sum(e.count for e in events) / n,
+                device_ops_per_run=sum(e.count for e in events) / n, host_syncs_per_run=syncs,
                 top=[{"name": e.key[:80], "ms": e.self_device_time_total / 1e3 / n,
                       "calls": e.count / n} for e in top])
     emit("profile", **line)
@@ -3995,6 +4099,664 @@ def run_ssm(torch) -> list:
     torch.cuda.empty_cache()
     emit("ssm_phases", seconds=time.perf_counter() - t0)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Phases 15-19: the other serving families (MoE, whisper, VLM) and the
+# partition-explicit serve step, through K5 and K6.
+# ---------------------------------------------------------------------------
+
+MOE_ARCH, WHISPER_ARCH, VLM_ARCH = "qwen3-moe-30b-a3b", "whisper-medium", "internvl2-2b"
+FAMILY_SEED = 23
+CUT_LAYERS = 2                     # the float32 exactness checks' depth
+MOE_EXACT_PROMPTS = (64, 256)      # 4 numpy-seeded prompt lengths, inclusive
+MOE_EXACT_NEW, MOE_EXACT_FORK = 16, 4
+# qwen3-moe's engine: finished requests keep their pages (a fork may continue
+# them), so the 8 prompts of serve's traffic and the fork hold 52 pages, at
+# most 14 in one partition: 16 slots a partition (a 3.22 GB float32 pool).
+MOE_SLOTS = 16
+WHISPER_BATCH, WHISPER_FRAMES, WHISPER_TOKENS = 4, 1500, 32
+WHISPER_EXACT_TOL = 2e-4           # max |decode - decode_train| of float32 logits
+VLM_BATCH, VLM_TEXT_TOKENS = 4, 768
+VLM_PROMPTS, VLM_NEW, VLM_FORK = (256, 1024), 16, 8
+# The serve step's decode cell, cut from decode_32k's batch 128 and 32,768
+# tokens to batch 4 and 4,096 (16 partitions of one 256-token page each).
+SERVE_STEP_CELL = dict(name="decode_4k", seq_len=4_096, global_batch=4, kind="decode")
+SERVE_STEP_PARTITIONS, SERVE_STEP_STEPS = 16, 8
+SERVE_STEP_TOL = {"logits": 2e-4, "state": 1e-4}   # float32, against the one-partition path
+SERVE_STEP_CUT = {"qwen3-14b": 2, "zamba2-7b": 6}  # bf16 depth: 2 layers; zamba2 2 groups
+
+
+def _serve_cases():
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _serve_cases
+
+    return _serve_cases
+
+
+def _phase_start(torch) -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_gb(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def _k5_recording(module, calls: list):
+    """Record the shapes of every ``flash_attention_cuda`` call (the call
+    goes through): (q shape, k shape, dtype, causal).  Tensors are not kept:
+    the cross-attention's KV alone would hold 18 GB."""
+    real = module.flash_attention_cuda
+
+    def record(q, k, v, *, causal=True, sm_scale=None):
+        calls.append((tuple(q.shape), tuple(k.shape), q.dtype, bool(causal)))
+        return real(q, k, v, causal=causal, sm_scale=sm_scale)
+
+    module.flash_attention_cuda = record
+    return lambda: setattr(module, "flash_attention_cuda", real)
+
+
+def _k5_work(q_shape, k_shape, elem: int, causal: bool):
+    """(bytes, FLOPs) of one K5 call: q, k, v read once and o written once;
+    QK^T and PV over the visible pairs (the decode-aligned causal mask),
+    2 FLOPs a MAC."""
+    B, Hq, Tq, D = q_shape
+    Hkv, Tk = k_shape[1], k_shape[2]
+    if causal:
+        pairs = sum(min(Tk, max(0, i + Tk - Tq + 1)) for i in range(Tq))
+    else:
+        pairs = Tq * Tk
+    return B * (2 * Hq * Tq + 2 * Hkv * Tk) * D * elem, 4 * B * Hq * D * pairs
+
+
+def _k5_site(torch, site: str, shape: str, calls: list) -> dict:
+    """A ``timing_site`` line for K5 at the recorded calls: seeded inputs of
+    each distinct shape (held against the plain version), every call timed
+    with CUDA events through the kernel, the plain version and
+    ``scaled_dot_product_attention`` (``is_causal`` as the site's), the
+    kernel's device time (``_device_ms``) and SDPA's held-stream events
+    (with one query row both are host-bound under plain events), the
+    bound at the bf16 tensor-core or float32 rate."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(FAMILY_SEED)
+    inputs, nbytes, flops, err = {}, 0, 0, 0.0
+    for qs, ks, dt, causal in calls:
+        key = (qs, ks, dt, causal)
+        if key not in inputs:
+            q = torch.randn(qs, generator=gen, device=dev, dtype=dt)
+            k, v = (torch.randn(ks, generator=gen, device=dev, dtype=dt) for _ in range(2))
+            inputs[key] = (q, k, v)
+            err = max(err, _compare_tol(
+                torch, f"flash_attention ({site})", "flash_attention",
+                [flash_attention_cuda(q, k, v, causal=causal).float()],
+                [flash_attention_ref(q, k, v, causal=causal).float()],
+                ATTN_TOL[str(dt).replace("torch.", "")], q=list(qs), k=list(ks), causal=causal))
+        b, f = _k5_work(qs, ks, torch.tensor([], dtype=dt).element_size(), causal)
+        nbytes, flops = nbytes + b, flops + f
+    seq = [(inputs[key], key[3]) for key in calls]
+    ms = _event_ms(torch, lambda: [flash_attention_cuda(*a, causal=c) for a, c in seq], reps=1)
+    name = "flash_wgmma_kernel" if calls[0][2] == torch.bfloat16 else "flash_fwd_kernel"
+    dev_ms = _device_ms(torch, lambda: [flash_attention_cuda(*a, causal=c) for a, c in seq],
+                        {name: len(seq)},
+                        [lambda a=a, c=c: flash_attention_cuda(*a, causal=c) for a, c in seq])
+    dev_ms.update(_device_time(dev_ms))
+    plain_ms = _once_ms(torch, lambda: [flash_attention_ref(*a, causal=c) for a, c in seq])
+    lib_ms = _event_ms(torch, lambda: [F.scaled_dot_product_attention(
+        *a, is_causal=c, enable_gqa=True) for a, c in seq], reps=1)
+    lib_held_ms = _held_ms(torch, [lambda a=a, c=c: F.scaled_dot_product_attention(
+        *a, is_causal=c, enable_gqa=True) for a, c in seq])
+    rate = BF16_FLOPS_PER_S if calls[0][2] == torch.bfloat16 else F32_FLOPS_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
+    line = dict(site=site, kernel="flash_attention", function="flash_attention_pallas",
+                replaces="src/repro/kernels/flash_attention/kernel.py:133", shape=shape,
+                launches=len(calls), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=lib_ms,
+                library="torch.nn.functional.scaled_dot_product_attention(is_causal="
+                        f"{calls[0][3]}, enable_gqa=True)",
+                library_device_ms_events=lib_held_ms, bytes=nbytes, operations=flops,
+                tflops=flops / ms / 1e9,
+                device_tflops=flops / dev_ms["device_time_ms"] / 1e9, **dev_ms,
+                distinct_shapes=len(inputs), **_k5_design(torch, calls[0][0][3]))
+    emit("timing_site", **line)
+    return line
+
+
+def _k6_site(torch, site: str, shape: str, calls: list) -> dict:
+    """A ``timing_site`` line for K6 at the recorded main-path calls (the
+    arguments of ``paged_attention_cuda``): two held to the plain version
+    in float64 (the middle and last: the first step's
+    contexts can be empty, where only the -1e30 sentinel of m differs
+    between float32 and float64), CUDA-event and profiler time, the plain
+    version's time, the bound (bytes over 3.35 TB/s or FLOPs at the float32
+    rate) and the split plans."""
+    from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+
+    nbytes = flops = 0
+    for q, kp, _, table, ctx in calls:
+        B, Hq, D = q.shape
+        Hkv, tokens = kp.shape[2], int(ctx.sum())
+        nbytes += (2 * tokens * Hkv * D * 4 + B * Hq * D * q.element_size() + table.numel() * 4
+                   + B * 4 + B * Hq * (D + 2) * 4)
+        flops += 4 * tokens * Hq * D
+    err = 0.0
+    for c in (calls[len(calls) // 2], calls[-1]):   # the first step's contexts are empty
+        err = max(err, _paged_main_path_check(torch, f"paged_attention_partial ({site})", c, {},
+                                              ctx=c[4].tolist()))
+    ms = _event_ms(torch, lambda: [paged_attention_cuda(*c) for c in calls], reps=1)
+    dev_ms = _device_ms(torch, lambda: [paged_attention_cuda(*c) for c in calls],
+                        _expect_k6(calls), [lambda c=c: paged_attention_cuda(*c) for c in calls])
+    dev_ms.update(_device_time(dev_ms))
+    plain_ms = _once_ms(torch, lambda: [paged_attention_ref(*c, return_residuals=True)
+                                        for c in calls])
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    line = dict(site=site, kernel="paged_attention", function="paged_attention_pallas",
+                replaces="src/repro/kernels/paged_attention/kernel.py:146", shape=shape,
+                launches=len(calls), max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None,
+                bytes=nbytes, operations=flops, gb_per_s=nbytes / ms / 1e6, **dev_ms,
+                split_plans=_split_plans(torch, calls))
+    emit("timing_site", **line)
+    return line
+
+
+def run_moe_exact(torch) -> dict:
+    """Phase 15, ``moe_exact``: qwen3-moe-30b-a3b's width (128 experts,
+    top-8) cut to 2 layers, float32: 4 numpy-seeded prompts of 64-256 tokens,
+    16 greedy tokens each at batch 4, then a fork, through SpartaEngine with
+    the kernels and with the plain versions: equal tokens.  Then the serve
+    step's float32 check on the same model.  Returns the main paths'
+    launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import models
+    from repro_torch.configs import registry
+
+    _phase_start(torch)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(registry.get_config(MOE_ARCH), num_layers=CUT_LAYERS,
+                              dtype="float32")
+    params = models.init(cfg, seed=FAMILY_SEED, device="cuda")
+    lengths = np.random.default_rng(FAMILY_SEED).integers(
+        MOE_EXACT_PROMPTS[0], MOE_EXACT_PROMPTS[1] + 1, 4)
+    prompts = _prompts(cfg, lengths, FAMILY_SEED + 1)
+    kw = dict(num_partitions=SERVE_PARTITIONS, slots_per_partition=8, max_batch=4,
+              device="cuda")
+    out, launches = {}, {}
+    for m in _counters().values():
+        m.launches = 0
+    for mode in ("cuda", "reference"):
+        out[mode], launches[mode] = _engine_tokens(torch, cfg, params, prompts, mode,
+                                                   MOE_EXACT_NEW, MOE_EXACT_FORK, **kw)
+    equal = out["cuda"] == out["reference"]
+    emit("moe_exact", arch=MOE_ARCH, layers=CUT_LAYERS, dtype="float32",
+         experts=cfg.moe.num_experts, top_k=cfg.moe.top_k, prompt_tokens=lengths.tolist(),
+         requests=len(out["cuda"]), equal_tokens=equal, tokens=out["cuda"], launches=launches,
+         seconds=time.perf_counter() - t0, peak_gb=_peak_gb(torch))
+    if not equal:
+        fail("moe_exact: the engine's tokens through K5/K6 differ from the plain versions'")
+    if not (launches["cuda"]["flash_attention"] == CUT_LAYERS * len(prompts)
+            and launches["cuda"]["paged_attention"] > 0
+            and not any(launches["reference"].values())):
+        fail(f"moe_exact: unexpected kernel launches {launches}")
+    step = serve_step_family(torch, MOE_ARCH, cfg, params, gated=True)
+    del params
+    torch.cuda.empty_cache()
+    return {k: launches["cuda"][k] + step.get(k, 0) for k in launches["cuda"]}
+
+
+def run_serve_moe(torch) -> dict:
+    """Phase 16, ``serve_moe``: qwen3-moe-30b-a3b at its published width and
+    depth (48 layers, 128 experts, top-8, bf16 weights from a seeded
+    generator on the card) through SpartaEngine, serve's traffic and checks
+    (``_serve_main_path``; the logits' gap to the plain versions is reported,
+    not gated: a routing decision near a tie may flip between the two, and
+    ``moe_exact`` holds the tokens exactly), the decode step's profile and
+    byte floor (the dropping formulation reads every expert's weights at
+    every step), K5 and K6 at their calls; then the serve step on the same
+    model.  Returns the main paths' launches."""
+    from repro_torch import models
+    from repro_torch.configs import registry
+    from repro_torch.kernels.flash_attention import ops as k5ops
+    from repro_torch.kernels.paged_attention import ops as k6ops
+
+    _phase_start(torch)
+    cfg = registry.get_config(MOE_ARCH)
+    t0 = time.perf_counter()
+    params = models.init(cfg, seed=FAMILY_SEED, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    E, D, Fe = cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert
+    expert_bytes = cfg.num_layers * E * 3 * D * Fe * 2
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    step_bytes = weight_bytes - params.embed.numel() * 2     # every weight but the embedding table
+    k5_calls, k6_calls = [], []
+    undo = [_k5_recording(k5ops, k5_calls), _recording(k6ops, "paged_attention_cuda", k6_calls)]
+    try:
+        eng, rec, launches, line = _serve_main_path(
+            torch, "serve_moe", MOE_ARCH, cfg, params, init_s, slots=MOE_SLOTS,
+            gate_logits=False, experts=E, top_k=cfg.moe.top_k,
+            expert_weight_gb=expert_bytes / 1e9, decode_step_bytes=step_bytes,
+            decode_step_floor_ms=step_bytes / HBM_BYTES_PER_S * 1e3)
+    finally:
+        for u in undo:
+            u()
+    prof = profile_serving(torch, eng, rec, label=f"{MOE_ARCH} ")
+    emit("serve_moe_decode", arch=MOE_ARCH, decode_step_ms_min=line["decode_step_ms_min"],
+         decode_step_ms_mean=line["decode_step_ms_mean"],
+         decode_step_floor_ms=step_bytes / HBM_BYTES_PER_S * 1e3,
+         expert_weight_gb=expert_bytes / 1e9, decode_step_gb=step_bytes / 1e9,
+         floor_share_of_min_step=step_bytes / HBM_BYTES_PER_S * 1e3 / line["decode_step_ms_min"],
+         device_idle_share=prof["device_idle_share"], device_busy_ms=prof["device_busy_ms"],
+         host_syncs_per_step=prof["host_syncs_per_run"])
+    k6_calls = [a for a, _ in k6_calls]
+    _k5_site(torch, "K5 qwen3-moe prefill",
+             f"{MOE_ARCH} prefill: {len(rec['prefill_T'])} prompts of {rec['prefill_T']} tokens "
+             f"x {cfg.num_layers} layers, Hq {cfg.num_heads}, Hkv {cfg.num_kv_heads}, "
+             f"D {cfg.head_dim}, bf16, causal", k5_calls)
+    _k6_site(torch, "K6 qwen3-moe decode",
+             f"{MOE_ARCH} decode: {len(rec['decode_s'])} steps x {cfg.num_layers} layers, "
+             f"batch {min(rec['decode_B'])}-{max(rec['decode_B'])}, f32 pool of "
+             f"{cfg.kv_page_size}-token pages, group 8, bf16 queries", k6_calls)
+    if launches["flash_attention"] != len(k5_calls) or launches["paged_attention"] != len(k6_calls):
+        fail(f"serve_moe: {launches} launches, {len(k5_calls)} / {len(k6_calls)} recorded")
+    del eng, rec, k6_calls
+    torch.cuda.empty_cache()
+    step = serve_step_family(torch, MOE_ARCH, cfg, params, gated=False)
+    emit("serve_moe_phase", arch=MOE_ARCH, seconds=time.perf_counter() - t0)
+    del params
+    torch.cuda.empty_cache()
+    return {k: launches[k] + step.get(k, 0) for k in ("flash_attention", "paged_attention")}
+
+
+def _whisper_decode(torch, cfg, params, frames, tokens, k5_calls=None, k6_calls=None) -> dict:
+    """``encode`` over ``frames``, ``precompute_cross_kv``, ``decode_train``
+    over ``tokens`` [B, T], and T teacher-forced ``decode_step``s over
+    float32 pools of one page a sequence: each step's logits against
+    ``decode_train``'s at its position.  The launches of the whole run, and
+    the kernels' calls recorded where lists are given."""
+    from repro_torch.kernels.flash_attention import ops as k5ops
+    from repro_torch.kernels.paged_attention import ops as k6ops
+    from repro_torch.models import whisper
+
+    B, T = tokens.shape
+    L, page = cfg.num_layers, cfg.kv_page_size
+    pages = -(-T // page)
+    before = _launches()
+    undo = []
+    if k5_calls is not None:
+        undo = [_k5_recording(k5ops, k5_calls),
+                _recording(k6ops, "paged_attention_cuda", k6_calls)]
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = whisper.encode(params, frames, cfg)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        ck, cv = whisper.precompute_cross_kv(params, enc, cfg)
+        want = whisper.decode_train(params, enc, tokens, cfg).float()
+        kp = torch.zeros((L, B * pages, page, cfg.num_kv_heads, cfg.head_dim),
+                         dtype=torch.float32, device="cuda")
+        vp = torch.zeros_like(kp)
+        table = torch.arange(B * pages, dtype=torch.int32, device="cuda").reshape(B, pages)
+        abs_err = rel_err = 0.0
+        agree, step_s = 0, []
+        for t in range(T):
+            ctx = torch.full((B,), t + 1, dtype=torch.int32, device="cuda")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits = whisper.decode_step(params, tokens[:, t], cfg, kp, vp, ck, cv, table, ctx)[0]
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t1)
+            w = want[:, t]
+            abs_err = max(abs_err, float((logits.float() - w).abs().max()))
+            rel_err = max(rel_err, _rel_err(torch, logits, w))
+            agree += int((logits.argmax(-1) == w.argmax(-1)).sum())
+    finally:
+        for u in undo:
+            u()
+    finite = bool(torch.isfinite(want).all()) and bool(torch.isfinite(enc).all())
+    return dict(encode_s=encode_s, decode_steps=T, decode_step_ms_mean=sum(step_s) / T * 1e3,
+                decode_step_ms_min=min(step_s) * 1e3, decode_vs_train_max_abs_err=abs_err,
+                decode_vs_train_max_rel_err=rel_err, greedy_agreement=agree / (B * T),
+                finite=finite, launches={k: v - before[k] for k, v in _launches().items()
+                                         if k in ("flash_attention", "paged_attention")})
+
+
+def run_serve_whisper(torch) -> dict:
+    """Phase 17, ``serve_whisper``: whisper-medium, frames [4, 1,500, 1,024]
+    and 32 tokens from a seeded generator: ``encode`` (K5, non-causal),
+    ``precompute_cross_kv``, ``decode_train`` and 32 teacher-forced
+    ``decode_step``s (K6 over the paged self-attention KV, K5 with one
+    query row against the 1,500 cross keys) against ``decode_train``'s
+    logits.  At 2 + 2 layers in float32 the two must agree within 2e-4
+    (tests/test_decode_consistency.py's bound for the dense path); at full
+    width and depth in bf16, with every launch counter set to 0 just before
+    and read just after, the gap is reported.  Each model then takes the
+    serve step.  Returns the main paths' launches."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import registry
+
+    _phase_start(torch)
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    full = registry.get_config(WHISPER_ARCH)
+    out = {}
+    for label, cfg in (("float32", dataclasses.replace(full, num_layers=CUT_LAYERS,
+                                                       encoder_layers=CUT_LAYERS,
+                                                       dtype="float32")),
+                       ("bfloat16", full)):
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(FAMILY_SEED)
+        params = models.init(cfg, seed=FAMILY_SEED, device=dev)
+        frames = torch.randn((WHISPER_BATCH, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                             device=dev).to(params.embed.dtype)
+        tokens = torch.randint(0, cfg.vocab, (WHISPER_BATCH, WHISPER_TOKENS), generator=gen,
+                               device=dev, dtype=torch.int32)
+        k5_calls, k6_calls = ([], []) if label == "bfloat16" else (None, None)
+        for m in _counters().values():
+            m.launches = 0
+        res = _whisper_decode(torch, cfg, params, frames, tokens, k5_calls, k6_calls)
+        L, T = cfg.num_layers, WHISPER_TOKENS
+        want_launches = {"flash_attention": cfg.encoder_layers + 2 * L + L * T,
+                         "paged_attention": L * T}
+        emit("serve_whisper", arch=WHISPER_ARCH, dtype=label, encoder_layers=cfg.encoder_layers,
+             decoder_layers=L, parameters=sum(p.numel() for p in params.parameters()),
+             weight_gb=sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9,
+             batch=WHISPER_BATCH, frames=WHISPER_FRAMES, tokens=T,
+             tolerance=WHISPER_EXACT_TOL if label == "float32" else None,
+             expected_launches=want_launches, peak_gb=_peak_gb(torch), **res)
+        if not res["finite"]:
+            fail(f"serve_whisper {label}: non-finite encoder output or logits")
+        if label == "float32" and not res["decode_vs_train_max_abs_err"] <= WHISPER_EXACT_TOL:
+            fail(f"serve_whisper: float32 decode differs from decode_train by "
+                 f"{res['decode_vs_train_max_abs_err']} (tolerance {WHISPER_EXACT_TOL})")
+        if res["launches"] != want_launches:
+            fail(f"serve_whisper {label}: launches {res['launches']}, expected {want_launches}")
+        if label == "bfloat16":
+            out = dict(res["launches"])
+            enc = [c for c in k5_calls if c[0][2] == WHISPER_FRAMES]
+            cross = [c for c in k5_calls if c[0][2] == 1]
+            _k5_site(torch, "K5 whisper encoder",
+                     f"{WHISPER_ARCH} encode: {len(enc)} calls [4, 16, 1500, 64] bf16, "
+                     f"non-causal, group 1", enc)
+            _k5_site(torch, "K5 whisper cross-attention decode",
+                     f"{WHISPER_ARCH} decode: {len(cross)} calls q [4, 16, 1, 64] against "
+                     f"k/v [4, 16, 1500, 64] bf16, non-causal", cross)
+            _k6_site(torch, "K6 whisper decode",
+                     f"{WHISPER_ARCH} decode: {T} steps x {L} layers, batch {WHISPER_BATCH}, "
+                     f"f32 pool of {cfg.kv_page_size}-token pages, head_dim 64, group 1, "
+                     f"bf16 queries", [a for a, _ in k6_calls])
+        step = serve_step_family(torch, WHISPER_ARCH, cfg, params, gated=label == "float32")
+        if label == "bfloat16":
+            out["flash_attention"] += step["flash_attention"]
+        del params, frames, k5_calls, k6_calls
+        torch.cuda.empty_cache()
+    emit("serve_whisper_phase", seconds=time.perf_counter() - t0)
+    return out
+
+
+def run_serve_vlm(torch) -> dict:
+    """Phase 18, ``serve_vlm``: internvl2-2b at its published width and depth
+    (bf16 weights from a seeded generator), with every launch counter set to
+    0 just before and read just after: ``vlm.forward`` over 256 patch
+    embeddings and 768 text tokens at batch 4 (K5 once a layer) against the
+    same call through the plain versions (within ``LOGITS_TOL_BF16`` of the
+    logits' scale), then SpartaEngine serving the backbone text-only (4
+    numpy-seeded prompts of 256-1,024 tokens, 16 new tokens each, a fork).
+    The full model then takes the serve step (bf16, reported), and the model
+    cut to 2 layers in float32 its exactness check.  Returns the main paths'
+    launches."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import models
+    from repro_torch.configs import registry
+    from repro_torch.models import vlm
+
+    _phase_start(torch)
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    cfg = registry.get_config(VLM_ARCH)
+    params = models.init(cfg, seed=FAMILY_SEED, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(FAMILY_SEED)
+    batch = {"patch_embeds": torch.randn((VLM_BATCH, cfg.num_image_tokens, cfg.d_model),
+                                         generator=gen, device=dev).to(torch.bfloat16),
+             "tokens": torch.randint(0, cfg.vocab, (VLM_BATCH, VLM_TEXT_TOKENS), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    for m in _counters().values():
+        m.launches = 0
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got, _ = vlm.forward(params, batch, cfg)
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t1
+    l_forward = _launches()
+    want, _ = vlm.forward(params, batch, cfg, kernel_mode="reference")
+    rel = _rel_err(torch, got, want)
+    lengths = np.random.default_rng(FAMILY_SEED).integers(VLM_PROMPTS[0], VLM_PROMPTS[1] + 1,
+                                                          4)
+    before = _launches()
+    t1 = time.perf_counter()
+    toks, l_engine = _engine_tokens(torch, cfg, params, _prompts(cfg, lengths, FAMILY_SEED + 1),
+                                    "auto", VLM_NEW, VLM_FORK, num_partitions=SERVE_PARTITIONS,
+                                    slots_per_partition=8, max_batch=4, device=dev)
+    engine_s = time.perf_counter() - t1
+    launches = _launches()
+    counts = sorted(len(v) for v in toks.values())
+    emit("serve_vlm", arch=VLM_ARCH, layers=cfg.num_layers,
+         parameters=sum(p.numel() for p in params.parameters()),
+         weight_gb=sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9,
+         batch=VLM_BATCH, image_tokens=cfg.num_image_tokens, text_tokens=VLM_TEXT_TOKENS,
+         forward_s=forward_s,
+         forward_tok_per_s=VLM_BATCH * (cfg.num_image_tokens + VLM_TEXT_TOKENS) / forward_s,
+         logits_max_rel_err=rel, logits_tolerance=LOGITS_TOL_BF16,
+         logits_finite=bool(torch.isfinite(got).all()), launches_forward=l_forward,
+         engine_prompt_tokens=lengths.tolist(), engine_new_tokens=VLM_NEW,
+         engine_token_counts=counts, engine_s=engine_s, launches_engine=l_engine,
+         launches=launches, peak_gb=_peak_gb(torch))
+    if not rel <= LOGITS_TOL_BF16 or not bool(torch.isfinite(got).all()):
+        fail(f"serve_vlm: vlm.forward through K5 differs from the plain versions' by {rel} of "
+             f"the logits' scale (tolerance {LOGITS_TOL_BF16})")
+    if l_forward["flash_attention"] != cfg.num_layers:
+        fail(f"serve_vlm: forward launched K5 {l_forward['flash_attention']} times")
+    if counts != sorted([VLM_NEW] * 4 + [VLM_FORK]) or l_engine["paged_attention"] <= 0 or \
+            l_engine["flash_attention"] != 4 * cfg.num_layers:
+        fail(f"serve_vlm: engine tokens {counts}, launches {l_engine}")
+    del got, want, batch
+    step = serve_step_family(torch, VLM_ARCH, cfg, params, gated=False)
+    del params
+    torch.cuda.empty_cache()
+    cut = dataclasses.replace(cfg, num_layers=CUT_LAYERS, dtype="float32")
+    params = models.init(cut, seed=FAMILY_SEED, device=dev)
+    serve_step_family(torch, VLM_ARCH, cut, params, gated=True)
+    del params
+    torch.cuda.empty_cache()
+    emit("serve_vlm_phase", seconds=time.perf_counter() - t0)
+    return {k: launches[k] + step.get(k, 0) for k in ("flash_attention", "paged_attention")}
+
+
+def serve_step_family(torch, arch: str, cfg, params, *, gated: bool) -> dict:
+    """One ``serve_step`` line: ``make_serve_step(cfg)`` at the phase's
+    decode cell (batch 4, 4,096 tokens, 16 partitions) from
+    ``input_specs``, its pools written with a numpy-seeded prefix of
+    3,072-4,088 tokens a sequence through ``write_kv_global``, then 8
+    teacher-forced decode steps, with every launch counter set to 0 just
+    before and read just after; the same steps through the family's
+    single-partition decode path over the same state (tests/_serve_cases.py).
+    ``gated`` (float32): logits within 2e-4 and the new pools and recurrent
+    state within 1e-4; else the gap is reported.  Returns the serve steps'
+    launches (K5 once a layer and step for encdec, nothing else)."""
+    import numpy as np
+
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.serve.serve_step import make_serve_step
+
+    sc = _serve_cases()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cell = ShapeConfig(**SERVE_STEP_CELL)
+    B, S, steps = cell.global_batch, cell.seq_len, SERVE_STEP_STEPS
+    gen = torch.Generator(device=dev).manual_seed(FAMILY_SEED)
+    specs = registry.input_specs(cfg, cell, num_partitions=SERVE_STEP_PARTITIONS)
+    ctx0 = torch.from_numpy(np.random.default_rng(FAMILY_SEED).integers(
+        S * 3 // 4, S - steps + 1, B).astype(np.int32)).to(dev)
+
+    def normal(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def integers(high, shape):
+        return torch.randint(0, high, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    inputs = sc.random_inputs(cfg, specs, ctx0 + 1, normal, integers)
+    if "k_pools" in inputs:
+        L, _, _, _, page, Hkv, hd = inputs["k_pools"].shape
+        for name in ("k_pools", "v_pools"):
+            inputs[name].zero_()
+            kv = normal((L, B, int(ctx0.max()), Hkv, hd)).to(inputs[name].dtype)
+            sc.write_prefix(inputs[name], inputs["tables"], kv, ctx0, page)
+            del kv
+    sp = sc.single_partition(inputs) if "k_pools" in inputs else {}
+    ref = {k: inputs[k].clone() for k in sc.recurrent_state(cfg)}
+    ref.update({k: inputs[k] for k in ("cross_k", "cross_v") if k in inputs})
+    # Ungated (bf16): the same single-partition steps through the plain
+    # versions too, the model's own sensitivity to attention arithmetic.
+    sp_plain = None if gated or not sp else sc.single_partition(inputs)
+    ref_plain = None if sp_plain is None else {k: v.clone() for k, v in ref.items()}
+    tokens = integers(cfg.vocab, (steps, B))
+    prep_s = time.perf_counter() - t0
+
+    step = make_serve_step(cfg)
+    for m in _counters().values():
+        m.launches = 0
+    logits, step_s = [], []
+    for s in range(steps):
+        inputs["tokens"], inputs["ctx_len"] = tokens[s], ctx0 + 1 + s
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, new = step(params, inputs)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        inputs.update(new)
+        logits.append(out.float())
+    launches = {k: v for k, v in _launches().items() if v}
+    abs_err = 0.0
+    agree, rel_errs, plain_errs, single = 0, [], [], []
+    for s in range(steps):
+        ref["tokens"], ref["ctx_len"] = tokens[s], ctx0 + 1 + s
+        want, new = sc.decode_single(cfg, params, sp, ref, kernel_mode="auto")
+        ref.update(new)
+        abs_err = max(abs_err, float((logits[s] - want.float()).abs().max()))
+        rel_errs.append(_rel_err(torch, logits[s], want))
+        agree += int((logits[s].argmax(-1) == want.argmax(-1)).sum())
+        if sp_plain is not None:
+            single.append(want.float())
+    rel_err = max(rel_errs)
+    if sp_plain is not None:
+        for s in range(steps):
+            ref_plain["tokens"], ref_plain["ctx_len"] = tokens[s], ctx0 + 1 + s
+            want, new = sc.decode_single(cfg, params, sp_plain, ref_plain,
+                                         kernel_mode="reference")
+            ref_plain.update(new)
+            plain_errs.append(_rel_err(torch, single[s], want))
+        del sp_plain, single
+    state_err = None
+    if gated:
+        state_err = 0.0
+        if sp:
+            got = sc.single_partition(inputs)
+            state_err = max(float((got[k] - sp[k]).abs().max()) for k in ("k_pools", "v_pools"))
+        for k in sc.recurrent_state(cfg):
+            state_err = max(state_err, float((inputs[k] - ref[k]).abs().max()))
+    L = cfg.num_layers
+    want_launches = {"flash_attention": L * steps} if cfg.family == "encdec" else {}
+    finite = all(bool(torch.isfinite(x).all()) for x in logits)
+    emit("serve_step", arch=arch, family=cfg.family, dtype=cfg.dtype, layers=L,
+         cell=SERVE_STEP_CELL, cut_from="decode_32k: batch 128, 32,768 tokens",
+         partitions=SERVE_STEP_PARTITIONS, prefix_tokens=ctx0.tolist(), steps=steps,
+         inputs={k: [list(v.shape), str(v.dtype).replace("torch.", "")]
+                 for k, v in specs.items()},
+         prepare_s=prep_s, step_ms_mean=sum(step_s) / steps * 1e3,
+         step_ms_min=min(step_s) * 1e3, vs_single_partition_max_abs_err=abs_err,
+         vs_single_partition_max_rel_err=rel_err, per_step_rel_err=rel_errs,
+         single_partition_k6_vs_plain_per_step_rel_err=plain_errs or None,
+         greedy_agreement=agree / (B * steps),
+         state_max_abs_err=state_err, gated=gated,
+         tolerance=SERVE_STEP_TOL if gated else None, finite=finite,
+         launches=launches, expected_launches=want_launches, peak_gb=_peak_gb(torch),
+         seconds=time.perf_counter() - t0)
+    if not finite:
+        fail(f"serve_step {arch} {cfg.dtype}: non-finite logits")
+    if gated and not (abs_err <= SERVE_STEP_TOL["logits"]
+                      and state_err <= SERVE_STEP_TOL["state"]):
+        fail(f"serve_step {arch}: logits differ from the single-partition path by {abs_err}, "
+             f"state by {state_err} (tolerance {SERVE_STEP_TOL})")
+    if launches != want_launches:
+        fail(f"serve_step {arch} {cfg.dtype}: launches {launches}, expected {want_launches}")
+    return {"flash_attention": launches.get("flash_attention", 0), "paged_attention": 0}
+
+
+def run_serve_steps(torch) -> dict:
+    """Phase 19, ``serve_step`` for the families not served above: qwen3-14b
+    (dense; bf16 cut to 2 layers), zamba2-7b (hybrid; bf16 cut to 2 groups)
+    and rwkv6-1.6b (ssm; bf16 at full depth), each also at 2 layers (2
+    groups) in float32 for the exactness check.  Returns their launches (no
+    kernel runs in these steps)."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import registry
+
+    _phase_start(torch)
+    t0 = time.perf_counter()
+    total = {"flash_attention": 0, "paged_attention": 0}
+    for arch in ("qwen3-14b", "zamba2-7b", "rwkv6-1.6b"):
+        full = registry.get_config(arch)
+        cut_layers = SERVE_STEP_CUT.get(arch, full.num_layers)
+        exact_layers = 6 if arch == "zamba2-7b" else CUT_LAYERS
+        for cfg, gated in ((dataclasses.replace(full, num_layers=exact_layers,
+                                                dtype="float32"), True),
+                           (dataclasses.replace(full, num_layers=cut_layers), False)):
+            params = models.init(cfg, seed=FAMILY_SEED, device="cuda")
+            got = serve_step_family(torch, arch, cfg, params, gated=gated)
+            total = {k: total[k] + got[k] for k in total}
+            del params
+            torch.cuda.empty_cache()
+    emit("serve_step_phase", seconds=time.perf_counter() - t0)
+    return total
+
+
+FAMILY_KERNELS = ("flash_attention", "paged_attention")
+
+
+def run_families(torch) -> dict:
+    """Phases 15-19; returns each phase's K5 and K6 launches on its main
+    path."""
+    t0 = time.perf_counter()
+    by_phase = {}
+    for name, fn in (("moe_exact", run_moe_exact), ("serve_moe", run_serve_moe),
+                     ("serve_whisper", run_serve_whisper), ("serve_vlm", run_serve_vlm),
+                     ("serve_step", run_serve_steps)):
+        by_phase[name] = fn(torch)
+    emit("family_phases", seconds=time.perf_counter() - t0, launches=by_phase)
+    return by_phase
+
 
 if __name__ == "__main__":
     sys.exit(main())

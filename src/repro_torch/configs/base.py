@@ -2,14 +2,14 @@
 
 Every architecture provides a module ``repro_torch.configs.<arch_id>``
 exporting ``CONFIG`` (the published dims) and ``smoke()`` (a reduced
-same-family config for CPU tests).  The dry-run shape cells of the JAX
-package (``ShapeConfig``, ``SHAPES``, ``cell_applicable``) belong to its
-lowering tools and are not part of the port.
+same-family config for CPU tests).  The shape cells (``ShapeConfig``,
+``SHAPES``, ``cell_applicable``) say which (arch x shape) cells are defined;
+``repro_torch.configs.registry.input_specs`` gives each cell's inputs.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,3 +92,34 @@ class ModelConfig:
         if self.encoder_layers:
             body += self.encoder_layers * (att + ffn) + L * att  # + cross-attn
         return emb + body
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode | long_decode
+
+    @property
+    def lowers_serve_step(self) -> bool:
+        return self.kind in ("decode", "long_decode")
+
+
+SHAPES: Tuple[ShapeConfig, ...] = (
+    ShapeConfig("train_4k", 4_096, 256, "train"),
+    ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    ShapeConfig("long_500k", 524_288, 1, "long_decode"),
+)
+
+SHAPES_BY_NAME = {s.name: s for s in SHAPES}
+
+
+def cell_applicable(model: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Is (arch x shape) a defined cell?  Returns (ok, reason-if-not):
+    long_500k needs sub-quadratic attention, so it runs for the SSM and
+    hybrid families only."""
+    if shape.kind == "long_decode" and not model.supports_long_context:
+        return False, "pure full-attention arch: 500k decode skipped per assignment"
+    return True, ""

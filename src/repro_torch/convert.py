@@ -74,13 +74,16 @@ def port_param_leaves(tree: dict) -> Iterator[Tuple[str, object]]:
     """``(port parameter name, (leaf, index or None))`` for each leaf of a
     JAX parameter pytree (nested dicts; leaves are arrays or anything with
     ``shape``).  The leaves the JAX package stacks are split: ``layers/...``
-    on a leading [L] axis (dense, rwkv6) becomes ``layers.i....`` with index
-    i, and zamba2's ``mamba/...`` on [G, per] becomes ``mamba.g.j....`` with
-    index (g, j)."""
+    on a leading [L] axis (dense, MoE, rwkv6) and whisper's
+    ``enc_layers/...`` and ``dec_layers/...`` become ``<stack>.i....`` with
+    index i, and zamba2's ``mamba/...`` on [G, per] becomes
+    ``mamba.g.j....`` with index (g, j).  MoE's stacked expert axis stays a
+    parameter axis."""
     for name, leaf in _flatten(tree):
-        if name.startswith("layers."):
+        stack = name.split(".", 1)[0]
+        if stack in ("layers", "enc_layers", "dec_layers"):
             for i in range(leaf.shape[0]):
-                yield f"layers.{i}.{name[len('layers.'):]}", (leaf, i)
+                yield f"{stack}.{i}.{name[len(stack) + 1:]}", (leaf, i)
         elif name.startswith("mamba."):
             for g in range(leaf.shape[0]):
                 for j in range(leaf.shape[1]):
@@ -97,8 +100,8 @@ def _tensor_of(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: dict, cfg, device: Device = "cuda"):
-    """The port's parameter module of ``cfg``'s family (dense, ssm or
-    hybrid) holding the JAX parameter pytree ``tree`` of numpy arrays, so
+    """The port's parameter module of ``cfg``'s family (any of the six)
+    holding the JAX parameter pytree ``tree`` of numpy arrays, so
     both packages compute the same function.  Every leaf must match the
     port's parameter of the same name in shape and dtype."""
     from repro_torch import models

@@ -1,7 +1,8 @@
 """Serving launcher: the SPARTA paged engine on a smoke config, on the card
-unless ``--device cpu``.
+unless ``--device cpu``; it serves the decoder-only families (dense, moe,
+and vlm's backbone on text).
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b \
       --requests 8 --max-new 16 [--device cpu]
 
 The arguments and defaults are those of the JAX launcher
@@ -36,8 +37,8 @@ def main(argv=None) -> int:
 
     dev = as_device(args.device)
     cfg = dataclasses.replace(registry.get_smoke(args.arch), dtype="float32", kv_page_size=8)
-    if cfg.family != "dense":
-        raise SystemExit(f"the port's engine serves the dense family, not {cfg.family}")
+    if cfg.family not in ("dense", "moe", "vlm"):
+        raise SystemExit(f"the engine serves decoder-only archs, not {cfg.family}")
     params = models.init(cfg, seed=0, device=dev)
     eng = SpartaEngine(cfg, params, num_partitions=args.partitions,
                        slots_per_partition=128, max_batch=args.max_batch, device=dev)

@@ -1,35 +1,28 @@
 """Model zoo, the port of ``src/repro/models/__init__.py``: family dispatch
 for init and forward.
 
-Ported families: ``dense`` (:mod:`repro_torch.models.transformer`), ``ssm``
-(:mod:`repro_torch.models.rwkv6`) and ``hybrid``
-(:mod:`repro_torch.models.zamba2`); every other family raises
-``NotImplementedError`` naming its roadmap item.
+Families: ``dense`` and ``moe`` (:mod:`repro_torch.models.transformer`),
+``ssm`` (:mod:`repro_torch.models.rwkv6`), ``hybrid``
+(:mod:`repro_torch.models.zamba2`), ``encdec``
+(:mod:`repro_torch.models.whisper`) and ``vlm``
+(:mod:`repro_torch.models.vlm`).
 """
 from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 
-_NOT_PORTED = {
-    "moe": "ROADMAP.md, section 1, item 9.2 (moe.py)",
-    "encdec": "ROADMAP.md, section 1, item 9.5 (whisper.py)",
-    "vlm": "ROADMAP.md, section 1, item 9.5 (vlm.py)",
-}
+# Families whose forward takes the token ids alone; the others take the batch.
+_TOKENS_ONLY = ("dense", "moe", "ssm", "hybrid")
 
 
 def get_family_module(cfg: ModelConfig):
-    if cfg.family == "dense":
-        from repro_torch.models import transformer
-        return transformer
-    if cfg.family == "ssm":
-        from repro_torch.models import rwkv6
-        return rwkv6
-    if cfg.family == "hybrid":
-        from repro_torch.models import zamba2
-        return zamba2
-    where = _NOT_PORTED.get(cfg.family, "no roadmap item")
-    raise NotImplementedError(f"model family {cfg.family!r} ({cfg.name}) is not ported "
-                              f"yet: {where}")
+    from repro_torch.models import rwkv6, transformer, vlm, whisper, zamba2
+    families = {"dense": transformer, "moe": transformer, "ssm": rwkv6, "hybrid": zamba2,
+                "encdec": whisper, "vlm": vlm}
+    if cfg.family not in families:
+        raise ValueError(f"unknown model family {cfg.family!r} ({cfg.name}); "
+                         f"expected one of {tuple(families)}")
+    return families[cfg.family]
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
@@ -37,11 +30,18 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda"):
 
 
 def forward(params, batch: dict, cfg: ModelConfig, **kw):
-    """batch: a dict with ``tokens`` [B, T] (every ported family takes
-    tokens); returns (logits, aux)."""
-    return get_family_module(cfg).forward(params, batch["tokens"], cfg, **kw)
+    """batch: a dict with the family's inputs (``tokens`` [B, T]; with
+    ``patch_embeds`` for vlm, ``frames`` for encdec); returns (logits,
+    aux)."""
+    mod = get_family_module(cfg)
+    if cfg.family in _TOKENS_ONLY:
+        return mod.forward(params, batch["tokens"], cfg, **kw)
+    return mod.forward(params, batch, cfg, **kw)
 
 
 def forward_hidden(params, batch: dict, cfg: ModelConfig, **kw):
     """(final-normed hidden, unembedding matrix, aux)."""
-    return get_family_module(cfg).forward_hidden(params, batch["tokens"], cfg, **kw)
+    mod = get_family_module(cfg)
+    if cfg.family in _TOKENS_ONLY:
+        return mod.forward_hidden(params, batch["tokens"], cfg, **kw)
+    return mod.forward_hidden(params, batch, cfg, **kw)

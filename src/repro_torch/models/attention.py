@@ -1,5 +1,6 @@
 """Attention block: GQA + RoPE + optional qk-norm, the port of
-``src/repro/models/attention.py`` (prefill through K5, decode through K6)."""
+``src/repro/models/attention.py`` (prefill and cross-attention through K5,
+decode through K6)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -9,6 +10,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_attention import paged_attention_partial
 from repro_torch.models.layers import Device, apply_rope, dense_init, param, rmsnorm
 
 
@@ -72,13 +74,47 @@ def attention_forward(
     *,
     causal: bool = True,
     positions: Optional[torch.Tensor] = None,
+    kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # cross-attn
     kernel_mode: str = "auto",
 ) -> torch.Tensor:
-    """Full-sequence attention (training / prefill)."""
+    """Full-sequence attention (training / prefill); with ``kv_override``
+    the keys and values [B, S, Hkv, hd] come from there (cross-attention)."""
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     q, k, v = _project_qkv(p, x, cfg, positions)
+    if kv_override is not None:
+        k, v = kv_override
     return attend(q, k, v, cfg, causal=causal, kernel_mode=kernel_mode) @ p.wo
+
+
+def cross_kv(p: Attention, enc: torch.Tensor, cfg: ModelConfig
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Encoder K/V [B, S, Hkv, hd] for cross-attention (no RoPE, as in
+    whisper's cross-attention)."""
+    B, S, _ = enc.shape
+    k = (enc @ p.wk).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = (enc @ p.wv).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    return k, v
+
+
+def attention_decode_paged(
+    p: Attention,
+    x: torch.Tensor,                # [B, 1, D] new token activations
+    cfg: ModelConfig,
+    k_pool: torch.Tensor,           # [slots, page, Hkv, hd] float32 (one partition's pool)
+    v_pool: torch.Tensor,
+    block_table: torch.Tensor,      # [B, pages_local] int32 local slots
+    ctx_len: torch.Tensor,          # [B] int32 total context (incl. the new token)
+    *,
+    kernel_mode: str = "auto",
+):
+    """One decode step against a SPARTA-paged KV pool partition through K6:
+    the attention residuals (acc, m, l) for the cross-partition merge, and
+    the new (k, v) row [B, Hkv, hd] for the owning partition to write."""
+    q, k, v = _project_qkv(p, x, cfg, (ctx_len - 1)[:, None])
+    acc, m, l = paged_attention_partial(q[:, 0], k_pool, v_pool, block_table, ctx_len,
+                                        kernel_mode=kernel_mode)
+    return acc, m, l, k[:, 0], v[:, 0]
 
 
 def finish_decode_attention(p: Attention, merged: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

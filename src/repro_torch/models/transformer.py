@@ -1,13 +1,16 @@
-"""Decoder-only transformer, dense family: the port of
+"""Decoder-only transformer (dense + MoE): the port of
 ``src/repro/models/transformer.py`` for stablelm-12b, qwen3-14b,
-starcoder2-7b, gemma-7b and the LM backbone of internvl2-2b.
+starcoder2-7b, gemma-7b, qwen3-moe-30b-a3b, dbrx-132b and the LM backbone of
+internvl2-2b.
 
 The parameters live in an ``nn.Module`` tree that keeps the JAX names
-(``embed``, ``layers[i].ln1/attn/ln2/mlp``, ``final_norm``, ``lm_head``) and
-the ``x @ w`` layout; the JAX package stacks the layers on a leading [L]
-axis and scans them, the port loops over an ``nn.ModuleList``.  The JAX
-package's sharding constraints are identities off a mesh and are left out;
-decode is single-device (one SPARTA partition, no cross-partition merge).
+(``embed``, ``layers[i].ln1/attn/ln2`` and ``mlp`` or, with ``cfg.moe``,
+``moe``, ``final_norm``, ``lm_head``) and the ``x @ w`` layout; the JAX
+package stacks the layers on a leading [L] axis and scans them, the port
+loops over an ``nn.ModuleList``.  The JAX package's sharding constraints are
+identities off a mesh and are left out; decode here is single-device (one
+SPARTA partition; the partition-explicit layout is
+:mod:`repro_torch.models.paged_global`).
 
 Entry points:
 * :func:`forward` / :func:`forward_hidden` — full-sequence logits / the
@@ -30,13 +33,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import as_device
 from repro_torch.kernels.paged_attention import merge_partials, paged_attention_partial
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     MLP, Device, Norm, apply_norm, dense_init, dtype_of, embed_init, generator, mlp_forward,
     param,
 )
-
-MOE_NOT_PORTED = ("the MoE layers are not ported yet (ROADMAP.md, section 1, "
-                  "item 9.2: moe.py for qwen3-moe-30b-a3b and dbrx-132b)")
 
 
 class Layer(nn.Module):
@@ -45,14 +46,15 @@ class Layer(nn.Module):
         self.ln1 = Norm(cfg.d_model, cfg.norm, device)
         self.attn = attn.attention_params(gen, cfg, dtype, device)
         self.ln2 = Norm(cfg.d_model, cfg.norm, device)
-        self.mlp = MLP(gen, cfg.d_model, cfg.d_ff, cfg.activation, dtype, device)
+        if cfg.moe is not None:
+            self.moe = moe_lib.moe_params(gen, cfg, dtype, device)
+        else:
+            self.mlp = MLP(gen, cfg.d_model, cfg.d_ff, cfg.activation, dtype, device)
 
 
 class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, gen: Optional[torch.Generator], device: Device):
         super().__init__()
-        if cfg.moe is not None:
-            raise NotImplementedError(MOE_NOT_PORTED)
         dtype = dtype_of(cfg.dtype)
         self.embed = param(embed_init(gen, cfg.vocab, cfg.d_model, dtype, device))
         self.layers = nn.ModuleList(Layer(gen, cfg, dtype, device)
@@ -69,11 +71,19 @@ def init(cfg: ModelConfig, *, seed: int = 0, device: Device = "cuda") -> Transfo
     return Transformer(cfg, generator(dev, seed), dev)
 
 
-def _block(cfg: ModelConfig, kernel_mode: str, x: torch.Tensor, lp: Layer) -> torch.Tensor:
+def ffn_forward(lp: Layer, h: torch.Tensor,
+                cfg: ModelConfig) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The layer's MLP or MoE block: (output, aux loss; None without MoE)."""
+    if cfg.moe is not None:
+        return moe_lib.moe_forward(lp.moe, h, cfg)
+    return mlp_forward(lp.mlp, h, cfg.activation), None
+
+
+def _block(cfg: ModelConfig, kernel_mode: str, x: torch.Tensor, lp: Layer):
     h = apply_norm(lp.ln1, x, cfg.norm)
     x = x + attn.attention_forward(lp.attn, h, cfg, causal=True, kernel_mode=kernel_mode)
-    h = apply_norm(lp.ln2, x, cfg.norm)
-    return x + mlp_forward(lp.mlp, h, cfg.activation)
+    y, aux = ffn_forward(lp, apply_norm(lp.ln2, x, cfg.norm), cfg)
+    return x + y, aux
 
 
 def embed_tokens(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -84,11 +94,17 @@ def embed_tokens(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor) ->
 
 
 def backbone(params: Transformer, x: torch.Tensor, cfg: ModelConfig, *,
-             kernel_mode: str = "auto") -> torch.Tensor:
-    """The layer stack over embeddings [B, T, D]."""
+             kernel_mode: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer stack over embeddings [B, T, D]: (hidden [B, T, D], summed
+    aux loss, a float32 scalar; 0 without MoE)."""
+    auxs = []
     for lp in params.layers:
-        x = _block(cfg, kernel_mode, x, lp)
-    return x
+        x, aux = _block(cfg, kernel_mode, x, lp)
+        if aux is not None:
+            auxs.append(aux)
+    if not auxs:
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, torch.stack(auxs).sum()
 
 
 def head_matrix(params: Transformer, cfg: ModelConfig) -> torch.Tensor:
@@ -101,17 +117,17 @@ def unembed(params: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Ten
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
             kernel_mode: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (logits [B, T, V], aux loss 0 — the dense family has none)."""
-    x = backbone(params, embed_tokens(params, cfg, tokens), cfg, kernel_mode=kernel_mode)
-    return unembed(params, cfg, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    """Returns (logits [B, T, V], summed MoE aux loss; 0 for the dense
+    family)."""
+    x, aux = backbone(params, embed_tokens(params, cfg, tokens), cfg, kernel_mode=kernel_mode)
+    return unembed(params, cfg, x), aux
 
 
 def forward_hidden(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
                    kernel_mode: str = "auto"):
-    """(final-normed hidden [B, T, D], unembedding matrix [D, V], aux loss 0)."""
-    x = backbone(params, embed_tokens(params, cfg, tokens), cfg, kernel_mode=kernel_mode)
-    return (apply_norm(params.final_norm, x, cfg.norm), head_matrix(params, cfg),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    """(final-normed hidden [B, T, D], unembedding matrix [D, V], aux loss)."""
+    x, aux = backbone(params, embed_tokens(params, cfg, tokens), cfg, kernel_mode=kernel_mode)
+    return apply_norm(params.final_norm, x, cfg.norm), head_matrix(params, cfg), aux
 
 
 # ---------------------------------------------------------------------------
@@ -133,8 +149,7 @@ def prefill_with_kv(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig,
         h = apply_norm(lp.ln1, x, cfg.norm)
         q, k, v = attn._project_qkv(lp.attn, h, cfg, positions)
         x = x + attn.attend(q, k, v, cfg, causal=True, kernel_mode=kernel_mode) @ lp.attn.wo
-        h = apply_norm(lp.ln2, x, cfg.norm)
-        x = x + mlp_forward(lp.mlp, h, cfg.activation)
+        x = x + ffn_forward(lp, apply_norm(lp.ln2, x, cfg.norm), cfg)[0]
         ks.append(k)
         vs.append(v)
     logits = unembed(params, cfg, x[:, -1:, :])
@@ -176,8 +191,12 @@ def decode_block(
     ctx_len: torch.Tensor,     # [B] int32 context length incl. the new token
     *,
     kernel_mode: str = "auto",
+    skip_mlp: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One transformer layer of paged decode on one partition (P = 1)."""
+    """One transformer layer of paged decode on one partition (P = 1).
+    ``skip_mlp`` returns after the attention residual (the enc-dec decoder
+    splices cross-attention between self-attention and the MLP), so ``lp``
+    needs only ``ln1`` and ``attn`` then."""
     page = cfg.kv_page_size
     h = apply_norm(lp.ln1, x, cfg.norm)
     q_all, k_all, v_all = attn._project_qkv(lp.attn, h, cfg, (ctx_len - 1)[:, None])
@@ -208,9 +227,9 @@ def decode_block(
     merged = merge_partials(torch.stack([acc, tail_acc]), torch.stack([m, tail_m]),
                             torch.stack([l, tail_l]))           # [B, Hq, hd]
     x = x + attn.finish_decode_attention(lp.attn, merged, cfg)
-
-    h = apply_norm(lp.ln2, x, cfg.norm)
-    return x + mlp_forward(lp.mlp, h, cfg.activation), k_pool, v_pool
+    if skip_mlp:
+        return x, k_pool, v_pool
+    return x + ffn_forward(lp, apply_norm(lp.ln2, x, cfg.norm), cfg)[0], k_pool, v_pool
 
 
 def decode_step(

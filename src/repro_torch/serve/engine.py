@@ -13,6 +13,10 @@ Unlike the JAX engine, which rebuilds its pools functionally, this engine
 updates the pools in place: prefill scatters, copy-on-write copies and the
 decode step's new-token writes all index into the same two tensors.
 
+It serves the decoder-only families through
+:mod:`~repro_torch.models.transformer` alone: dense, moe, and vlm's
+backbone on text prompts (image prefixes go through ``vlm.forward``).
+
 Features: demand allocation (pages appear as sequences grow), prefix sharing
 via ``fork`` + copy-on-write on the shared tail page, continuous batching
 (requests join and leave the batch between steps).

@@ -415,6 +415,12 @@ _FLASH_CASES = [
     (1, 4, 4, 75, 75, 256, False, torch.bfloat16),
     (2, 8, 2, 150, 150, 128, True, torch.bfloat16),
     (1, 40, 8, 4096, 4096, 128, True, torch.bfloat16),    # qwen3-14b's heads, one long call
+    # whisper-medium (head_dim 64, group 1): the encoder's 1,500 frames, the
+    # decode step's cross-attention (one query row, TMA reads past Tq fill
+    # zeros) and the decoder's causal self-attention.
+    (4, 16, 16, 1500, 1500, 64, False, torch.bfloat16),
+    (4, 16, 16, 1, 1500, 64, False, torch.bfloat16),
+    (4, 16, 16, 32, 32, 64, True, torch.bfloat16),
 ]
 
 

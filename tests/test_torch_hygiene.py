@@ -145,6 +145,29 @@ def test_serving_entry_points_default_to_the_card():
     assert proc.returncode == 0 and proc.stdout.strip() == "[]", proc.stdout + proc.stderr
 
 
+def test_serving_family_modules_load_no_jax_and_default_to_the_card():
+    """The MoE, VLM and whisper families, the global-view paged attention,
+    the serve step and the registry's shape cells load no JAX; the families'
+    ``init`` left at its default device raises without a card."""
+    mods = ("repro_torch.models.moe", "repro_torch.models.vlm", "repro_torch.models.whisper",
+            "repro_torch.models.paged_global", "repro_torch.serve.serve_step",
+            "repro_torch.configs.registry")
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import sys, {', '.join(mods)}; "
+         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))"],
+        cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "[]", proc.stdout + proc.stderr
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device is valid")
+    from repro_torch import models
+    from repro_torch.configs import registry
+
+    for arch in ("qwen3-moe-30b-a3b", "internvl2-2b", "whisper-medium"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            models.init(registry.get_smoke(arch))
+
+
 def test_benchtime_measures_and_refuses_cpu_metadata():
     from repro_torch.core import benchtime
 

@@ -182,13 +182,24 @@ def test_full_width_parameter_shapes_equal_jax_on_meta(arch):
 @pytest.mark.parametrize("arch", [a for a in treg.ARCH_IDS
                                   if a not in DENSE + ["rwkv6-1.6b", "zamba2-7b"]])
 def test_other_families_raise_naming_the_roadmap(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        models.init(treg.get_smoke(arch), device="meta")
+    """The families that once raised (moe, vlm, encdec) are ported: each
+    builds through the family dispatch; only an unknown family raises."""
+    cfg = treg.get_smoke(arch)
+    model = models.init(cfg, device="meta")
+    assert models.get_family_module(cfg).init(cfg, device="meta").state_dict().keys() == \
+        model.state_dict().keys()
+    with pytest.raises(ValueError, match="unknown model family"):
+        models.init(dataclasses.replace(cfg, family="retrieval"), device="meta")
 
 
 def test_moe_config_raises_and_converter_refuses_mismatched_leaves():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttfm.init(treg.get_smoke("qwen3-moe-30b-a3b"), device="meta")
+    """A MoE config builds MoE layers (``moe`` in place of ``mlp``, the
+    experts stacked on a parameter axis), and the converter refuses a leaf
+    whose shape does not match the port's."""
+    cfg = treg.get_smoke("qwen3-moe-30b-a3b")
+    layer = ttfm.init(cfg, device="meta").layers[0]
+    assert not hasattr(layer, "mlp") and tuple(layer.moe.w_gate.shape) == (
+        cfg.moe.num_experts, cfg.d_model, cfg.moe.d_ff_expert)
     jcfg = jreg.get_smoke("qwen3-14b")
     tree = jax.tree_util.tree_map(np.asarray, jtfm.init(jax.random.PRNGKey(0), jcfg))
     tree["embed"] = tree["embed"][:, :8]
