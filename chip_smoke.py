@@ -18,8 +18,10 @@ generator), ``make_prefill_step`` and the recurrent decode steps, through K7
 (``rwkv6_scan``), K8 (``mamba2_scan``) and, for zamba2's shared attention,
 K5 and K6.  The other serving families': qwen3-moe-30b-a3b at its
 published width and depth, whisper-medium and internvl2-2b, and the
-partition-explicit serve step of all six families, through K5 and K6.  One
-JSON line per phase:
+partition-explicit serve step of all six families, through K5 and K6.  Then
+training, through no kernel: every family's train step on the card against
+the CPU's, and internvl2-2b trained at full width and depth with a
+checkpoint and a preempted, resumed run.  One JSON line per phase:
 
 1. ``device``: the card, and its name and power limit from ``nvidia-smi``;
 2. ``build``: the kernels built for ``sm_90a`` from the sources in this
@@ -248,7 +250,30 @@ JSON line per phase:
    layers / 2 groups; the gap reported in bf16 (qwen3-14b 2 layers,
    zamba2-7b 2 groups, the rest at full depth, qwen3-moe on phase 16's
    model); K5 launched once a layer and step by the encdec step, nothing
-   else.
+   else;
+20. ``train_exact``: training, where no kernel runs (the train step takes
+   the plain attention and scans, ``kernel_mode="reference"``, as the JAX
+   package's does; every phase below holds the kernels' launches in its
+   steps at 0): each family's smoke config in float32, 3 steps of
+   ``make_train_step`` with 2 microbatches on the card against the same
+   steps on the CPU (loss within 1e-5; step 1's gradient norm within 1e-4
+   and its moments within 1e-4 / 2e-4 of the leaf's scale; after step 3
+   the parameters within 1e-4, the moments within 1e-2 / 2e-2, steps 2-3's
+   gradient norms within 1e-3); the step at
+   ``kernel_mode="auto"`` raising the kernels' autograd refusal for dense
+   (K5), ssm (K7) and hybrid (K8); ``launch.train`` for 10 steps;
+21. ``train_resume``: internvl2-2b at full width cut to 2 layers in bf16, 6
+   steps of 8 x (256 patches + 2,048 tokens) in 2 microbatches through
+   ``run_training_loop`` (a checkpoint every 3), and the same run preempted
+   after step 3, restored with ``restore(template=...)`` and resumed: the
+   restored tensors and the resumed step-6 state bit-identical to the
+   saved and the uninterrupted ones, the manifest in the JAX package's
+   stacked layout;
+22. ``train_full``: internvl2-2b at full width and depth (1.70 B
+   parameters, bf16, float32 moments), the same traffic for 6 steps, one
+   17.0 GB checkpoint written, restored bit for bit and deleted; step
+   time, tokens/s, model FLOP/s and their share of the bf16 peak, peak
+   memory, and a profiled step.
 
 Each phase from 15 on starts from a freed card and reports its peak
 memory.  Then the ``{"kernels": [...]}`` line (K1-K8; K5's and K6's
@@ -262,6 +287,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import json
+import math
 import os
 import pathlib
 import re
@@ -412,6 +438,7 @@ def drive(torch):
     kernels += run_serving(torch)
     kernels += run_ssm(torch)
     families = run_families(torch)
+    run_training(torch)
     for row in kernels:       # ``launches`` stays phase 8's, the run the row times
         if row["name"] in FAMILY_KERNELS:
             k = row["name"]
@@ -3322,7 +3349,9 @@ def host_syncs(torch, fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchronizing" in str(w.message) for w in caught)
+    # Not "synchronizing" alone: the first set_sync_debug_mode of a process
+    # warns that the mode "does not yet detect all synchronizing operations".
+    return sum("called a synchronizing" in str(w.message) for w in caught)
 
 
 def profile_line(torch, what: str, n: int, fn, **fields) -> dict:
@@ -4756,6 +4785,454 @@ def run_families(torch) -> dict:
         by_phase[name] = fn(torch)
     emit("family_phases", seconds=time.perf_counter() - t0, launches=by_phase)
     return by_phase
+
+
+# ---------------------------------------------------------------------------
+# Phases 20-22: training.  No kernel is on this path: the train step runs the
+# plain attention and scans (``kernel_mode="reference"``), as the JAX
+# package's does, because the kernels have no backward pass and refuse
+# autograd.  Each phase holds the kernels' launches in its train steps at 0.
+# ---------------------------------------------------------------------------
+
+TRAIN_SEED = 31
+TRAIN_EXACT_ARCHS = ("qwen3-14b", "qwen3-moe-30b-a3b", "rwkv6-1.6b", "zamba2-7b",
+                     "whisper-medium", "internvl2-2b")      # one of each family
+TRAIN_EXACT_SEQ, TRAIN_EXACT_BATCH, TRAIN_EXACT_STEPS = 64, 4, 3
+# Card vs CPU, float32: the tolerances the CPU tests hold the port's steps
+# to the JAX package's (two float32 orders of the same sums).  Loss 1e-5
+# relative at every step.  Step 1 starts from equal parameters: its
+# gradient norm 1e-4 relative and its moments, the clipped gradient (m =
+# 0.1 g, v = 0.05 g^2), 1e-4 (m) and 2e-4 (v, a square) of each leaf's
+# scale, the gradients' tolerance.  After step 3 the parameters 1e-4
+# absolute (AdamW moves a weight by ~lr = 1e-3 a step whatever its
+# gradient's size, so an element whose gradient rounding dominates moves by
+# a share of lr either way).  Steps 2-3 start from parameters that differ
+# by that much, and the gradients follow as far as they are sensitive to
+# the parameters: their norms within 1e-3, the moments within 1e-2 / 2e-2
+# (rwkv6's bonus u, whose gradient runs through the first token's per-head
+# norm, drifted 1.5e-3 in the card test; a wrong operation is off by O(1)).
+TRAIN_EXACT_TOL = {"loss": 1e-5, "grad_norm_step1": 1e-4, "m_step1": 1e-4, "v_step1": 2e-4,
+                   "params_abs": 1e-4, "grad_norm": 1e-3, "m": 1e-2, "v": 2e-2}
+TRAIN_REFUSALS = {"qwen3-14b": "flash_attention", "rwkv6-1.6b": "rwkv6_scan",
+                  "zamba2-7b": "mamba2_scan"}
+TRAIN_ARCH = VLM_ARCH              # internvl2-2b: bf16 training state fits one card
+TRAIN_BATCH, TRAIN_TEXT_TOKENS, TRAIN_MICROBATCHES, TRAIN_STEPS = 8, 2048, 2, 6
+TRAIN_RESUME_LAYERS = 2
+TRAIN_CKPT = ROOT / "build" / "repro_torch" / "cache" / "chip_smoke_train"
+BF16_DENSE_PEAK = 989e12           # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
+
+
+def _zero_launches() -> None:
+    for m in _counters().values():
+        m.launches = 0
+
+
+def _state_leaves(params, opt) -> list:
+    """(name, tensor) of every parameter and both moments."""
+    leaves = [(f"params.{n}", p) for n, p in params.named_parameters()]
+    return leaves + [(f"{k}.{n}", t) for k in ("m", "v") for n, t in opt[k].items()]
+
+
+@contextlib.contextmanager
+def _recording_checkpointer():
+    """Every ``AsyncCheckpointer`` that ``run_training_loop`` makes inside
+    the block, for its ``records`` (host-copy and write seconds, bytes)."""
+    from repro_torch.checkpoint import checkpoint as ck
+
+    made, real = [], ck.AsyncCheckpointer
+
+    class Recording(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    ck.AsyncCheckpointer = Recording
+    try:
+        yield made
+    finally:
+        ck.AsyncCheckpointer = real
+
+
+def _train_gaps(want: list, got: list, m_want: list, m_got: list) -> dict:
+    """The card's (``got``) gaps to the CPU's (``want``) run: loss and
+    gradient norm relative (step 1's norm apart); for the (kind, name, tensor)
+    leaves, parameters absolute and moments over each leaf's scale, each
+    kind's largest with its leaf."""
+    gaps = {}
+    for i, (a, b) in enumerate(zip(m_got, m_want)):
+        for k, kind in (("loss", "loss"), ("grad_norm", "grad_norm_step1" if i == 0
+                                            else "grad_norm")):
+            gaps[kind] = max(gaps.get(kind, 0.0), abs(a[k] - b[k]) / max(abs(b[k]), 1e-30))
+    for (kind, n, w), (_, _, g) in zip(want, got):
+        w, g = w.detach().float(), g.detach().cpu().float()
+        err = (g - w).abs().max().item()
+        if kind != "params_abs":
+            err /= max(w.abs().max().item(), 1e-30)
+        if err >= gaps.get(kind, (0.0, ""))[0]:
+            gaps[kind] = (err, n)
+    return gaps
+
+
+def run_train_exact(torch) -> None:
+    """Phase 20, ``train_exact``: each family's smoke config in float32,
+    ``make_train_step(lr=1e-3, warmup_steps=1, microbatches=2)`` for 3 steps
+    on the card and the same 3 steps on the CPU (the steps the CPU tests
+    hold to the JAX package), from one seed and one ``batch_for_model``
+    stream, within ``TRAIN_EXACT_TOL`` (the moments after step 1 and after
+    step 3), no kernel launched.  rwkv6 is
+    held with a random bonus u (``rwkv6-1.6b/u``); at its initial u = 0 its
+    gradients are ill-conditioned (the first token's head output is 0,
+    where the per-head norm's derivative is 1000) and the gaps there are
+    reported.  Then the step at ``kernel_mode="auto"`` raises the kernels'
+    autograd refusal on the card for dense (K5), ssm (K7) and hybrid (K8),
+    and ``launch.train`` trains qwen3-14b's smoke config for 10 steps."""
+    import io
+    import shutil
+
+    from repro_torch import models
+    from repro_torch.checkpoint.checkpoint import latest_step
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, batch_for_model
+    from repro_torch.kernels.common import launch_tally
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.optimizer import OptimizerConfig, init_state
+    from repro_torch.train.train_step import make_train_step
+
+    _phase_start(torch)
+    t0 = time.perf_counter()
+    for case in TRAIN_EXACT_ARCHS + ("rwkv6-1.6b/u",):
+        arch, _, variant = case.partition("/")
+        cfg = registry.get_smoke(arch)
+        data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_EXACT_SEQ,
+                          global_batch=TRAIN_EXACT_BATCH)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            params = models.init(cfg, seed=TRAIN_SEED, device="cpu")
+            if variant == "u":
+                gen = torch.Generator().manual_seed(TRAIN_SEED)
+                for lp in params.layers:
+                    lp.tm.u.copy_(torch.randn(lp.tm.u.shape, generator=gen) * 0.5)
+            params = params.to(dev)
+            opt = init_state(params)
+            step = make_train_step(cfg, OptimizerConfig(lr=1e-3, warmup_steps=1),
+                                   microbatches=2)
+            metrics, leaves = [], []
+            _zero_launches()
+            with launch_tally() as tally:
+                for i in range(TRAIN_EXACT_STEPS):
+                    b = {k: torch.from_numpy(v).to(dev)
+                         for k, v in batch_for_model(data, cfg, i).items()}
+                    params, opt, m = step(params, opt, b)
+                    metrics.append({k: float(v) for k, v in m.items()})
+                    if i == 0:
+                        leaves += [(f"{k}_step1", n, t.clone()) for k in ("m", "v")
+                                   for n, t in opt[k].items()]
+            leaves += [("params_abs" if n.startswith("params.") else n.split(".")[0], n, t)
+                       for n, t in _state_leaves(params, opt)]
+            runs[dev] = (leaves, metrics, sum(_launches().values()) + sum(tally.values()))
+        (want, m_cpu, _), (got, m_card, launched) = runs["cpu"], runs["cuda"]
+        gaps = _train_gaps(want, got, m_cpu, m_card)
+        gated = case != "rwkv6-1.6b"
+        over = {k: v for k, v in gaps.items()
+                if (v[0] if isinstance(v, tuple) else v) > TRAIN_EXACT_TOL[k]}
+        emit("train_exact", arch=case, family=cfg.family, steps=TRAIN_EXACT_STEPS,
+             microbatches=2, batch=TRAIN_EXACT_BATCH, seq_len=TRAIN_EXACT_SEQ,
+             loss=[m["loss"] for m in m_card], grad_norm=[m["grad_norm"] for m in m_card],
+             leaves=len(want), gaps=gaps, tolerance=TRAIN_EXACT_TOL, gated=gated,
+             over_tolerance=over, launches=launched)
+        if gated and over:
+            fail(f"train_exact {case}: the card's train steps differ from the CPU's "
+                 f"beyond {TRAIN_EXACT_TOL}: {over}")
+        if launched:
+            fail(f"train_exact {case}: the train steps launched {launched} kernels")
+
+    refusals = {}
+    for arch, kernel in TRAIN_REFUSALS.items():
+        cfg = registry.get_smoke(arch)
+        params = models.init(cfg, seed=TRAIN_SEED, device="cuda")
+        data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_EXACT_SEQ, global_batch=2)
+        b = {k: torch.from_numpy(v).cuda() for k, v in batch_for_model(data, cfg, 0).items()}
+        try:
+            make_train_step(cfg, kernel_mode="auto")(params, init_state(params), b)
+            refusals[arch] = None
+        except RuntimeError as e:
+            refusals[arch] = str(e).split(":", 1)[0]
+        if refusals[arch] != kernel:
+            fail(f"train_exact: make_train_step(kernel_mode='auto') on {arch} gave "
+                 f"{refusals[arch]!r}, not {kernel}'s autograd refusal")
+
+    root = TRAIN_CKPT / "launch"
+    shutil.rmtree(root, ignore_errors=True)
+    out = io.StringIO()
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = launch_train.main(["--arch", "qwen3-14b", "--smoke", "--steps", "10",
+                                "--ckpt", str(root)])
+    launch_s = time.perf_counter() - t1
+    last = latest_step(root)
+    shutil.rmtree(root, ignore_errors=True)
+    emit("train_exact_phase", refusals=refusals, launch_train_rc=rc,
+         launch_train_latest_step=last, launch_train_s=launch_s,
+         launch_train_stdout=out.getvalue().splitlines(), seconds=time.perf_counter() - t0)
+    if rc != 0 or last != 10:
+        fail(f"train_exact: launch.train exited {rc} with latest step {last}, not 0 and 10")
+
+
+def _train_setup(torch, cfg):
+    """(batch_fn on the card, train step) for internvl2-2b's training
+    traffic: 8 sequences of 256 patch embeddings + 2,048 text tokens from
+    ``batch_for_model``, 2 microbatches."""
+    from repro_torch.data.pipeline import DataConfig, batch_for_model
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import make_train_step
+
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_TEXT_TOKENS, global_batch=TRAIN_BATCH)
+
+    def batch_fn(i):
+        return {k: torch.from_numpy(v).cuda(non_blocking=False)
+                for k, v in batch_for_model(data, cfg, i).items()}
+
+    step = make_train_step(cfg, OptimizerConfig(warmup_steps=1, total_steps=TRAIN_STEPS),
+                           microbatches=TRAIN_MICROBATCHES)
+    return batch_fn, step
+
+
+def _timed_metrics(torch, rows: list):
+    """An ``on_metrics`` that records each step's loss, gradient norm and
+    wall time (the host waits for the step's metrics)."""
+    last = [time.perf_counter()]
+
+    def on_metrics(step, m):
+        row = {"step": step, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "lr": float(m["lr"])}
+        now = time.perf_counter()
+        row["step_s"], last[0] = now - last[0], now
+        rows.append(row)
+
+    return on_metrics
+
+
+def _bitwise(torch, got: list, want: list) -> list:
+    """Names of the leaves of ``got`` that are not bit-identical to
+    ``want``'s, with their gap over the leaf's scale."""
+    bad = []
+    for (n, g), (_, w) in zip(got, want):
+        if not torch.equal(g.detach(), w.detach()):
+            bad.append((n, ((g.detach().float() - w.detach().float()).abs().max()
+                            / w.detach().float().abs().max().clamp_min(1e-30)).item()))
+    return bad
+
+
+def run_train_resume(torch) -> None:
+    """Phase 21, ``train_resume``: internvl2-2b at full width cut to 2 layers
+    in bf16, 6 steps through ``run_training_loop`` with a checkpoint every 3;
+    the same run preempted after step 3 (``PreemptionHandler(install=False)``
+    set from ``on_metrics``), restored with ``restore(template=...)`` into a
+    freshly made module and optimizer state, and run to step 6.  The
+    restored tensors must equal the saved ones bit for bit, and the resumed
+    parameters and moments at step 6 the uninterrupted run's; the manifest
+    holds the JAX package's layout."""
+    import dataclasses
+    import json as _json
+    import shutil
+
+    from repro_torch import models
+    from repro_torch.checkpoint.checkpoint import latest_step, restore, step_dir
+    from repro_torch.configs import registry
+    from repro_torch.kernels.common import launch_tally
+    from repro_torch.runtime.fault_tolerance import (
+        LoopConfig, PreemptionHandler, run_training_loop,
+    )
+    from repro_torch.train.optimizer import init_state
+
+    _phase_start(torch)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(registry.get_config(TRAIN_ARCH), num_layers=TRAIN_RESUME_LAYERS)
+    batch_fn, step = _train_setup(torch, cfg)
+    loop = LoopConfig(total_steps=TRAIN_STEPS, checkpoint_every=3)
+    roots = {k: TRAIN_CKPT / f"resume_{k}" for k in ("a", "b")}
+    for r in roots.values():
+        shutil.rmtree(r, ignore_errors=True)
+
+    def fresh(seed=TRAIN_SEED):
+        p = models.init(cfg, seed=seed, device="cuda")
+        return p, init_state(p)
+
+    rows_a, rows_b = [], []
+    _zero_launches()
+    with launch_tally() as tally, _recording_checkpointer() as made:
+        (pa, oa), n_a = run_training_loop(step, fresh(), batch_fn, roots["a"], loop,
+                                          on_metrics=_timed_metrics(torch, rows_a))
+        pre = PreemptionHandler(install=False)
+        timed = _timed_metrics(torch, rows_b)
+
+        def on_metrics(s, m):
+            timed(s, m)
+            pre.requested = s == 2
+
+        (pb, ob), n_b = run_training_loop(step, fresh(), batch_fn, roots["b"], loop,
+                                          preemption=pre, on_metrics=on_metrics)
+        saved = [(n, t.clone()) for n, t in _state_leaves(pb, ob)]
+        del pb, ob
+        params, opt = fresh(TRAIN_SEED + 1)
+        t1 = time.perf_counter()
+        state, start = restore(roots["b"], template={"params": params, "opt_state": opt})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t1
+        restored_bad = _bitwise(torch, _state_leaves(state["params"], state["opt_state"]),
+                                saved)
+        del saved
+        (pr, orr), n_r = run_training_loop(step, (state["params"], state["opt_state"]),
+                                           batch_fn, roots["b"], loop, start_step=start,
+                                           on_metrics=timed)
+    launched = sum(_launches().values()) + sum(tally.values())
+    resumed_bad = _bitwise(torch, _state_leaves(pr, orr), _state_leaves(pa, oa))
+    manifest = _json.loads((step_dir(roots["b"], 6) / "manifest.json").read_text())["leaves"]
+    wq = manifest.get("params::layers::attn::wq", {})
+    steps_saved = {k: latest_step(r) for k, r in roots.items()}
+    records = [r for c in made for r in c.records]
+    emit("train_resume", arch=TRAIN_ARCH, layers=cfg.num_layers, dtype=cfg.dtype,
+         parameters=sum(p.numel() for p in pa.parameters()), batch=TRAIN_BATCH,
+         image_tokens=cfg.num_image_tokens, text_tokens=TRAIN_TEXT_TOKENS,
+         microbatches=TRAIN_MICROBATCHES, stopped=[n_a, n_b, n_r], restored_step=start,
+         latest_steps=steps_saved, loss=[r["loss"] for r in rows_a],
+         step_s=[r["step_s"] for r in rows_a],
+         loss_resumed=[r["loss"] for r in rows_b], restore_s=restore_s,
+         restored_not_bit_identical=restored_bad, resumed_not_bit_identical=resumed_bad,
+         checkpoints=records, manifest_leaves=len(manifest),
+         manifest_wq=wq, launches=launched, peak_gb=_peak_gb(torch),
+         seconds=time.perf_counter() - t0)
+    for r in roots.values():
+        shutil.rmtree(r, ignore_errors=True)
+    if (n_a, n_b, n_r, start) != (6, 3, 6, 3) or steps_saved != {"a": 6, "b": 6}:
+        fail(f"train_resume: stopped at {(n_a, n_b, n_r)}, restored step {start}, "
+             f"latest {steps_saved}")
+    if restored_bad:
+        fail(f"train_resume: restored tensors differ from the saved ones: {restored_bad[:4]}")
+    if resumed_bad:
+        fail(f"train_resume: the resumed run's step-6 state differs from the uninterrupted "
+             f"run's: {resumed_bad[:4]}")
+    if wq.get("shape", [None])[0] != TRAIN_RESUME_LAYERS or wq.get("dtype") != "bfloat16":
+        fail(f"train_resume: the manifest's params::layers::attn::wq is {wq}")
+    if launched:
+        fail(f"train_resume: the train steps launched {launched} kernels")
+
+
+def _train_flops(cfg, params) -> dict:
+    """Model FLOPs of one train step: 6 x (the layers' and final norm's
+    parameters) x every position, 6 x D x V (the tied head) x the text
+    positions, and causal attention 6 x B x Hq x S^2 x hd a layer (the
+    forward's two matmuls over half the S x S scores, and twice that
+    backward).  The recomputed forward (remat) and the masked half of the
+    plain attention's scores are work the card does but not model FLOPs."""
+    S = cfg.num_image_tokens + TRAIN_TEXT_TOKENS
+    body = sum(p.numel() for n, p in params.named_parameters() if n != "embed")
+    dense = 6 * body * TRAIN_BATCH * S + 6 * cfg.d_model * cfg.vocab * TRAIN_BATCH \
+        * TRAIN_TEXT_TOKENS
+    attn = 6 * TRAIN_BATCH * cfg.num_heads * S * S * cfg.head_dim * cfg.num_layers
+    return {"dense": dense, "attention": attn, "total": dense + attn}
+
+
+def run_train_full(torch) -> None:
+    """Phase 22, ``train_full``: internvl2-2b at its published width and
+    depth (24 layers, 1.70 B parameters) in bf16, with float32 AdamW
+    moments: 6 steps through ``run_training_loop`` on 8 sequences of 256
+    patch embeddings + 2,048 text tokens in 2 microbatches, the kernels'
+    launches held at 0; one checkpoint at step 6 (keep 1) timed, restored
+    into a fresh module and optimizer state, held bit for bit and deleted.
+    Each step's wall time, loss and gradient norm, tokens/s, model FLOP/s
+    and its share of the dense bf16 peak, peak memory, and one profiled
+    step (``profile``).  Gated on finite losses and gradient norms, the
+    restore and the launches; whether the loss falls is reported."""
+    import shutil
+
+    from repro_torch import models
+    from repro_torch.checkpoint.checkpoint import restore
+    from repro_torch.configs import registry
+    from repro_torch.kernels.common import launch_tally
+    from repro_torch.runtime.fault_tolerance import LoopConfig, run_training_loop
+    from repro_torch.train.optimizer import init_state
+
+    _phase_start(torch)
+    t0 = time.perf_counter()
+    cfg = registry.get_config(TRAIN_ARCH)
+    root = TRAIN_CKPT / "full"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    disk_free_gb = shutil.disk_usage(root).free / 1e9
+    params = models.init(cfg, seed=TRAIN_SEED, device="cuda")
+    opt = init_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch_fn, step = _train_setup(torch, cfg)
+    rows = []
+    _zero_launches()
+    with launch_tally() as tally, _recording_checkpointer() as made:
+        (params, opt), stopped = run_training_loop(
+            step, (params, opt), batch_fn, root,
+            LoopConfig(total_steps=TRAIN_STEPS, checkpoint_every=TRAIN_STEPS, keep=1),
+            on_metrics=_timed_metrics(torch, rows))
+    launched = sum(_launches().values()) + sum(tally.values())
+    peak_gb = _peak_gb(torch)
+    records = [r for c in made for r in c.records]
+
+    # The checkpoint restored into a fresh module and optimizer state.
+    template = models.init(cfg, seed=TRAIN_SEED + 1, device="cuda")
+    t1 = time.perf_counter()
+    state, at = restore(root, template={"params": template, "opt_state": init_state(template)})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    restored_bad = _bitwise(torch, _state_leaves(state["params"], state["opt_state"]),
+                            _state_leaves(params, opt))
+    ckpt_bytes = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+    del state, template
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    flops = _train_flops(cfg, params)
+    warm = [r["step_s"] for r in rows[1:]]
+    step_s = sorted(warm)[len(warm) // 2] if warm else float("nan")
+    tokens = TRAIN_BATCH * (cfg.num_image_tokens + TRAIN_TEXT_TOKENS)
+    losses = [r["loss"] for r in rows]
+    finite = all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in rows)
+    emit("train_full", arch=TRAIN_ARCH, layers=cfg.num_layers, dtype=cfg.dtype,
+         parameters=sum(p.numel() for p in params.parameters()),
+         state_gb=sum(t.numel() * t.element_size() for _, t in _state_leaves(params, opt)) / 1e9,
+         batch=TRAIN_BATCH, image_tokens=cfg.num_image_tokens, text_tokens=TRAIN_TEXT_TOKENS,
+         microbatches=TRAIN_MICROBATCHES, steps=stopped, init_s=init_s, per_step=rows,
+         step_s_median_after_first=step_s,
+         text_tokens_per_s=TRAIN_BATCH * TRAIN_TEXT_TOKENS / step_s,
+         tokens_per_s=tokens / step_s, model_flops_per_step=flops,
+         model_flops_per_s=flops["total"] / step_s,
+         bf16_dense_peak_share=flops["total"] / step_s / BF16_DENSE_PEAK,
+         peak_gb=peak_gb, loss_falls=losses[-1] < losses[0], launches=launched)
+    emit("train_full_checkpoint", step=at, disk_free_gb_before=disk_free_gb,
+         bytes=ckpt_bytes, records=records, restore_s=restore_s,
+         restored_not_bit_identical=restored_bad)
+    if not finite or stopped != TRAIN_STEPS:
+        fail(f"train_full: steps {stopped}, losses {losses}, finite {finite}")
+    if restored_bad or at != TRAIN_STEPS:
+        fail(f"train_full: the step-{at} checkpoint restored with differences: "
+             f"{restored_bad[:4]}")
+    if launched:
+        fail(f"train_full: the train steps launched {launched} kernels")
+
+    b = batch_fn(0)
+    prof = profile_line(torch, "train_step", 1, lambda: step(params, opt, b),
+                        batch=TRAIN_BATCH, tokens=tokens)
+    del params, opt, b
+    torch.cuda.empty_cache()
+    emit("train_full_phase", seconds=time.perf_counter() - t0,
+         profile_device_idle_share=prof["device_idle_share"])
+
+
+def run_training(torch) -> None:
+    """Phases 20-22."""
+    t0 = time.perf_counter()
+    run_train_exact(torch)
+    run_train_resume(torch)
+    run_train_full(torch)
+    emit("training_phases", seconds=time.perf_counter() - t0)
 
 
 if __name__ == "__main__":

@@ -10,8 +10,24 @@ lease is a small JSON file that marks a scheduler shard as claimed by one
 worker, serialised by an ``flock`` on a sibling ``.lck`` file.
 
 The training state's pytree checkpoints (``save``, ``restore``,
-``restore_resharded``, ``AsyncCheckpointer``) are not ported yet: they come
-with the training step.
+``AsyncCheckpointer``; the port of the JAX module's lines 47-131 and
+385-423) keep the JAX package's directory layout, so either package
+restores the other's float32 checkpoints::
+
+    <root>/step_00000123.tmp-<nonce>/   (written, then renamed: the commit)
+        manifest.json                   {"step", "leaves": {key: {file, shape, dtype}}}
+        <leaf>.npy ...
+    <root>/step_00000123/
+
+Keys join the tree's path with ``::``.  A port parameter module, and a dict
+keyed by its dotted parameter names (the AdamW moments), are written in the
+JAX package's stacked layout (:func:`repro_torch.convert.jax_layout`:
+``layers::...`` on a leading [L] axis).  A bfloat16 leaf is written as the
+JAX package writes it, 2-byte records (``<V2``) with manifest dtype
+``"bfloat16"``, and read back by that dtype through a ``uint16`` view, with
+no ml_dtypes; the JAX package's own ``restore(template=...)`` cannot cast
+such a leaf (ROADMAP.md, section 3).  ``restore_resharded`` waits for the
+distributed slice.
 """
 from __future__ import annotations
 
@@ -21,11 +37,18 @@ import io
 import json
 import os
 import pathlib
+import queue
+import re
+import shutil
+import threading
 import time
 import uuid
-from typing import Dict, Iterator, Optional, Tuple
+import warnings
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
+from torch import nn
 
 try:  # POSIX advisory locks; absent on some platforms (file_lock degrades)
     import fcntl
@@ -45,6 +68,11 @@ __all__ = [
     "acquire_lease",
     "refresh_lease",
     "release_lease",
+    "step_dir",
+    "latest_step",
+    "save",
+    "restore",
+    "AsyncCheckpointer",
 ]
 
 BLOB_MAGIC = "repro-ckpt-v1"
@@ -276,3 +304,254 @@ def release_lease(path, owner: str) -> bool:
                 path.unlink()
             return True
         return False
+
+
+# ---------------------------------------------------------------------------
+# Pytree checkpoints of the training state.
+# ---------------------------------------------------------------------------
+
+_SEP = "::"
+_STEP_RE = re.compile(r"step_(\d+)")
+
+
+def _port_named(tree) -> bool:
+    """A dict keyed by a module's dotted parameter names (the moments)."""
+    return (isinstance(tree, dict) and bool(tree) and any("." in k for k in tree)
+            and all(isinstance(v, torch.Tensor) for v in tree.values()))
+
+
+def _host_tree(tree, *, copy: bool = True):
+    """``tree`` on the host in the JAX package's layout: a parameter
+    module or a dict keyed by its dotted names is stacked
+    (:func:`repro_torch.convert.jax_layout`), other dicts, lists and tuples
+    keep their structure, tensors become CPU tensors and anything else a
+    numpy array.  With ``copy`` every leaf owns its memory, so the caller
+    may update the originals in place afterwards."""
+    from repro_torch.convert import jax_layout
+
+    if isinstance(tree, nn.Module):
+        return jax_layout(dict(tree.named_parameters()))
+    if _port_named(tree):
+        return jax_layout(tree)
+    if isinstance(tree, dict):
+        return {k: _host_tree(v, copy=copy) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_tree(v, copy=copy) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=copy)
+    return np.array(tree) if copy else np.asarray(tree)
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    """{``::``-joined path: leaf} of a host tree (dict keys, list indices)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    flat = {}
+    for k, v in items:
+        flat.update(_flatten(v, f"{prefix}{_SEP}{k}" if prefix else str(k)))
+    return flat
+
+
+def _leaf_array(leaf) -> Tuple[np.ndarray, str]:
+    """(C-ordered array to write, manifest dtype); a bfloat16 leaf as its
+    ``uint16`` bits."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        arr = t.numpy()
+    else:
+        arr = np.ascontiguousarray(leaf) if np.ndim(leaf) else np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":      # ml_dtypes' bfloat16 from a numpy tree
+        return arr.view(np.uint16), "bfloat16"
+    return arr, str(arr.dtype)
+
+
+def _write_leaf(path: pathlib.Path, arr: np.ndarray, dtype: str) -> None:
+    """``np.save``; a bfloat16 leaf gets the header ``np.save`` writes for
+    ml_dtypes' bfloat16 (``'descr': '<V2'``), so the file is the JAX
+    package's byte for byte."""
+    if dtype != "bfloat16":
+        np.save(path, arr)
+        return
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, {"descr": "<V2", "fortran_order": False, "shape": arr.shape})
+        f.write(arr.tobytes() if arr.ndim == 0 else memoryview(arr).cast("B"))
+
+
+def _read_leaf(d: pathlib.Path, meta: dict, *, mmap: bool):
+    """One leaf as the manifest describes it: a numpy array, or for a
+    bfloat16 leaf a CPU ``torch.bfloat16`` tensor (numpy has no bf16)."""
+    arr = np.load(d / meta["file"], mmap_mode="r" if mmap else None, allow_pickle=False)
+    if meta["dtype"] != "bfloat16":
+        return arr
+    raw = arr.view(np.uint16)
+    with warnings.catch_warnings():   # a read-only memmap; it is only read
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.from_numpy(raw).view(torch.bfloat16)
+
+
+def step_dir(root, step: int) -> pathlib.Path:
+    return pathlib.Path(root) / f"step_{step:08d}"
+
+
+def _steps(root: pathlib.Path) -> List[int]:
+    return sorted(int(m.group(1)) for p in root.iterdir() if (m := _STEP_RE.fullmatch(p.name)))
+
+
+def latest_step(root) -> Optional[int]:
+    root = pathlib.Path(root)
+    if not root.exists():
+        return None
+    steps = _steps(root)
+    return steps[-1] if steps else None
+
+
+def save(root, step: int, tree, *, keep: int = 3) -> pathlib.Path:
+    """Write ``tree`` atomically as step ``step``; prune to the newest
+    ``keep`` steps.  Stale ``.tmp-*`` directories of interrupted writes are
+    swept first."""
+    root = pathlib.Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    for junk in root.glob("*.tmp-*"):
+        shutil.rmtree(junk, ignore_errors=True)
+
+    final = step_dir(root, step)
+    tmp = root / f"{final.name}.tmp-{uuid.uuid4().hex[:8]}"
+    tmp.mkdir()
+    manifest = {}
+    for key, leaf in _flatten(_host_tree(tree, copy=False)).items():
+        arr, dtype = _leaf_array(leaf)
+        fname = f"{abs(hash(key)) & 0xFFFFFFFF:08x}_{len(manifest)}.npy"
+        _write_leaf(tmp / fname, arr, dtype)
+        manifest[key] = {"file": fname, "shape": list(arr.shape), "dtype": dtype}
+    (tmp / "manifest.json").write_text(json.dumps({"step": step, "leaves": manifest}))
+    if final.exists():
+        shutil.rmtree(final)
+    os.replace(tmp, final)  # commit
+
+    for s in _steps(root)[:-keep] if keep else []:
+        shutil.rmtree(step_dir(root, s), ignore_errors=True)
+    return final
+
+
+def _fill_tensor(dst: torch.Tensor, src) -> None:
+    if not isinstance(src, torch.Tensor):
+        with warnings.catch_warnings():   # a read-only memmap; it is only read
+            warnings.simplefilter("ignore", UserWarning)
+            src = torch.from_numpy(np.asarray(src, order="C"))
+    if tuple(src.shape) != tuple(dst.shape):
+        raise ValueError(f"checkpoint leaf {tuple(src.shape)} does not fit {tuple(dst.shape)}")
+    dst.copy_(src)
+
+
+def _fill_named(named: Dict[str, torch.Tensor], flat: dict, prefix: str) -> None:
+    """Copy the stacked leaves under ``prefix`` into port-named tensors."""
+    from repro_torch.convert import stack_index
+
+    for name, dst in named.items():
+        leaf, idx = stack_index(name)
+        key = prefix + leaf.replace(".", _SEP)
+        if key not in flat:
+            raise KeyError(f"checkpoint has no leaf {key!r} (for {name})")
+        _fill_tensor(dst, flat[key][idx] if idx else flat[key])
+
+
+@torch.no_grad()
+def _fill(template, flat: dict, prefix: str = ""):
+    if isinstance(template, nn.Module):
+        _fill_named(dict(template.named_parameters()), flat, prefix)
+        return template
+    if _port_named(template):
+        _fill_named(template, flat, prefix)
+        return template
+    if isinstance(template, dict):
+        return {k: _fill(v, flat, f"{prefix}{k}{_SEP}") for k, v in template.items()}
+    if isinstance(template, (list, tuple)):
+        return type(template)(_fill(v, flat, f"{prefix}{i}{_SEP}")
+                              for i, v in enumerate(template))
+    key = prefix[:-len(_SEP)]
+    if isinstance(template, torch.Tensor):
+        _fill_tensor(template, flat[key])
+        return template
+    arr = flat[key]
+    if isinstance(arr, torch.Tensor):
+        arr = arr.float().numpy()
+    return np.array(arr).astype(np.asarray(template).dtype)
+
+
+def restore(root, step: Optional[int] = None, template: Any = None):
+    """Load step ``step`` (default: the latest) of the checkpoints under
+    ``root``.  Without a template: ``({key: leaf}, step)``, numpy arrays
+    keyed by ``::`` paths, a bfloat16 leaf as a CPU ``torch.bfloat16``
+    tensor.  With a template (a tree of port modules, moment dicts, tensors
+    or arrays): ``(template filled, step)``; every tensor and module of the
+    template is overwritten in place, on its own device and in its own
+    dtype, from the file's bytes."""
+    root = pathlib.Path(root)
+    if step is None:
+        step = latest_step(root)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {root}")
+    d = step_dir(root, step)
+    manifest = json.loads((d / "manifest.json").read_text())["leaves"]
+    flat = {k: _read_leaf(d, meta, mmap=template is not None) for k, meta in manifest.items()}
+    if template is None:
+        return flat, step
+    return _fill(template, flat), step
+
+
+class AsyncCheckpointer:
+    """Background-thread writer: ``submit`` copies the tree to the host and
+    returns, the thread writes it; ``wait`` joins outstanding writes (call
+    before exit / preemption).  ``records`` holds, per submitted step, the
+    host copy's and the write's seconds and the bytes written."""
+
+    def __init__(self, root, *, keep: int = 3):
+        self.root = root
+        self.keep = keep
+        self.records: List[dict] = []
+        self._q: "queue.Queue" = queue.Queue()
+        self._err: Optional[BaseException] = None
+        self._t = threading.Thread(target=self._worker, daemon=True)
+        self._t.start()
+
+    def _worker(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            step, tree, rec = item
+            try:
+                t0 = time.perf_counter()
+                save(self.root, step, tree, keep=self.keep)
+                rec["write_s"] = time.perf_counter() - t0
+            except BaseException as e:  # surfaced on wait()
+                self._err = e
+            finally:
+                self._q.task_done()
+
+    def submit(self, step: int, tree):
+        """Copy ``tree`` to the host (the next step updates the parameters
+        in place, so the copy is made before this returns), then queue it."""
+        t0 = time.perf_counter()
+        host = _host_tree(tree, copy=True)
+        rec = {"step": step, "host_copy_s": time.perf_counter() - t0,
+               "bytes": sum(_leaf_array(x)[0].nbytes for x in _flatten(host).values())}
+        self.records.append(rec)
+        self._q.put((step, host, rec))
+
+    def wait(self):
+        self._q.join()
+        if self._err is not None:
+            raise self._err
+
+    def close(self):
+        self.wait()
+        self._q.put(None)
+        self._t.join()

@@ -5,12 +5,15 @@ What crosses between the two packages is configuration (frozen dataclasses,
 passed as ``dataclasses.asdict`` of the JAX objects), the carried state of a
 sweep stream (its ``export_state()`` dict of numpy arrays), a model's
 parameter pytree as numpy arrays (``jax.tree_util.tree_map(np.asarray,
-params)``) and a recurrent model's decode state the same way.  Nothing here
-imports the JAX package.
+params)``), a recurrent model's decode state the same way, and a training
+state (parameters and AdamW moments) in both directions: the JAX package
+stacks layers on a leading axis, the port keeps one module a layer, and
+:func:`port_param_leaves` / :func:`jax_layout` map one layout onto the
+other.  Nothing here imports the JAX package.
 """
 from __future__ import annotations
 
-from typing import Iterator, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -90,6 +93,109 @@ def port_param_leaves(tree: dict) -> Iterator[Tuple[str, object]]:
                     yield f"mamba.{g}.{j}.{name[len('mamba.'):]}", (leaf, (g, j))
         else:
             yield name, (leaf, None)
+
+
+def stack_index(name: str) -> Tuple[str, Tuple[int, ...]]:
+    """(JAX leaf name, index into its stacked leaf) of a port parameter
+    name, the inverse of :func:`port_param_leaves` for one name:
+    ``layers.3.attn.wq`` -> (``layers.attn.wq``, (3,)); an unstacked
+    leaf's index is ()."""
+    parts = name.split(".")
+    if parts[0] in ("layers", "enc_layers", "dec_layers") and parts[1].isdigit():
+        return ".".join([parts[0]] + parts[2:]), (int(parts[1]),)
+    if parts[0] == "mamba" and parts[1].isdigit() and parts[2].isdigit():
+        return ".".join([parts[0]] + parts[3:]), (int(parts[1]), int(parts[2]))
+    return name, ()
+
+
+def jax_layout(named: Dict[str, torch.Tensor]) -> dict:
+    """The JAX package's nested parameter tree of ``named`` (port
+    parameter name -> tensor; a module's parameters or an AdamW moment
+    dict) as CPU tensors, the inverse of :func:`port_param_leaves`:
+    ``layers.i.x`` (and whisper's ``enc_layers`` / ``dec_layers``) stacked
+    on a leading [L] axis, zamba2's ``mamba.g.j.x`` on [G, per].  Every
+    slice is copied from its device straight into its place in the stacked
+    leaf, so the tree owns its memory."""
+    groups: Dict[str, list] = {}
+    for name, t in named.items():
+        leaf, idx = stack_index(name)
+        groups.setdefault(leaf, []).append((idx, t))
+    tree: dict = {}
+    for leaf, items in groups.items():
+        items.sort(key=lambda it: it[0])
+        idxs = [i for i, _ in items]
+        lead = tuple(max(i[d] for i in idxs) + 1 for d in range(len(idxs[0])))
+        if len(idxs) != int(np.prod(lead)) or len(set(idxs)) != len(idxs):
+            raise ValueError(f"{leaf}: the stacked indices {idxs} do not fill {lead}")
+        first = items[0][1]
+        out = torch.empty(lead + tuple(first.shape), dtype=first.dtype)
+        for idx, t in items:
+            out[idx].copy_(t.detach())
+        node = tree
+        *path, last = leaf.split(".")
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = out
+    return tree
+
+
+def _numpy_of(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor as a numpy array of the same dtype; bfloat16 as
+    ml_dtypes' bfloat16 (how JAX hands bf16 arrays to numpy)."""
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # only where bf16 leaves must leave torch as numpy
+
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_to_numpy(model, cfg) -> dict:
+    """The JAX parameter pytree of ``model`` (a port module of ``cfg``'s
+    family) as numpy arrays, stacked as the JAX package stacks it: the
+    inverse of :func:`params_from_numpy`."""
+    tree = jax_layout(dict(model.named_parameters()))
+    want = {name for name, _ in port_param_leaves(tree)}
+    have = set(_family_names(cfg))
+    if want != have:
+        raise ValueError(f"{cfg.name}: the module's parameters do not make the family's tree "
+                         f"(missing {sorted(have - want)[:5]}, extra {sorted(want - have)[:5]})")
+    return _map_tree(_numpy_of, tree)
+
+
+def _family_names(cfg) -> list:
+    """The parameter names of ``cfg``'s family module (on ``meta``)."""
+    from repro_torch import models
+
+    return [n for n, _ in models.init(cfg, device="meta").named_parameters()]
+
+
+def opt_state_to_numpy(state: dict) -> dict:
+    """``init_state``'s tree (``m`` and ``v`` keyed by port parameter
+    names) in the JAX package's layout, as numpy arrays: ``m`` and ``v``
+    stacked like the parameters, ``step`` an int32 0-d array."""
+    return {"m": _map_tree(_numpy_of, jax_layout(state["m"])),
+            "v": _map_tree(_numpy_of, jax_layout(state["v"])),
+            "step": np.asarray(state["step"].detach().cpu().numpy(), dtype=np.int32)}
+
+
+def opt_state_from_numpy(tree: dict, device: Device = "cuda") -> dict:
+    """A JAX ``init_state`` tree of numpy arrays (``m``, ``v`` and ``step``)
+    as the port's optimizer state on ``device``: the moments split per
+    layer and keyed by port parameter names."""
+    dev = as_device(device)
+
+    def split(moments: dict) -> dict:
+        return {name: _tensor_of(np.asarray(leaf if i is None else leaf[i]), dev)
+                for name, (leaf, i) in port_param_leaves(moments)}
+
+    return {"m": split(tree["m"]), "v": split(tree["v"]),
+            "step": torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32, device=dev)}
 
 
 def _tensor_of(a: np.ndarray, device: torch.device) -> torch.Tensor:

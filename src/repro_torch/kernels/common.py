@@ -18,6 +18,11 @@ The TLB sweep (:mod:`repro_torch.core.sweep`) accepts one extra mode,
 There is no fallback from the card to the CPU: a CUDA device on a machine
 without one raises.
 
+The kernels have no autograd rule (``ctypes`` launches), so an op whose
+kernel branch would take inputs that require a gradient while grad mode is
+on raises (:func:`refuse_autograd`) instead of returning a result that no
+gradient flows through; training runs ``kernel_mode="reference"``.
+
 Each kernel's wrapper counts its launches in its module's ``launches`` and
 in the calling thread's open :func:`launch_tally`, which is how the shard
 scheduler's workers (threads or processes) report what they launched.
@@ -61,6 +66,26 @@ def resolve_mode(
         raise ValueError(
             f"kernel_mode='cuda' needs data on a CUDA device, got device={str(dev)!r}")
     return kernel_mode
+
+
+def refuse_autograd(op: str, kernel_mode: str, device: Union[str, torch.device],
+                    *inputs) -> None:
+    """Raise ``RuntimeError`` if ``kernel_mode`` would take ``op`` to its
+    CUDA kernel (``"cuda"``, or ``"auto"`` with data on a CUDA device) while
+    grad mode is on and any tensor of ``inputs`` requires a gradient.
+    Called before the mode is resolved, so ``"cuda"`` on CPU tensors under
+    autograd raises this and not the device error."""
+    if kernel_mode == "reference" or not torch.is_grad_enabled():
+        return
+    if kernel_mode == "auto" and torch.device(device).type != "cuda":
+        return
+    if any(isinstance(t, torch.Tensor) and t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{op}: the CUDA kernel has no backward pass, and its inputs require a "
+            f"gradient (kernel_mode={kernel_mode!r} under autograd); the JAX package "
+            f"cannot differentiate its Pallas kernels either.  Train with "
+            f'kernel_mode="reference" (the default of make_train_step), or run the '
+            f"kernel under torch.no_grad()")
 
 
 _TALLY = threading.local()

@@ -6,7 +6,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import resolve_mode
+from repro_torch.kernels.common import refuse_autograd, resolve_mode
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -25,6 +25,7 @@ def flash_attention(
     """GQA attention with the decode-aligned causal mask; q's dtype out.
     ``reference`` runs the blocked plain version, ``cuda`` the kernel (whose
     inputs must be contiguous)."""
+    refuse_autograd("flash_attention", kernel_mode, q.device, q, k, v)
     mode = resolve_mode(kernel_mode, q.device)
     if mode == "reference":
         return flash_attention_ref(q, k, v, causal=causal, sm_scale=sm_scale)

@@ -6,7 +6,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.common import resolve_mode
+from repro_torch.kernels.common import refuse_autograd, resolve_mode
 from repro_torch.kernels.mamba2_scan.kernel import mamba2_scan_cuda
 from repro_torch.kernels.mamba2_scan.ref import mamba2_decode_step, mamba2_scan_ref
 
@@ -28,6 +28,7 @@ def mamba2_scan(
     ``reference`` runs the sequential plain version at any T; ``cuda`` runs
     K8 in chunks of ``min(chunk, T)`` and raises ``ValueError`` unless T is a
     multiple of it."""
+    refuse_autograd("mamba2_scan", kernel_mode, x.device, x, dt, A, Bm, C, D)
     mode = resolve_mode(kernel_mode, x.device)
     if mode == "reference":
         return mamba2_scan_ref(x, dt, A, Bm, C, D)

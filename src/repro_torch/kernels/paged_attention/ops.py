@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.common import resolve_mode
+from repro_torch.kernels.common import refuse_autograd, resolve_mode
 from repro_torch.kernels.paged_attention.kernel import paged_attention_cuda
 from repro_torch.kernels.paged_attention.ref import merge_partials, paged_attention_ref
 
@@ -30,6 +30,7 @@ def paged_attention_partial(
     kernel_mode: str = "auto",
 ):
     """Residuals (acc, m, l) over the pages mapped by ``block_table``."""
+    refuse_autograd("paged_attention_partial", kernel_mode, q.device, q, k_pool, v_pool)
     mode = resolve_mode(kernel_mode, q.device)
     if mode == "reference":
         return paged_attention_ref(q, k_pool, v_pool, block_table, ctx_len,
@@ -48,6 +49,7 @@ def paged_attention(
     kernel_mode: str = "auto",
 ) -> torch.Tensor:
     """Normalised decode attention [B, Hq, D] in q's dtype."""
+    refuse_autograd("paged_attention", kernel_mode, q.device, q, k_pool, v_pool)
     mode = resolve_mode(kernel_mode, q.device)
     if mode == "reference":
         return paged_attention_ref(q, k_pool, v_pool, block_table, ctx_len, sm_scale=sm_scale)

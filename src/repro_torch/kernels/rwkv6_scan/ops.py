@@ -6,7 +6,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.common import resolve_mode
+from repro_torch.kernels.common import refuse_autograd, resolve_mode
 from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
 from repro_torch.kernels.rwkv6_scan.ref import rwkv6_decode_step, rwkv6_scan_ref
 
@@ -27,6 +27,7 @@ def rwkv6_scan(
     ``reference`` runs the sequential plain version at any T; ``cuda`` runs
     K7 in chunks of ``min(chunk, T)`` and raises ``ValueError`` unless T is a
     multiple of it."""
+    refuse_autograd("rwkv6_scan", kernel_mode, r.device, r, k, v, w, u)
     mode = resolve_mode(kernel_mode, r.device)
     if mode == "reference":
         return rwkv6_scan_ref(r, k, v, w, u)

@@ -1,5 +1,5 @@
 """Model zoo, the port of ``src/repro/models/__init__.py``: family dispatch
-for init and forward.
+for init, forward and the loss.
 
 Families: ``dense`` and ``moe`` (:mod:`repro_torch.models.transformer`),
 ``ssm`` (:mod:`repro_torch.models.rwkv6`), ``hybrid``
@@ -8,6 +8,8 @@ Families: ``dense`` and ``moe`` (:mod:`repro_torch.models.transformer`),
 (:mod:`repro_torch.models.vlm`).
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ModelConfig
 
@@ -45,3 +47,15 @@ def forward_hidden(params, batch: dict, cfg: ModelConfig, **kw):
     if cfg.family in _TOKENS_ONLY:
         return mod.forward_hidden(params, batch["tokens"], cfg, **kw)
     return mod.forward_hidden(params, batch, cfg, **kw)
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig, *, ce_block: int = 512,
+            **kw) -> torch.Tensor:
+    """Next-token loss through the vocab-safe chunked cross-entropy, plus
+    the aux loss: the targets are ``batch["labels"]`` if the batch has them,
+    else its ``tokens``, shifted by one."""
+    from repro_torch.models.losses import chunked_cross_entropy
+
+    hidden, head, aux = forward_hidden(params, batch, cfg, **kw)
+    labels = batch["labels"] if "labels" in batch else batch["tokens"]
+    return chunked_cross_entropy(hidden[:, :-1], head, labels[:, 1:], block=ce_block) + aux

@@ -7,11 +7,12 @@ they allocate nothing.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 Device = Union[str, torch.device]
 
@@ -23,6 +24,23 @@ def dtype_of(name: str) -> torch.dtype:
 def param(x: torch.Tensor) -> nn.Parameter:
     """An inference parameter (no gradient)."""
     return nn.Parameter(x, requires_grad=False)
+
+
+def _needs_grad(args) -> bool:
+    return any(a.requires_grad for a in args if isinstance(a, torch.Tensor)) or any(
+        p.requires_grad for a in args if isinstance(a, nn.Module) for p in a.parameters())
+
+
+def remat_call(fn: Callable, *args, remat: bool):
+    """``fn(*args)``; when ``remat`` is true, grad mode is on and a tensor
+    or module among ``args`` requires a gradient, under
+    ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the JAX
+    package's ``jax.checkpoint``: the block keeps only its inputs for the
+    backward pass and recomputes the rest.  Otherwise (serving frozen
+    weights, or under ``torch.no_grad()``) it is a plain call."""
+    if remat and torch.is_grad_enabled() and _needs_grad(args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # -- initialisers -----------------------------------------------------------
@@ -134,3 +152,17 @@ def mlp_forward(p: MLP, x: torch.Tensor, activation: str) -> torch.Tensor:
     else:
         raise ValueError(activation)
     return h @ p.w_down
+
+
+# -- losses -----------------------------------------------------------------
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross entropy; logits [..., V] upcast to float32."""
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -26,7 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import as_device
 from repro_torch.kernels.rwkv6_scan import rwkv6_decode_step, rwkv6_scan
 from repro_torch.models.layers import (
-    Device, Norm, apply_norm, dense_init, dtype_of, embed_init, generator, param,
+    Device, Norm, apply_norm, dense_init, dtype_of, embed_init, generator, param, remat_call,
 )
 
 LORA_RANK = 64
@@ -159,19 +159,20 @@ def _block(lp: Layer, x: torch.Tensor, cfg: ModelConfig, kernel_mode: str) -> to
 
 
 def forward_hidden(params: RWKV6, tokens: torch.Tensor, cfg: ModelConfig, *,
-                   kernel_mode: str = "auto"):
-    """(final-normed hidden [B, T, D], lm_head [D, V], aux loss 0)."""
+                   kernel_mode: str = "auto", remat: bool = True):
+    """(final-normed hidden [B, T, D], lm_head [D, V], aux loss 0).
+    ``remat``: each layer is recomputed in the backward pass."""
     x = params.embed[tokens.long()]
     for lp in params.layers:
-        x = _block(lp, x, cfg, kernel_mode)
+        x = remat_call(_block, lp, x, cfg, kernel_mode, remat=remat)
     x = apply_norm(params.final_norm, x, cfg.norm)
     return x, params.lm_head, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def forward(params: RWKV6, tokens: torch.Tensor, cfg: ModelConfig, *,
-            kernel_mode: str = "auto"):
+            kernel_mode: str = "auto", remat: bool = True):
     """(logits [B, T, V], aux loss 0)."""
-    x, head, aux = forward_hidden(params, tokens, cfg, kernel_mode=kernel_mode)
+    x, head, aux = forward_hidden(params, tokens, cfg, kernel_mode=kernel_mode, remat=remat)
     return x @ head, aux
 
 

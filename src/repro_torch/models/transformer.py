@@ -36,7 +36,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (
     MLP, Device, Norm, apply_norm, dense_init, dtype_of, embed_init, generator, mlp_forward,
-    param,
+    param, remat_call,
 )
 
 
@@ -94,12 +94,13 @@ def embed_tokens(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor) ->
 
 
 def backbone(params: Transformer, x: torch.Tensor, cfg: ModelConfig, *,
-             kernel_mode: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+             kernel_mode: str = "auto", remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """The layer stack over embeddings [B, T, D]: (hidden [B, T, D], summed
-    aux loss, a float32 scalar; 0 without MoE)."""
+    aux loss, a float32 scalar; 0 without MoE).  ``remat``: each layer is
+    recomputed in the backward pass (:func:`layers.remat_call`)."""
     auxs = []
     for lp in params.layers:
-        x, aux = _block(cfg, kernel_mode, x, lp)
+        x, aux = remat_call(_block, cfg, kernel_mode, x, lp, remat=remat)
         if aux is not None:
             auxs.append(aux)
     if not auxs:
@@ -116,17 +117,19 @@ def unembed(params: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Ten
 
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
-            kernel_mode: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+            kernel_mode: str = "auto", remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (logits [B, T, V], summed MoE aux loss; 0 for the dense
     family)."""
-    x, aux = backbone(params, embed_tokens(params, cfg, tokens), cfg, kernel_mode=kernel_mode)
+    x, aux = backbone(params, embed_tokens(params, cfg, tokens), cfg, kernel_mode=kernel_mode,
+                      remat=remat)
     return unembed(params, cfg, x), aux
 
 
 def forward_hidden(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,
-                   kernel_mode: str = "auto"):
+                   kernel_mode: str = "auto", remat: bool = True):
     """(final-normed hidden [B, T, D], unembedding matrix [D, V], aux loss)."""
-    x, aux = backbone(params, embed_tokens(params, cfg, tokens), cfg, kernel_mode=kernel_mode)
+    x, aux = backbone(params, embed_tokens(params, cfg, tokens), cfg, kernel_mode=kernel_mode,
+                      remat=remat)
     return apply_norm(params.final_norm, x, cfg.norm), head_matrix(params, cfg), aux
 
 

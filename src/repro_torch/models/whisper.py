@@ -12,9 +12,9 @@ one query row.
 Parameters keep the JAX names: ``embed`` (tied to the output), ``dec_pos``,
 ``enc_layers[i].{ln1, attn, ln2, mlp}``, ``enc_norm``,
 ``dec_layers[i].{ln1, self_attn, ln_x, cross_attn, ln2, mlp}``, ``dec_norm``
-(the JAX package stacks the layers on a leading [L] axis).  ``remat`` is
-accepted and has no effect: nothing here keeps activations for a backward
-pass.
+(the JAX package stacks the layers on a leading [L] axis).  ``remat``
+recomputes each encoder and decoder layer in the backward pass, as the JAX
+package checkpoints its layer scan bodies.
 """
 from __future__ import annotations
 
@@ -30,6 +30,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (
     MLP, Device, Norm, _normal, apply_norm, dtype_of, embed_init, generator, mlp_forward, param,
+    remat_call,
 )
 
 MAX_DECODER_POS = 65_536  # learned positions (decodes up to 32k)
@@ -92,28 +93,37 @@ def encode(params: Whisper, frames: torch.Tensor, cfg: ModelConfig, *,
     S = frames.shape[1]
     x = frames + sinusoid_positions(S, cfg.d_model, frames.device).to(frames.dtype)[None]
     for lp in params.enc_layers:
-        h = apply_norm(lp.ln1, x, cfg.norm)
-        x = x + attn.attention_forward(lp.attn, h, cfg, causal=False, kernel_mode=kernel_mode)
-        h = apply_norm(lp.ln2, x, cfg.norm)
-        x = x + mlp_forward(lp.mlp, h, cfg.activation)
+        x = remat_call(_enc_block, lp, x, cfg, kernel_mode, remat=remat)
     return apply_norm(params.enc_norm, x, cfg.norm)
 
 
+def _enc_block(lp: EncLayer, x: torch.Tensor, cfg: ModelConfig,
+               kernel_mode: str) -> torch.Tensor:
+    h = apply_norm(lp.ln1, x, cfg.norm)
+    x = x + attn.attention_forward(lp.attn, h, cfg, causal=False, kernel_mode=kernel_mode)
+    h = apply_norm(lp.ln2, x, cfg.norm)
+    return x + mlp_forward(lp.mlp, h, cfg.activation)
+
+
+def _dec_block(lp: DecLayer, x: torch.Tensor, enc_out: torch.Tensor, cfg: ModelConfig,
+               kernel_mode: str) -> torch.Tensor:
+    h = apply_norm(lp.ln1, x, cfg.norm)
+    x = x + attn.attention_forward(lp.self_attn, h, cfg, causal=True, kernel_mode=kernel_mode)
+    h = apply_norm(lp.ln_x, x, cfg.norm)
+    kv = attn.cross_kv(lp.cross_attn, enc_out, cfg)
+    x = x + attn.attention_forward(lp.cross_attn, h, cfg, causal=False, kv_override=kv,
+                                   kernel_mode=kernel_mode)
+    h = apply_norm(lp.ln2, x, cfg.norm)
+    return x + mlp_forward(lp.mlp, h, cfg.activation)
+
+
 def _decoder_hidden(params: Whisper, enc_out: torch.Tensor, tokens: torch.Tensor,
-                    cfg: ModelConfig, kernel_mode: str) -> torch.Tensor:
+                    cfg: ModelConfig, kernel_mode: str, remat: bool) -> torch.Tensor:
     """The decoder stack over ``tokens`` [B, T], final-normed [B, T, D]."""
     T = tokens.shape[1]
     x = params.embed[tokens.long()] + params.dec_pos[:T][None]
     for lp in params.dec_layers:
-        h = apply_norm(lp.ln1, x, cfg.norm)
-        x = x + attn.attention_forward(lp.self_attn, h, cfg, causal=True,
-                                       kernel_mode=kernel_mode)
-        h = apply_norm(lp.ln_x, x, cfg.norm)
-        kv = attn.cross_kv(lp.cross_attn, enc_out, cfg)
-        x = x + attn.attention_forward(lp.cross_attn, h, cfg, causal=False, kv_override=kv,
-                                       kernel_mode=kernel_mode)
-        h = apply_norm(lp.ln2, x, cfg.norm)
-        x = x + mlp_forward(lp.mlp, h, cfg.activation)
+        x = remat_call(_dec_block, lp, x, enc_out, cfg, kernel_mode, remat=remat)
     return apply_norm(params.dec_norm, x, cfg.norm)
 
 
@@ -121,22 +131,23 @@ def decode_train(params: Whisper, enc_out: torch.Tensor, tokens: torch.Tensor,
                  cfg: ModelConfig, *, kernel_mode: str = "auto",
                  remat: bool = True) -> torch.Tensor:
     """Teacher-forced decoder logits [B, T, V] (the head is ``embed.T``)."""
-    return _decoder_hidden(params, enc_out, tokens, cfg, kernel_mode) @ params.embed.T
+    return _decoder_hidden(params, enc_out, tokens, cfg, kernel_mode, remat) @ params.embed.T
 
 
 def forward(params: Whisper, batch: dict, cfg: ModelConfig, *, kernel_mode: str = "auto",
             remat: bool = True):
     """batch: {frames [B, S, D], tokens [B, T]} -> (logits, aux loss 0)."""
-    enc = encode(params, batch["frames"], cfg, kernel_mode=kernel_mode)
-    logits = decode_train(params, enc, batch["tokens"], cfg, kernel_mode=kernel_mode)
+    enc = encode(params, batch["frames"], cfg, kernel_mode=kernel_mode, remat=remat)
+    logits = decode_train(params, enc, batch["tokens"], cfg, kernel_mode=kernel_mode,
+                          remat=remat)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
 def forward_hidden(params: Whisper, batch: dict, cfg: ModelConfig, *,
                    kernel_mode: str = "auto", remat: bool = True):
     """(final-normed decoder hidden [B, T, D], ``embed.T`` [D, V], aux 0)."""
-    enc = encode(params, batch["frames"], cfg, kernel_mode=kernel_mode)
-    x = _decoder_hidden(params, enc, batch["tokens"], cfg, kernel_mode)
+    enc = encode(params, batch["frames"], cfg, kernel_mode=kernel_mode, remat=remat)
+    x = _decoder_hidden(params, enc, batch["tokens"], cfg, kernel_mode, remat)
     return x, params.embed.T, torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -33,6 +33,7 @@ from repro_torch.models import mamba2
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import (
     Device, Norm, apply_norm, dense_init, dtype_of, embed_init, generator, mlp_forward, param,
+    remat_call,
 )
 
 
@@ -71,22 +72,30 @@ def _shared_attn_forward(sp: tfm.Layer, x: torch.Tensor, cfg: ModelConfig,
     return x + mlp_forward(sp.mlp, h, cfg.activation)
 
 
+def _group(group: nn.ModuleList, sp: tfm.Layer, x: torch.Tensor, cfg: ModelConfig,
+           kernel_mode: str) -> torch.Tensor:
+    """One group: its ``per`` Mamba2 blocks, then the shared attention."""
+    for mp in group:
+        x, _ = mamba2.block_forward(mp, x, cfg, kernel_mode=kernel_mode)
+    return _shared_attn_forward(sp, x, cfg, kernel_mode)
+
+
 def forward_hidden(params: Zamba2, tokens: torch.Tensor, cfg: ModelConfig, *,
-                   kernel_mode: str = "auto"):
-    """(final-normed hidden [B, T, D], lm_head [D, V], aux loss 0)."""
+                   kernel_mode: str = "auto", remat: bool = True):
+    """(final-normed hidden [B, T, D], lm_head [D, V], aux loss 0).
+    ``remat``: each group is recomputed in the backward pass, as the JAX
+    package checkpoints its group scan body."""
     x = params.embed[tokens.long()]
     for group in params.mamba:
-        for mp in group:
-            x, _ = mamba2.block_forward(mp, x, cfg, kernel_mode=kernel_mode)
-        x = _shared_attn_forward(params.shared_attn, x, cfg, kernel_mode)
+        x = remat_call(_group, group, params.shared_attn, x, cfg, kernel_mode, remat=remat)
     x = apply_norm(params.final_norm, x, cfg.norm)
     return x, params.lm_head, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def forward(params: Zamba2, tokens: torch.Tensor, cfg: ModelConfig, *,
-            kernel_mode: str = "auto"):
+            kernel_mode: str = "auto", remat: bool = True):
     """(logits [B, T, V], aux loss 0)."""
-    x, head, aux = forward_hidden(params, tokens, cfg, kernel_mode=kernel_mode)
+    x, head, aux = forward_hidden(params, tokens, cfg, kernel_mode=kernel_mode, remat=remat)
     return x @ head, aux
 
 

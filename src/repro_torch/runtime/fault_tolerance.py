@@ -8,8 +8,9 @@ The port of the JAX package's ``src/repro/runtime/fault_tolerance.py``.
 the reference keys on XLA status strings (``"INTERNAL"``, ``"out of
 memory"``, ...), which a CUDA runtime does not produce and which text such
 as an ``nvcc`` log can contain by accident; :func:`is_fatal` names the
-errors after which no kernel runs in the process.  ``run_training_loop`` and
-``LoopConfig`` are not ported yet: they come with the training step.
+errors after which no kernel runs in the process.  :func:`run_training_loop`
+(with :class:`LoopConfig`) is the reference's fault-tolerant training
+driver, and the caller of the retry, heartbeat and preemption pieces.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ from repro_torch.kernels._build import CUDA_ERROR_MEMORY_ALLOCATION, CudaError, 
 _LOG = logging.getLogger("repro_torch.runtime.fault_tolerance")
 
 __all__ = ["HostStats", "HeartbeatTracker", "PreemptionHandler", "is_transient",
-           "is_fatal", "backoff_delays", "retry_step"]
+           "is_fatal", "backoff_delays", "retry_step", "LoopConfig", "run_training_loop"]
 
 
 @dataclasses.dataclass
@@ -234,3 +235,56 @@ def retry_step(fn: Callable, *args, retries: int = 2,
                 on_retry(attempt, e)
             if delays[attempt] > 0:
                 time.sleep(delays[attempt])
+
+
+@dataclasses.dataclass
+class LoopConfig:
+    total_steps: int
+    checkpoint_every: int = 100
+    keep: int = 3
+    retries: int = 2
+
+
+def run_training_loop(
+    step_fn: Callable,
+    state: tuple,
+    batch_fn: Callable[[int], dict],
+    ckpt_root,
+    loop: LoopConfig,
+    *,
+    start_step: int = 0,
+    tracker: Optional[HeartbeatTracker] = None,
+    preemption: Optional[PreemptionHandler] = None,
+    host_id: int = 0,
+    on_metrics: Optional[Callable[[int, dict], None]] = None,
+):
+    """The fault-tolerant driver: retries transient step faults, records
+    heartbeats, checkpoints asynchronously every ``checkpoint_every`` steps
+    and checkpoints-and-exits on preemption.  ``state`` is ``(params,
+    opt_state)`` and ``step_fn(params, opt_state, batch)`` returns
+    ``(params, opt_state, metrics)``.  Returns ``(state, step)``."""
+    from repro_torch.checkpoint.checkpoint import AsyncCheckpointer
+
+    tracker = tracker or HeartbeatTracker()
+    ckpt = AsyncCheckpointer(ckpt_root, keep=loop.keep)
+    step = start_step
+    try:
+        while step < loop.total_steps:
+            t0 = time.time()
+            batch = batch_fn(step)
+            params, opt_state, metrics = retry_step(
+                step_fn, *state, batch, retries=loop.retries
+            )
+            state = (params, opt_state)
+            tracker.record(host_id, time.time() - t0)
+            if on_metrics:
+                on_metrics(step, metrics)
+            step += 1
+            if step % loop.checkpoint_every == 0:
+                ckpt.submit(step, {"params": params, "opt_state": opt_state})
+            if preemption is not None and preemption.requested:
+                ckpt.submit(step, {"params": params, "opt_state": opt_state})
+                break
+    finally:
+        ckpt.close()
+    return state, step

@@ -1,1 +1,2 @@
-"""Step functions over the model zoo (the prefill step; training comes later)."""
+"""Step functions over the model zoo: the optimizer, the training step and
+the prefill step."""

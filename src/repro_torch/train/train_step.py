@@ -1,15 +1,92 @@
 """Step factories, the port of ``src/repro/train/train_step.py``.
 
-Only :func:`make_prefill_step` is ported.  ``make_loss_fn`` and
-``make_train_step`` (with the optimizer, gradient accumulation and gradient
-compression) wait for ROADMAP.md, section 1, item 9.6.
+The training step differentiates ``models.loss_fn`` with
+``torch.autograd.grad`` (nothing accumulates in ``.grad``), the counterpart
+of ``jax.value_and_grad``, and applies :mod:`repro_torch.train.optimizer`'s
+AdamW in place.  It runs ``kernel_mode="reference"`` by default, as the JAX
+package does: the kernels have no backward pass and refuse autograd
+(:func:`repro_torch.kernels.common.refuse_autograd`), and the plain
+attention and scans are the training path in both packages.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Dict
+
+import torch
+from torch import nn
 
 from repro_torch import models
 from repro_torch.configs.base import ModelConfig
+from repro_torch.train.optimizer import OptimizerConfig, apply_updates
+
+
+def make_loss_fn(cfg: ModelConfig, *, kernel_mode: str = "reference",
+                 remat: bool = True) -> Callable:
+    """``loss_fn(params, batch) -> float32 scalar``."""
+    def loss_fn(params, batch):
+        return models.loss_fn(params, batch, cfg, kernel_mode=kernel_mode, remat=remat)
+    return loss_fn
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    opt_cfg: OptimizerConfig = OptimizerConfig(),
+    *,
+    kernel_mode: str = "reference",
+    remat: bool = True,
+    microbatches: int = 1,
+    compress_grads: Callable | None = None,
+) -> Callable:
+    """Returns ``step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``; ``params`` (an ``nn.Module``, gradients turned on for it) and
+    the moments are updated in place once every gradient exists, so a step
+    that raises before then leaves them as they were.  ``metrics`` holds
+    ``loss``, ``grad_norm`` and ``lr``, 0-d float32 tensors on the device
+    (the step never waits for the card).
+
+    ``microbatches`` > 1 splits the leading batch axis into that many
+    contiguous parts, adds their gradients into float32 zeros and divides
+    loss and gradients by the count.  ``compress_grads`` transforms the
+    ``{name: grad}`` dict before the optimizer."""
+    loss_fn = make_loss_fn(cfg, kernel_mode=kernel_mode, remat=remat)
+
+    def value_and_grad(params: nn.Module, names, leaves, batch):
+        with torch.enable_grad():
+            loss = loss_fn(params, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        # A parameter the loss does not reach gets zeros, as under jax.grad.
+        return loss.detach(), {n: torch.zeros_like(p) if g is None else g
+                               for n, p, g in zip(names, leaves, grads)}
+
+    def step(params: nn.Module, opt_state: Dict, batch: Dict):
+        params.requires_grad_(True)
+        names, leaves = zip(*params.named_parameters())
+        if microbatches == 1:
+            loss, grads = value_and_grad(params, names, leaves, batch)
+        else:
+            if any(x.shape[0] % microbatches for x in batch.values()):
+                raise ValueError(f"batch {[tuple(x.shape) for x in batch.values()]} does not "
+                                 f"split into {microbatches} microbatches")
+            size = {k: x.shape[0] // microbatches for k, x in batch.items()}
+            loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+            grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                     for n, p in zip(names, leaves)}
+            for i in range(microbatches):
+                mb = {k: x[i * size[k]:(i + 1) * size[k]] for k, x in batch.items()}
+                loss_i, g_i = value_and_grad(params, names, leaves, mb)
+                loss = loss + loss_i
+                for n, g in g_i.items():
+                    grads[n] += g
+                del g_i
+            loss = loss / microbatches
+            for g in grads.values():
+                g.div_(microbatches)
+        if compress_grads is not None:
+            grads = compress_grads(grads)
+        params, opt_state, om = apply_updates(params, grads, opt_state, opt_cfg)
+        return params, opt_state, {"loss": loss, **om}
+
+    return step
 
 
 def make_prefill_step(cfg: ModelConfig, *, kernel_mode: str = "auto") -> Callable:

@@ -840,3 +840,69 @@ def test_ssm_models_default_mode_launch_their_kernels(arch):
         outs[mode] = (lg, k6.launches - n6)
     torch.testing.assert_close(outs["auto"][0], outs["reference"][0], atol=1e-4, rtol=1e-4)
     assert outs["auto"][1] == 20 * G and outs["reference"][1] == 0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "rwkv6-1.6b", "zamba2-7b", "whisper-medium",
+                                  "internvl2-2b", "qwen3-moe-30b-a3b"])
+def test_train_step_on_card_matches_the_cpu(arch):
+    """Three float32 smoke train steps (two microbatches, lr 1e-3) on the
+    card against the same steps on the CPU, within the tolerances the CPU
+    tests hold the port's steps to the JAX package's (chip_smoke.py's
+    ``TRAIN_EXACT_TOL``): loss 1e-5 relative at each step; step 1's gradient
+    norm within 1e-4 and its moments (the clipped gradient) within 1e-4 (m)
+    and 2e-4 (v) of each leaf's scale; after step 3 the parameters within
+    1e-4 absolute, steps 2-3's gradient norms within 1e-3 and the moments
+    within 1e-2 / 2e-2 (those steps start from parameters that differ by
+    up to 1e-4, and rwkv6's u follows them by ~1.5e-3).  rwkv6 runs with a random bonus
+    u: at its initial u = 0 the gradients are ill-conditioned
+    (tests/test_torch_train.py, ``GRAD_TOL``).  The step at
+    ``kernel_mode="auto"`` on the card raises the kernels' autograd refusal
+    (dense: K5, ssm: K7, hybrid: K8)."""
+    from repro_torch import models
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, batch_for_model
+    from repro_torch.train.optimizer import OptimizerConfig, init_state
+    from repro_torch.train.train_step import make_train_step
+
+    dev = _card()
+    cfg = registry.get_smoke(arch)
+    data = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4)
+    runs = {}
+    for d in ("cpu", dev):
+        params = models.init(cfg, seed=6, device="cpu")
+        if cfg.family == "ssm":
+            gen = torch.Generator().manual_seed(6)
+            for lp in params.layers:
+                lp.tm.u.copy_(torch.randn(lp.tm.u.shape, generator=gen) * 0.5)
+        params = params.to(d)
+        state = init_state(params)
+        step = make_train_step(cfg, OptimizerConfig(lr=1e-3, warmup_steps=1), microbatches=2)
+        ms, first = [], None
+        for i in range(3):
+            b = {k: torch.from_numpy(v).to(d) for k, v in batch_for_model(data, cfg, i).items()}
+            params, state, m = step(params, state, b)
+            ms.append({k: float(v) for k, v in m.items()})
+            if i == 0:
+                first = {k: {n: t.clone() for n, t in state[k].items()} for k in ("m", "v")}
+        runs[str(d)] = (params, state, ms, first)
+    (pc, sc, mc, fc), (pg, sg, mg, fg) = runs["cpu"], runs[str(dev)]
+
+    def rel(got, want):
+        return (got.cpu() - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+
+    for i, (a, b) in enumerate(zip(mg, mc)):
+        assert abs(a["loss"] - b["loss"]) <= 1e-5 * abs(b["loss"]), (i, a, b)
+        tol = 1e-4 if i == 0 else 1e-3
+        assert abs(a["grad_norm"] - b["grad_norm"]) <= tol * abs(b["grad_norm"]), (i, a, b)
+    for k, tol1, tol3 in (("m", 1e-4, 1e-2), ("v", 2e-4, 2e-2)):
+        for n in sc[k]:
+            assert rel(fg[k][n], fc[k][n]) <= tol1, (k, "step 1", n, rel(fg[k][n], fc[k][n]))
+            assert rel(sg[k][n], sc[k][n]) <= tol3, (k, "step 3", n, rel(sg[k][n], sc[k][n]))
+    for (n, want), got in zip(pc.named_parameters(), pg.parameters()):
+        gap = (got.detach().cpu() - want.detach()).abs().max().item()
+        assert gap <= 1e-4, (n, gap)
+    if cfg.family in ("dense", "ssm", "hybrid"):
+        step = make_train_step(cfg, kernel_mode="auto")
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch_for_model(data, cfg, 0).items()}
+        with pytest.raises(RuntimeError, match="no backward pass"):
+            step(pg, sg, b)

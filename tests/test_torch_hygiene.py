@@ -194,3 +194,30 @@ def test_chip_smoke_fails_without_a_card_and_alone(tmp_path):
                               capture_output=True, text=True, timeout=300)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+def test_training_modules_load_no_jax_and_default_to_the_card():
+    """The loss, optimizer, train step, data pipeline, pytree checkpoints,
+    training loop and launcher load no JAX; ``launch.train`` and
+    ``opt_state_from_numpy`` left at their default device raise without a
+    card."""
+    mods = ("repro_torch.models.losses", "repro_torch.train.optimizer",
+            "repro_torch.train.train_step", "repro_torch.data.pipeline",
+            "repro_torch.checkpoint.checkpoint", "repro_torch.runtime.fault_tolerance",
+            "repro_torch.launch.train", "repro_torch.convert")
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import sys, {', '.join(mods)}; "
+         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+         "('jax', 'jaxlib', 'repro', 'ml_dtypes')))"],
+        cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "[]", proc.stdout + proc.stderr
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device is valid")
+    from repro_torch import convert
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--arch", "qwen3-14b", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        convert.opt_state_from_numpy({"m": {}, "v": {}, "step": np.int32(0)})
