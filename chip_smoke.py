@@ -21,7 +21,8 @@ published width and depth, whisper-medium and internvl2-2b, and the
 partition-explicit serve step of all six families, through K5 and K6.  Then
 training, through no kernel: every family's train step on the card against
 the CPU's, and internvl2-2b trained at full width and depth with a
-checkpoint and a preempted, resumed run.  One JSON line per phase:
+checkpoint and a preempted, resumed run, then restored and trained on a
+device mesh.  One JSON line per phase:
 
 1. ``device``: the card, and its name and power limit from ``nvidia-smi``;
 2. ``build``: the kernels built for ``sm_90a`` from the sources in this
@@ -100,7 +101,7 @@ checkpoint and a preempted, resumed run.  One JSON line per phase:
 5. ``timing``: kernel time with CUDA events at the shapes the main path gave
    each kernel, beside the least time the card could take (bytes over
    3.35 TB/s, or operations over 67 T/s), and the plain version's time on
-   the same calls over a prefix of each call (20,000 accesses; 2,000 for
+   the same calls over a prefix of each call (5,000 accesses; 2,000 for
    K4), where kernel and plain outputs must again be bit-identical; and
    ``timing_site``, the same for single call sites: K1 at B = 1, K2 at the
    stream calls, K4 at the Fig 11, Fig 5 and stream calls and at B = 1.
@@ -133,7 +134,7 @@ checkpoint and a preempted, resumed run.  One JSON line per phase:
    with the fields of the lines above and the kernel's share of its
    figure's wall time; and ``page_fault``: Fig 6's stack-distance pass
    on the card (the 1-node stream and the 32-node batch), equal to the
-   sequential Fenwick walk on the host over a 20,000-access prefix;
+   sequential Fenwick walk on the host over a 5,000-access prefix;
 6. ``kernel_vs_plain`` for K5 and K6 through their op entry points, within
    2e-5 in float32 and 2e-2 in bfloat16 (the JAX package's tolerances): the
    JAX test shapes and head dims 32, 64, 128, 160, 256 and 112 (zamba2,
@@ -198,9 +199,9 @@ checkpoint and a preempted, resumed run.  One JSON line per phase:
    launch counter set to 0 just before and read just after: full width in
    bf16, ``make_prefill_step`` on 4 prompts of 2,048 tokens (K7 24 times;
    K8 81 and K5 27 times), the same on the first prompt alone (batch 1:
-   rwkv6's K7 then takes 16 columns a block), the same on 256 (rwkv6) / 128
-   (zamba2) tokens, and a decode loop over those tokens plus 32 greedy tokens at batch 4
-   (zamba2: 64-token pages in float32 pools [27, 12, 64, 32, 112], K6 27
+   rwkv6's K7 then takes 16 columns a block), the same on 64 tokens, and a
+   decode loop over those tokens plus 16 greedy tokens at batch 4
+   (zamba2: 64-token pages in float32 pools [27, 8, 64, 32, 112], K6 27
    times a step); prefill tokens per second (the first, cold call, and the
    same call again once the counters are read, ``prefill_s_warm``), decode
    step time, the device's idle share of a decode step
@@ -208,7 +209,7 @@ checkpoint and a preempted, resumed run.  One JSON line per phase:
    between the decode loop's and the prefill's last-position logits
    (reported: the JAX package's gap at full depth is not read on the CPU);
 14. ``timing`` for K7 and K8 at the long prefill's calls (CUDA events, the
-   plain version on the same calls, the bound: bytes over 3.35 TB/s or the
+   plain version on the first 8 of them beside the kernel there, the bound: bytes over 3.35 TB/s or the
    recurrence's own operations over the rate of the unit the kernel uses,
    67 TFLOP/s in float32, or 989 TFLOP/s for the bf16 tensor-core designs;
    K7 adds its ``design``, columns a block, column slices and blocks
@@ -273,7 +274,15 @@ checkpoint and a preempted, resumed run.  One JSON line per phase:
    parameters, bf16, float32 moments), the same traffic for 6 steps, one
    17.0 GB checkpoint written, restored bit for bit and deleted; step
    time, tokens/s, model FLOP/s and their share of the bf16 peak, peak
-   memory, and a profiled step.
+   memory, and a profiled step;
+23. ``train_mesh``: the distributed layer on a one-rank NCCL world (NCCL
+   gives each rank its own card; wider meshes are tested under gloo on the
+   CPU): phase 22's checkpoint restored onto a 1 x 1 ``("data", "model")``
+   mesh by ``elastic_restore`` as DTensors, bit for bit, and deleted; 2
+   sharded steps against the same 2 single-device steps, their wall times
+   and a profiled sharded step; one step each with top-k and int8 gradient
+   compression; ``hierarchical_psum`` and a one-stage ``pipeline_apply``;
+   ``launch.train --mesh 1x1`` as a child process; no kernel launched.
 
 Each phase from 15 on starts from a freed card and reports its peak
 memory.  Then the ``{"kernels": [...]}`` line (K1-K8; K5's and K6's
@@ -303,8 +312,8 @@ GOLDEN_FIGS = ROOT / "tests" / "data" / "torch_golden_figs.json"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 INT32_OPS_PER_S = 67e12        # 32-bit rate outside the tensor cores (data sheet, fp32)
 STREAM_CHUNK = 65_537          # accesses per stream chunk (odd on purpose)
-PREFIX = 20_000                # accesses of the plain-version timing prefix
-CHECK_ACCESSES = 20_037        # PREFIX plus an odd-length tail
+PREFIX = 5_000                 # accesses of the plain-version timing prefix
+CHECK_ACCESSES = 5_037         # PREFIX plus an odd-length tail
 STACKED_PREFIX = 5_000         # the prefix where one plain call takes a site's calls stacked
 TL_BLOCK = 512                 # TimelineSweepStream's block
 TL_STREAM_CHUNK = 97 * TL_BLOCK  # timeline stream chunks: a block multiple
@@ -317,10 +326,13 @@ NO_SPILL = ("tlb_sim", "system_sim", "stackdist", "timeline", "paged_attention",
             "rwkv6_scan", "mamba2_scan")
 
 FAILURES = []
+START = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One phase line; ``at_s`` is the seconds since the script started."""
+    print(json.dumps({"phase": phase, "at_s": time.perf_counter() - START, **fields}),
+          flush=True)
 
 
 def fail(what: str) -> None:
@@ -549,7 +561,7 @@ def check_kernels_against_plain(torch, trace) -> dict:
     dev = torch.device("cuda")
     lines = as_tensor(trace("bst_internal", n_ops=1_000).lines[:CHECK_ACCESSES], dev)
     n = lines.shape[0]
-    cuts = (7_001, 13_337)
+    cuts = (1_751, 3_337)
     errs = {"tlb_sim": 0, "system_sim": 0, "stackdist": 0}
 
     # K1 ops on eight heterogeneous TLB specs.
@@ -760,7 +772,7 @@ def _timeline_check_specs(lines, evs):
     from repro_torch.core.timeline import TimelineConfig as Q
     from repro_torch.core.timeline import TimelineSpec as S
 
-    b, c = 15_001, 9_999
+    b, c = 3_751, 2_499
     lb, eb = lines[:b], _cut_events(evs[2], b)
     lc, ec = lines[:c], _cut_events(evs[3], c)
     return [
@@ -1713,8 +1725,8 @@ PROFILE_TRIES = 3                  # profiled runs before a short profile counts
 
 def _device_ms(torch, fn, expected: dict, calls=None) -> dict:
     """The device time of ``fn()`` in the named kernels: the sum of their
-    durations as ``torch.profiler`` (CUPTI) records them over one run, after
-    a warm-up run.  ``expected`` maps each kernel name (a substring of the
+    durations as ``torch.profiler`` (CUPTI, device activity alone) records
+    them over one run, after a warm-up run.  ``expected`` maps each kernel name (a substring of the
     profiler's kernel names) to the launches ``fn()`` makes of it, from the
     call sites' own plans (``_expect_k3``, ``_expect_k6``, ...): not always
     the wrappers' count, since K6's unsplit calls launch no merge kernel and
@@ -1737,7 +1749,7 @@ def _device_ms(torch, fn, expected: dict, calls=None) -> dict:
     fn()
     torch.cuda.synchronize()
     for tries in range(1, PROFILE_TRIES + 1):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             torch.zeros(1, device="cuda")  # the tracer is recording before the calls
             torch.cuda.synchronize()
             before = _launches()
@@ -3360,7 +3372,10 @@ def profile_line(torch, what: str, n: int, fn, **fields) -> dict:
     ``torch.profiler``, the device's busy time (the kernels' summed time; one
     stream, so they do not overlap), its idle share of both wall times, the
     kernels that take the most, and how often one run makes the host wait
-    for the card.  Returns the line's fields."""
+    for the card.  The profiler records device activity alone: the idle
+    share needs only the kernels, and recording the host's operators as
+    well cost up to ~68 s for one sharded train step.  Returns the line's
+    fields."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3371,7 +3386,7 @@ def profile_line(torch, what: str, n: int, fn, **fields) -> dict:
         fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
@@ -3431,9 +3446,10 @@ SSM_EXACT_TOL = 1e-3               # max |a - b| / max |b| of float32 logits
 # dtype, as the port does).
 SSM_BF16_LIMIT = {"rwkv6-1.6b": 1.5 * 0.01429, "zamba2-7b": 1.5 * 0.01474}
 SSM_BATCH, SSM_PREFILL_TOKENS = 4, 2048
-SSM_DECODE_PROMPT = {"rwkv6-1.6b": 256, "zamba2-7b": 128}   # multiples of K7's / K8's chunk
-SSM_NEW_TOKENS = 32
+SSM_DECODE_PROMPT = {"rwkv6-1.6b": 64, "zamba2-7b": 64}   # multiples of K7's / K8's chunk
+SSM_NEW_TOKENS = 16
 SSM_PAGE = 64                      # zamba2's shared-attention KV pages
+SCAN_PLAIN_CALLS = 8               # K7's / K8's calls that their plain versions are timed on
 SSM_KERNELS = {"rwkv6-1.6b": ("rwkv6_scan",), "zamba2-7b": ("mamba2_scan", "flash_attention")}
 
 # (B, H, T, N, chunk, dtype, w range): the JAX test shapes, rwkv6-1.6b's
@@ -3728,9 +3744,8 @@ def run_ssm_serve(torch, arch: str) -> dict:
     """Phase 13 for one family, the main path at full width in bf16 with
     every launch counter set to 0 just before and read just after:
     ``make_prefill_step`` on 4 numpy-seeded prompts of 2,048 tokens, on the
-    first of them alone, then on the first 256 (rwkv6) / 128 (zamba2) tokens
-    of each and
-    a decode loop over those tokens from ``init_decode_state`` plus 32
+    first of them alone, then on the first 64 tokens of each and
+    a decode loop over those tokens from ``init_decode_state`` plus 16
     greedy tokens at batch 4.  The decode loop's logits at the last prompt
     position must be finite; their gap to the short prefill's is reported
     (phase 12b holds the two paths together at full depth in float32, phase
@@ -3974,8 +3989,9 @@ def _scan_shape(calls) -> str:
 def _scan_timing(torch, name: str, kernel, plain, calls, err: float) -> dict:
     """K7 or K8 over ``calls`` (CUDA events, every call): the first and last
     call held against the plain version, the plain version's time over the
-    same calls, the bound, the design's own fields and ``device_ms``; K7's
-    tensor-core design adds ``cols_plan_ms``."""
+    first ``SCAN_PLAIN_CALLS`` calls beside the kernel's there
+    (``ms_at_plain_shape``), the bound, the design's own fields and
+    ``device_ms``; K7's tensor-core design adds ``cols_plan_ms``."""
     nbytes = ops = 0
     for args, kw in calls:
         x = args[0]
@@ -3999,8 +4015,12 @@ def _scan_timing(torch, name: str, kernel, plain, calls, err: float) -> dict:
         t_ops = ops / BF16_FLOPS_PER_S * 1e3
     if name == "rwkv6_scan" and extra["design"] != "fma":
         extra["cols_plan_ms"] = _rwkv6_plans_ms(torch, kernel, calls)
-    plain_ms = _once_ms(torch, lambda: [plain(*a) for a, kw in calls])
+    head = calls[:SCAN_PLAIN_CALLS]
+    plain_ms = _once_ms(torch, lambda: [plain(*a) for a, kw in head])
+    ms_head = _event_ms(torch, lambda: [kernel(*a, **kw) for a, kw in head], reps=1)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "plain_shape": f"the first {len(head)} of the {len(calls)} calls",
+            "ms_at_plain_shape": ms_head,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "kernel_launches_timed": len(calls), "bytes": nbytes, "operations": ops,
@@ -4041,7 +4061,7 @@ def time_scans(torch, serve: dict, errs: dict) -> list:
                "bound_by": m.pop("bound_by"), "library_ms": None,
                "shape": f"{arch} prefill: {SSM_BATCH} prompts of {SSM_PREFILL_TOKENS} tokens, "
                         f"{_scan_shape(calls)}",
-               "plain_shape": "the same calls in full", "layers": cfg.num_layers, **m}
+               "layers": cfg.num_layers, **m}
         emit("timing", **row)
         rows.append(row)
         del calls
@@ -5133,7 +5153,7 @@ def _train_flops(cfg, params) -> dict:
     return {"dense": dense, "attention": attn, "total": dense + attn}
 
 
-def run_train_full(torch) -> None:
+def run_train_full(torch):
     """Phase 22, ``train_full``: internvl2-2b at its published width and
     depth (24 layers, 1.70 B parameters) in bf16, with float32 AdamW
     moments: 6 steps through ``run_training_loop`` on 8 sequences of 256
@@ -5185,9 +5205,7 @@ def run_train_full(torch) -> None:
     restored_bad = _bitwise(torch, _state_leaves(state["params"], state["opt_state"]),
                             _state_leaves(params, opt))
     ckpt_bytes = sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
-    del state, template
-    shutil.rmtree(root, ignore_errors=True)
-    torch.cuda.empty_cache()
+    del template        # ``state`` and the checkpoint go on to phase 23
 
     flops = _train_flops(cfg, params)
     warm = [r["step_s"] for r in rows[1:]]
@@ -5224,14 +5242,255 @@ def run_train_full(torch) -> None:
     torch.cuda.empty_cache()
     emit("train_full_phase", seconds=time.perf_counter() - t0,
          profile_device_idle_share=prof["device_idle_share"])
+    return state, root, step_s, prof
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: the distributed layer on the card.  NCCL gives each rank its own
+# card, so one H100 holds a one-rank world and 1 x 1 meshes; the multi-rank
+# behaviour is tested under gloo on the CPU.  No kernel is on this path.
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 2
+TOPK_RATIO = 0.05
+# Sharded against single-device steps on one rank: the same operations on
+# the same tensors, expected bit-identical (reported); gated at the CPU
+# tests' loss and gradient-norm tolerances, and for the bf16 parameters and
+# float32 moments within 1e-2 of each leaf's scale (a bf16 rounding is
+# 2^-8 of the value; a wrong operation is off by O(1)).
+MESH_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "state": 1e-2}
+PIPE_SHAPE = dict(L=8, D=1024, M=6, mb=64)
+
+
+def _local(t):
+    """A DTensor's local shard (on one rank, the whole tensor)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _gap_over_scale(torch, got, want) -> float:
+    got, want = _local(got).detach().float(), _local(want).detach().float()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _mesh_step_rows(torch, step, params, opt, batches) -> list:
+    """One row a step: loss, gradient norm, wall time (the host waits for
+    the metrics)."""
+    rows = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        row = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "lr": float(m["lr"])}
+        row["step_s"] = time.perf_counter() - t
+        rows.append(row)
+    return rows
+
+
+def run_train_mesh(torch, state, root, single_step_s: float, single_prof: dict) -> None:
+    """Phase 23, ``train_mesh``: a one-rank NCCL world and a 1 x 1
+    ``("data", "model")`` mesh on the card.  Phase 22's step-6 internvl2-2b
+    checkpoint (full width and depth) restored by ``elastic_restore(
+    plan_remesh(1, model_axis=1))`` as DTensors, every local shard held bit
+    for bit against phase 22's restored state, and the restore timed; 2
+    steps on the mesh and the same 2 steps single-device from phase 22's
+    state, held within ``MESH_TOL`` (and reported bit-identical or not),
+    each step's wall time beside the single-device one and a profiled
+    sharded step (the host cost of DTensor dispatch); one step each with
+    top-k (ratio 0.05, error feedback) and the int8 round trip as
+    ``compress_grads``, ``kept + err`` conserved, their added seconds and
+    ``compressed_bytes``; ``hierarchical_psum`` on a 1 x 1 x 1 ``("pod",
+    "data", "model")`` mesh and ``pipeline_apply`` with one stage equal to
+    their input and the sequential layers; ``launch.train --mesh 1x1`` as a
+    child process.  The kernels' launches are held at 0; the process group
+    is torn down and the card freed at the end."""
+    import shutil
+    import subprocess
+
+    from repro_torch import models
+    from repro_torch.configs import registry
+    from repro_torch.distributed import collectives, compression, pipeline
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels.common import launch_tally
+    from repro_torch.launch.mesh import destroy, init_world, make_mesh
+    from repro_torch.runtime.elastic import elastic_restore, plan_remesh
+    from repro_torch.train.optimizer import init_state
+
+    _phase_start(torch)
+    t0 = time.perf_counter()
+    cfg = registry.get_config(TRAIN_ARCH)
+    init_world("cuda")
+    backend = str(torch.distributed.get_backend())
+    world_s = time.perf_counter() - t0
+    template = models.init(cfg, device="meta").to_empty(device="cuda")   # restore fills it
+    template = {"params": template, "opt_state": init_state(template)}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    mstate, at, mesh = elastic_restore(root, cfg, plan_remesh(1, model_axis=1), template,
+                                       device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t1
+    del template
+    shutil.rmtree(root, ignore_errors=True)
+    mp, mo = mstate["params"], mstate["opt_state"]
+    sp, so = state["params"], state["opt_state"]
+    restored_bad = _bitwise(torch, [(n, _local(t)) for n, t in _state_leaves(mp, mo)],
+                            _state_leaves(sp, so))
+    placements = sorted({str(tuple(p.placements)) for p in mp.parameters()})
+    parts = {"world": world_s, "restore": restore_s,
+             "restore_checked": time.perf_counter() - t0}
+
+    batch_fn, step = _train_setup(torch, cfg)
+    batches = [batch_fn(TRAIN_STEPS + i) for i in range(MESH_STEPS)]
+    _zero_launches()
+    with launch_tally() as tally:
+        mesh_rows = _mesh_step_rows(torch, step, mp, mo,
+                                    [shd.shard_batch(b, cfg, mesh) for b in batches])
+        single_rows = _mesh_step_rows(torch, step, sp, so, batches)
+    launched = sum(_launches().values()) + sum(tally.values())
+    parts["steps"] = time.perf_counter() - t0
+    gaps = {"loss": max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                        for a, b in zip(mesh_rows, single_rows)),
+            "grad_norm": max(abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+                             for a, b in zip(mesh_rows, single_rows))}
+    got, want = _state_leaves(mp, mo), _state_leaves(sp, so)
+    gaps["state"] = max((_gap_over_scale(torch, g, w), n) for (n, g), (_, w) in zip(got, want))
+    not_bitwise = _bitwise(torch, [(n, _local(t)) for n, t in got], want)
+    bit_identical = not not_bitwise and all(
+        a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+        for a, b in zip(mesh_rows, single_rows))
+    del got, want, state, sp, so
+    torch.cuda.empty_cache()
+    parts["steps_checked"] = time.perf_counter() - t0
+
+    b0 = shd.shard_batch(batches[0], cfg, mesh)
+    _zero_launches()
+    with launch_tally() as tally:
+        prof = profile_line(torch, "train_step_mesh", 1, lambda: step(mp, mo, b0),
+                            batch=TRAIN_BATCH, mesh="1x1")
+        parts["profile"] = time.perf_counter() - t0
+        # The compressors, each one step on the mesh as compress_grads.
+        comp = {}
+        from repro_torch.train.optimizer import OptimizerConfig
+        from repro_torch.train.train_step import make_train_step
+
+        topk, cstate = compression.topk_with_feedback(mp, TOPK_RATIO)
+        for kind in ("topk", "int8"):
+            seen = {}
+
+            def tap(grads, kind=kind, seen=seen):
+                seen["bytes"] = compression.compressed_bytes(
+                    grads, compression.CompressionConfig(kind, TOPK_RATIO))
+                seen["raw_bytes"] = compression.compressed_bytes(
+                    grads, compression.CompressionConfig("none"))
+                if kind == "int8":
+                    return compression.int8_roundtrip(grads)
+                old = cstate["err"]
+                kept = topk(grads)
+                seen["not_conserved"] = [
+                    n for n, g in grads.items()
+                    if not torch.equal(_local(kept[n]).float() + _local(cstate["err"][n]),
+                                       _local(g).float() + _local(old[n]))]
+                seen["kept_share"] = sum(int((_local(k) != 0).sum()) for k in kept.values()) \
+                    / sum(k.numel() for k in kept.values())
+                return kept
+
+            cstep = make_train_step(cfg, OptimizerConfig(warmup_steps=1, total_steps=TRAIN_STEPS),
+                                    microbatches=TRAIN_MICROBATCHES, compress_grads=tap)
+            row = _mesh_step_rows(torch, cstep, mp, mo, [b0])[0]
+            comp[kind] = {**row, **seen,
+                          "added_s": row["step_s"] - mesh_rows[-1]["step_s"]}
+        del topk, cstate
+    parts["compressors"] = time.perf_counter() - t0
+    launched_after = sum(_launches().values()) + sum(tally.values())
+    del mp, mo, mstate, b0, batches
+    torch.cuda.empty_cache()
+
+    # The reduction and the pipeline on the one-rank world.
+    mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    tree = {"a": torch.randn(1000, 3, device="cuda", generator=gen),
+            "b": {"c": torch.randn(7, device="cuda", generator=gen).bfloat16()}}
+    summed = collectives.hierarchical_psum(mesh3)(tree)
+    psum_equal = torch.equal(summed["a"], tree["a"]) and torch.equal(summed["b"]["c"],
+                                                                      tree["b"]["c"])
+    L, D, M, mb = (PIPE_SHAPE[k] for k in ("L", "D", "M", "mb"))
+    Ws = torch.randn(L, D, D, device="cuda", generator=gen) * D ** -0.5
+    x = torch.randn(M, mb, D, device="cuda", generator=gen)
+
+    def stage_fn(w, xx):
+        for i in range(w.shape[0]):
+            xx = torch.tanh(xx @ w[i])
+        return xx
+
+    smesh = make_mesh((1,), ("stage",), device="cuda")
+    piped = pipeline.pipeline_apply(stage_fn, pipeline.split_layers_into_stages(Ws, 1), x, smesh)
+    ref = stage_fn(Ws, x.reshape(M * mb, D)).reshape(M, mb, D)
+    pipe_err = (piped - ref).abs().max().item()
+    pipe_seq = torch.stack([stage_fn(Ws, x[i]) for i in range(M)])
+    pipe_equal = torch.equal(piped, pipe_seq)
+    destroy()
+    torch.cuda.empty_cache()
+    parts["psum_pipeline"] = time.perf_counter() - t0
+
+    # The launcher on a 1 x 1 mesh, as a child process with its own world.
+    ck = TRAIN_CKPT / "launch_mesh"
+    shutil.rmtree(ck, ignore_errors=True)
+    t2 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--smoke",
+         "--steps", "3", "--mesh", "1x1", "--ckpt", str(ck)],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+        capture_output=True, text=True, timeout=300)
+    launch_s = time.perf_counter() - t2
+    shutil.rmtree(ck, ignore_errors=True)
+
+    emit("train_mesh", arch=TRAIN_ARCH, layers=cfg.num_layers, dtype=cfg.dtype,
+         mesh=[1, 1], world=1, backend=backend, world_start_s=world_s, restored_step=at,
+         restore_s=restore_s, placements=placements,
+         restored_not_bit_identical=restored_bad, steps=MESH_STEPS,
+         microbatches=TRAIN_MICROBATCHES, mesh_steps=mesh_rows, single_steps=single_rows,
+         single_step_s_phase22_median=single_step_s, gaps=gaps, tolerance=MESH_TOL,
+         bit_identical=bit_identical, not_bit_identical=not_bitwise[:8],
+         profile_device_idle_share=prof["device_idle_share"],
+         profile_wall_ms=prof["wall_ms"], profile_ops_per_run=prof["device_ops_per_run"],
+         single_profile_device_idle_share=single_prof["device_idle_share"],
+         single_profile_wall_ms=single_prof["wall_ms"],
+         single_profile_ops_per_run=single_prof["device_ops_per_run"],
+         compressors=comp, hierarchical_psum_equal=psum_equal, pipeline_equal=pipe_equal,
+         pipeline_vs_whole_batch=pipe_err, launches=launched, launches_after=launched_after,
+         launch_train_rc=child.returncode, launch_train_s=launch_s,
+         launch_train_stdout=child.stdout.splitlines(), peak_gb=_peak_gb(torch),
+         seconds_at=parts, seconds=time.perf_counter() - t0)
+    if at != TRAIN_STEPS or restored_bad:
+        fail(f"train_mesh: the step-{at} checkpoint restored on the mesh with differences: "
+             f"{restored_bad[:4]}")
+    over = {k: v for k, v in gaps.items()
+            if (v[0] if isinstance(v, tuple) else v) > MESH_TOL[k]}
+    if over:
+        fail(f"train_mesh: the sharded steps differ from the single-device ones: {over}")
+    for kind, c in comp.items():
+        if not math.isfinite(c["loss"]) or c.get("not_conserved"):
+            fail(f"train_mesh: the {kind} step: loss {c['loss']}, kept + err not conserved "
+                 f"in {c.get('not_conserved', [])[:4]}")
+    if not psum_equal or not pipe_equal:
+        fail(f"train_mesh: hierarchical_psum equal {psum_equal}, pipeline equal {pipe_equal}")
+    if launched or launched_after:
+        fail(f"train_mesh: the phase launched {launched + launched_after} kernels")
+    if child.returncode != 0:
+        fail(f"train_mesh: launch.train --mesh 1x1 exited {child.returncode}: "
+             f"{child.stderr[-2000:]}")
 
 
 def run_training(torch) -> None:
-    """Phases 20-22."""
+    """Phases 20-23."""
     t0 = time.perf_counter()
     run_train_exact(torch)
     run_train_resume(torch)
-    run_train_full(torch)
+    state, root, step_s, prof = run_train_full(torch)
+    run_train_mesh(torch, state, root, step_s, prof)
     emit("training_phases", seconds=time.perf_counter() - t0)
 
 

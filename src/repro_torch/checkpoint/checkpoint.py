@@ -26,8 +26,13 @@ JAX package's stacked layout (:func:`repro_torch.convert.jax_layout`:
 JAX package writes it, 2-byte records (``<V2``) with manifest dtype
 ``"bfloat16"``, and read back by that dtype through a ``uint16`` view, with
 no ml_dtypes; the JAX package's own ``restore(template=...)`` cannot cast
-such a leaf (ROADMAP.md, section 3).  ``restore_resharded`` waits for the
-distributed slice.
+such a leaf (ROADMAP.md, section 3).
+
+A sharded training state (DTensor leaves) is saved as the same directory:
+every rank gathers every leaf (``full_tensor()``, a collective, in one
+fixed order), rank 0 writes and commits, and the other ranks wait at a
+barrier.  ``restore_resharded`` reads a checkpoint written on any mesh (or
+none) and places each leaf on a new mesh by its spec.
 """
 from __future__ import annotations
 
@@ -49,6 +54,8 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.distributed.sharding import is_dtensor
 
 try:  # POSIX advisory locks; absent on some platforms (file_lock degrades)
     import fcntl
@@ -72,6 +79,7 @@ __all__ = [
     "latest_step",
     "save",
     "restore",
+    "restore_resharded",
     "AsyncCheckpointer",
 ]
 
@@ -320,25 +328,46 @@ def _port_named(tree) -> bool:
             and all(isinstance(v, torch.Tensor) for v in tree.values()))
 
 
+def _has_dtensor(tree) -> bool:
+    """Whether any leaf of ``tree`` (a module's parameters included) is a
+    DTensor, i.e. the tree is a sharded training state."""
+    if isinstance(tree, nn.Module):
+        return any(is_dtensor(p) for p in tree.parameters())
+    if isinstance(tree, dict):
+        return any(_has_dtensor(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_has_dtensor(v) for v in tree)
+    return is_dtensor(tree)
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's whole tensor on the host (an all-gather every rank joins);
+    a plain tensor as it is."""
+    if is_dtensor(t):
+        return t.detach().full_tensor().cpu()
+    return t
+
+
 def _host_tree(tree, *, copy: bool = True):
     """``tree`` on the host in the JAX package's layout: a parameter
     module or a dict keyed by its dotted names is stacked
     (:func:`repro_torch.convert.jax_layout`), other dicts, lists and tuples
-    keep their structure, tensors become CPU tensors and anything else a
-    numpy array.  With ``copy`` every leaf owns its memory, so the caller
-    may update the originals in place afterwards."""
+    keep their structure, tensors become CPU tensors (DTensors gathered
+    whole, leaf by leaf in the tree's order) and anything else a numpy
+    array.  With ``copy`` every leaf owns its memory, so the caller may
+    update the originals in place afterwards."""
     from repro_torch.convert import jax_layout
 
     if isinstance(tree, nn.Module):
-        return jax_layout(dict(tree.named_parameters()))
+        return jax_layout({n: _whole(p) for n, p in tree.named_parameters()})
     if _port_named(tree):
-        return jax_layout(tree)
+        return jax_layout({n: _whole(t) for n, t in tree.items()})
     if isinstance(tree, dict):
         return {k: _host_tree(v, copy=copy) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(_host_tree(v, copy=copy) for v in tree)
     if isinstance(tree, torch.Tensor):
-        return tree.detach().to("cpu", copy=copy)
+        return _whole(tree).detach().to("cpu", copy=copy)
     return np.array(tree) if copy else np.asarray(tree)
 
 
@@ -412,10 +441,37 @@ def latest_step(root) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.barrier()
+
+
 def save(root, step: int, tree, *, keep: int = 3) -> pathlib.Path:
     """Write ``tree`` atomically as step ``step``; prune to the newest
     ``keep`` steps.  Stale ``.tmp-*`` directories of interrupted writes are
-    swept first."""
+    swept first.  A tree with DTensor leaves is a collective: every rank
+    gathers, rank 0 writes, every rank returns after the commit."""
+    if not _has_dtensor(tree):
+        return _write(root, step, _host_tree(tree, copy=False), keep=keep)
+    host = _host_tree(tree, copy=False)
+    try:
+        if _rank() == 0:
+            _write(root, step, host, keep=keep)
+    finally:
+        _barrier()
+    return step_dir(root, step)
+
+
+def _write(root, step: int, host, *, keep: int) -> pathlib.Path:
+    """Write a host tree (:func:`_host_tree`) as step ``step`` and commit."""
     root = pathlib.Path(root)
     root.mkdir(parents=True, exist_ok=True)
     for junk in root.glob("*.tmp-*"):
@@ -425,7 +481,7 @@ def save(root, step: int, tree, *, keep: int = 3) -> pathlib.Path:
     tmp = root / f"{final.name}.tmp-{uuid.uuid4().hex[:8]}"
     tmp.mkdir()
     manifest = {}
-    for key, leaf in _flatten(_host_tree(tree, copy=False)).items():
+    for key, leaf in _flatten(host).items():
         arr, dtype = _leaf_array(leaf)
         fname = f"{abs(hash(key)) & 0xFFFFFFFF:08x}_{len(manifest)}.npy"
         _write_leaf(tmp / fname, arr, dtype)
@@ -506,16 +562,47 @@ def restore(root, step: Optional[int] = None, template: Any = None):
     return _fill(template, flat), step
 
 
+def _place(tree, specs, mesh):
+    """``tree`` (filled by :func:`restore`) with every tensor leaf a DTensor
+    on ``mesh`` placed by the spec at the same place in ``specs``; a
+    module's parameters are replaced in place."""
+    from repro_torch.distributed import sharding as shd
+
+    if isinstance(tree, nn.Module):
+        return shd.place_params(tree, mesh, specs)
+    if isinstance(tree, dict):
+        return {k: _place(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_place(v, sp, mesh) for v, sp in zip(tree, specs))
+    return shd.distribute(torch.as_tensor(tree), mesh, specs)
+
+
+def restore_resharded(root, template, mesh, specs, step: Optional[int] = None):
+    """Elastic restore: :func:`restore` into ``template`` (plain tensors on
+    any device), then place every leaf on ``mesh`` with ``specs`` (a tree
+    like the template's: a spec a tensor, ``{name: spec}`` for a module or
+    a moment dict; :mod:`repro_torch.distributed.sharding`) — the mesh may
+    differ arbitrarily from the one that saved.  Every rank reads the
+    files and keeps its own shards; nothing is sent.  Returns (tree,
+    step)."""
+    tree, step = restore(root, step, template)
+    return _place(tree, specs, mesh), step
+
+
 class AsyncCheckpointer:
     """Background-thread writer: ``submit`` copies the tree to the host and
     returns, the thread writes it; ``wait`` joins outstanding writes (call
     before exit / preemption).  ``records`` holds, per submitted step, the
-    host copy's and the write's seconds and the bytes written."""
+    host copy's and the write's seconds and the bytes written.  A sharded
+    tree (DTensor leaves) is gathered in ``submit`` on the caller's thread,
+    on every rank; only rank 0's thread writes, and ``wait`` ends at a
+    barrier of every rank."""
 
     def __init__(self, root, *, keep: int = 3):
         self.root = root
         self.keep = keep
         self.records: List[dict] = []
+        self._sharded = False
         self._q: "queue.Queue" = queue.Queue()
         self._err: Optional[BaseException] = None
         self._t = threading.Thread(target=self._worker, daemon=True)
@@ -529,7 +616,7 @@ class AsyncCheckpointer:
             step, tree, rec = item
             try:
                 t0 = time.perf_counter()
-                save(self.root, step, tree, keep=self.keep)
+                _write(self.root, step, tree, keep=self.keep)
                 rec["write_s"] = time.perf_counter() - t0
             except BaseException as e:  # surfaced on wait()
                 self._err = e
@@ -539,15 +626,19 @@ class AsyncCheckpointer:
     def submit(self, step: int, tree):
         """Copy ``tree`` to the host (the next step updates the parameters
         in place, so the copy is made before this returns), then queue it."""
+        self._sharded = self._sharded or _has_dtensor(tree)
         t0 = time.perf_counter()
         host = _host_tree(tree, copy=True)
         rec = {"step": step, "host_copy_s": time.perf_counter() - t0,
                "bytes": sum(_leaf_array(x)[0].nbytes for x in _flatten(host).values())}
         self.records.append(rec)
-        self._q.put((step, host, rec))
+        if not self._sharded or _rank() == 0:
+            self._q.put((step, host, rec))
 
     def wait(self):
         self._q.join()
+        if self._sharded:
+            _barrier()
         if self._err is not None:
             raise self._err
 

@@ -9,6 +9,9 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import (
+    batch_only, constrain_bthd, pin, replicate_dim,
+)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention_partial
 from repro_torch.models.layers import Device, apply_rope, dense_init, param, rmsnorm
@@ -39,17 +42,22 @@ def _project_qkv(
     p: Attention, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: [B, T, D] -> q [B, T, Hq, hd], k/v [B, T, Hkv, hd]; qk-norm before
-    RoPE, as in the JAX package."""
+    RoPE, then the activation constraint, as in the JAX package."""
     B, T, _ = x.shape
-    q = (x @ p.wq).reshape(B, T, cfg.num_heads, cfg.head_dim)
-    k = (x @ p.wk).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = (x @ p.wv).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+    q = replicate_dim(x @ p.wq, -1, cfg.num_heads).reshape(B, T, cfg.num_heads, cfg.head_dim)
+    k = replicate_dim(x @ p.wk, -1, cfg.num_kv_heads).reshape(
+        B, T, cfg.num_kv_heads, cfg.head_dim)
+    v = replicate_dim(x @ p.wv, -1, cfg.num_kv_heads).reshape(
+        B, T, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm)
         k = rmsnorm(k, p.k_norm)
     if cfg.rope_theta > 0:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = constrain_bthd(q, cfg.num_heads)
+    k = constrain_bthd(k, cfg.num_kv_heads)
+    v = constrain_bthd(v, cfg.num_kv_heads)
     return q, k, v
 
 
@@ -62,8 +70,9 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, 
            causal: bool, kernel_mode: str) -> torch.Tensor:
     """q [B, T, Hq, hd], k/v [B, S, Hkv, hd] -> flash attention -> [B, T, q_dim]."""
     B, T = q.shape[:2]
-    o = flash_attention(heads_first(q), heads_first(k), heads_first(v), causal=causal,
-                        kernel_mode=kernel_mode)                  # [B, Hq, T, hd]
+    q, k, v = batch_only(q), batch_only(k), batch_only(v)
+    o = pin(flash_attention(heads_first(q), heads_first(k), heads_first(v), causal=causal,
+                            kernel_mode=kernel_mode))             # [B, Hq, T, hd]
     return o.transpose(1, 2).reshape(B, T, cfg.q_dim)
 
 

@@ -14,8 +14,9 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.distributed.sharding import aligned
 
 
 def _block_nll(h: torch.Tensor, head: torch.Tensor,
@@ -23,7 +24,7 @@ def _block_nll(h: torch.Tensor, head: torch.Tensor,
     """(summed NLL, count of valid labels) of one block, both float32."""
     logits = (h @ head).float()                                   # [B, blk, V]
     logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, y.clamp(min=0).long()[..., None])[..., 0]
+    gold = aligned(logits, y).gather(-1, y.clamp(min=0).long()[..., None])[..., 0]
     valid = (y >= 0).float()
     return ((logz - gold) * valid).sum(), valid.sum()
 
@@ -40,9 +41,9 @@ def chunked_cross_entropy(
     block = min(block, T)
     nb = -(-T // block)
     pad = nb * block - T
-    if pad:
-        hidden = F.pad(hidden, (0, 0, 0, pad))
-        labels = F.pad(labels, (0, pad), value=-1)
+    if pad:   # appended by concatenation: DTensor's pad rule (torch 2.11) breaks the layout
+        hidden = torch.cat([hidden, torch.zeros_like(hidden[:, :pad])], dim=1)
+        labels = torch.cat([labels, torch.full_like(labels[:, :pad], -1)], dim=1)
     remat = torch.is_grad_enabled() and (hidden.requires_grad or head.requires_grad)
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     count = torch.zeros((), dtype=torch.float32, device=hidden.device)

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import gather_rows
 from repro_torch.kernels.common import as_device
 from repro_torch.kernels.rwkv6_scan import rwkv6_decode_step, rwkv6_scan
 from repro_torch.models.layers import (
@@ -162,7 +163,7 @@ def forward_hidden(params: RWKV6, tokens: torch.Tensor, cfg: ModelConfig, *,
                    kernel_mode: str = "auto", remat: bool = True):
     """(final-normed hidden [B, T, D], lm_head [D, V], aux loss 0).
     ``remat``: each layer is recomputed in the backward pass."""
-    x = params.embed[tokens.long()]
+    x = gather_rows(params.embed, tokens.long())
     for lp in params.layers:
         x = remat_call(_block, lp, x, cfg, kernel_mode, remat=remat)
     x = apply_norm(params.final_norm, x, cfg.norm)

@@ -7,10 +7,11 @@ The parameters live in an ``nn.Module`` tree that keeps the JAX names
 (``embed``, ``layers[i].ln1/attn/ln2`` and ``mlp`` or, with ``cfg.moe``,
 ``moe``, ``final_norm``, ``lm_head``) and the ``x @ w`` layout; the JAX
 package stacks the layers on a leading [L] axis and scans them, the port
-loops over an ``nn.ModuleList``.  The JAX package's sharding constraints are
-identities off a mesh and are left out; decode here is single-device (one
-SPARTA partition; the partition-explicit layout is
-:mod:`repro_torch.models.paged_global`).
+loops over an ``nn.ModuleList``.  ``_block`` constrains its activations where
+the JAX package's does (:func:`repro_torch.distributed.sharding.constrain_btd`:
+a redistribute of DTensor activations under an activation policy, else the
+identity); decode here is single-device (one SPARTA partition; the
+partition-explicit layout is :mod:`repro_torch.models.paged_global`).
 
 Entry points:
 * :func:`forward` / :func:`forward_hidden` — full-sequence logits / the
@@ -30,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain_btd, gather_rows
 from repro_torch.kernels.common import as_device
 from repro_torch.kernels.paged_attention import merge_partials, paged_attention_partial
 from repro_torch.models import attention as attn
@@ -81,13 +83,17 @@ def ffn_forward(lp: Layer, h: torch.Tensor,
 
 def _block(cfg: ModelConfig, kernel_mode: str, x: torch.Tensor, lp: Layer):
     h = apply_norm(lp.ln1, x, cfg.norm)
-    x = x + attn.attention_forward(lp.attn, h, cfg, causal=True, kernel_mode=kernel_mode)
+    # The raw block outputs (pre-residual) are constrained, as in the JAX
+    # package (its perf iteration 2).
+    o = constrain_btd(attn.attention_forward(lp.attn, h, cfg, causal=True,
+                                             kernel_mode=kernel_mode))
+    x = constrain_btd(x + o)
     y, aux = ffn_forward(lp, apply_norm(lp.ln2, x, cfg.norm), cfg)
-    return x + y, aux
+    return constrain_btd(x + constrain_btd(y)), aux
 
 
 def embed_tokens(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    x = params.embed[tokens.long()]
+    x = gather_rows(params.embed, tokens.long())
     if cfg.embed_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
     return x

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import gather_rows
 from repro_torch.kernels.common import as_device
 from repro_torch.models import attention as attn
 from repro_torch.models import transformer as tfm
@@ -121,7 +122,7 @@ def _decoder_hidden(params: Whisper, enc_out: torch.Tensor, tokens: torch.Tensor
                     cfg: ModelConfig, kernel_mode: str, remat: bool) -> torch.Tensor:
     """The decoder stack over ``tokens`` [B, T], final-normed [B, T, D]."""
     T = tokens.shape[1]
-    x = params.embed[tokens.long()] + params.dec_pos[:T][None]
+    x = gather_rows(params.embed, tokens.long()) + params.dec_pos[:T][None]
     for lp in params.dec_layers:
         x = remat_call(_dec_block, lp, x, enc_out, cfg, kernel_mode, remat=remat)
     return apply_norm(params.dec_norm, x, cfg.norm)

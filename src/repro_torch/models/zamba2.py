@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import gather_rows
 from repro_torch.kernels.common import as_device
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
@@ -85,7 +86,7 @@ def forward_hidden(params: Zamba2, tokens: torch.Tensor, cfg: ModelConfig, *,
     """(final-normed hidden [B, T, D], lm_head [D, V], aux loss 0).
     ``remat``: each group is recomputed in the backward pass, as the JAX
     package checkpoints its group scan body."""
-    x = params.embed[tokens.long()]
+    x = gather_rows(params.embed, tokens.long())
     for group in params.mamba:
         x = remat_call(_group, group, params.shared_attn, x, cfg, kernel_mode, remat=remat)
     x = apply_norm(params.final_norm, x, cfg.norm)

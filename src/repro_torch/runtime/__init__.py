@@ -1,1 +1,2 @@
-"""The port's runtime layers: run telemetry and fault tolerance."""
+"""The port's runtime layers: run telemetry, fault tolerance and elastic
+restarts."""

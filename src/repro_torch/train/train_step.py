@@ -7,6 +7,15 @@ AdamW in place.  It runs ``kernel_mode="reference"`` by default, as the JAX
 package does: the kernels have no backward pass and refuse autograd
 (:func:`repro_torch.kernels.common.refuse_autograd`), and the plain
 attention and scans are the training path in both packages.
+
+The same step trains a sharded state: parameters, moments and batch as
+DTensors (:mod:`repro_torch.distributed.sharding`), the counterpart of the
+JAX step under ``jit`` with shardings.  It then runs under
+``implicit_replication`` (a plain tensor the model makes, positions or a
+mask, counts as replicated, as an unsharded constant does under GSPMD),
+each gradient is redistributed to its parameter's placements (JAX's
+``out_shardings``; the FSDP reduce-scatter), and the metrics come back as
+plain tensors.
 """
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ from torch import nn
 
 from repro_torch import models
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.train.optimizer import OptimizerConfig, apply_updates
 
 
@@ -55,12 +65,21 @@ def make_train_step(
             loss = loss_fn(params, batch)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         # A parameter the loss does not reach gets zeros, as under jax.grad.
-        return loss.detach(), {n: torch.zeros_like(p) if g is None else g
+        return loss.detach(), {n: torch.zeros_like(p) if g is None else _placed_like(g, p)
                                for n, p, g in zip(names, leaves, grads)}
 
     def step(params: nn.Module, opt_state: Dict, batch: Dict):
         params.requires_grad_(True)
         names, leaves = zip(*params.named_parameters())
+        if not _sharded(leaves):
+            return _step(params, names, leaves, opt_state, batch)
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with implicit_replication():
+            params, opt_state, metrics = _step(params, names, leaves, opt_state, batch)
+        return params, opt_state, {k: _whole(v) for k, v in metrics.items()}
+
+    def _step(params: nn.Module, names, leaves, opt_state: Dict, batch: Dict):
         if microbatches == 1:
             loss, grads = value_and_grad(params, names, leaves, batch)
         else:
@@ -69,7 +88,7 @@ def make_train_step(
                                  f"split into {microbatches} microbatches")
             size = {k: x.shape[0] // microbatches for k, x in batch.items()}
             loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-            grads = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            grads = {n: torch.zeros_like(p.detach(), dtype=torch.float32)
                      for n, p in zip(names, leaves)}
             for i in range(microbatches):
                 mb = {k: x[i * size[k]:(i + 1) * size[k]] for k, x in batch.items()}
@@ -87,6 +106,21 @@ def make_train_step(
         return params, opt_state, {"loss": loss, **om}
 
     return step
+
+
+def _sharded(leaves) -> bool:
+    return any(is_dtensor(p) for p in leaves)
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its parameter's placements; else ``g``."""
+    if is_dtensor(g) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_prefill_step(cfg: ModelConfig, *, kernel_mode: str = "auto") -> Callable:

@@ -1,0 +1,450 @@
+"""Multi-rank ``torch.distributed`` worlds on the CPU (gloo) for the
+distributed layer's tests, and the JAX package's sharded reference.
+
+Each world is one process (``python tests/_torch_worlds.py <world> <dir>``)
+that spawns its ranks with ``torch.multiprocessing`` (one thread each),
+joined through a ``FileStore`` in ``<dir>`` (no network port).  Rank 0
+writes the world's results to ``<dir>/<world>.pt``; the tests read them.
+:func:`run_world` (:func:`start` and :func:`finish`) runs a world in a
+session of its own under a time limit and kills every process of it when
+the limit passes, so a hang fails a test instead of stopping the run.
+
+* ``train`` (8 ranks): qwen3-14b's smoke config from the JAX package's
+  initial parameters (``<dir>/init``), 3 steps single-device and 3 steps
+  sharded on a 2x4 ``("data", "model")`` mesh, the step-2 state saved as a
+  checkpoint (``<dir>/ckpt_2x4``); one step under an activation policy; then
+  ``hierarchical_psum`` on a 2x2x2 ``("pod", "data", "model")`` mesh.
+* ``elastic`` (4 ranks): that checkpoint restored on a 2x2 mesh through
+  ``elastic_restore(plan_remesh(4, model_axis=2))`` and one more step,
+  beside the single-device step from the same checkpoint; ``pipeline_apply``
+  over 4 stages; then a one-rank world restoring the same checkpoint.
+* :data:`JAX_REF`: the JAX package's sharded step, pipeline and reduction
+  on meshes of Auto axes over 8 forced host devices (``jax.make_mesh``
+  gives Explicit axes on jax 0.9.0, which the three tests of
+  ``tests/test_distributed.py`` trip over).
+"""
+from __future__ import annotations
+
+import os
+import pathlib
+import signal
+import subprocess
+import sys
+import textwrap
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+ARCH = "qwen3-14b"
+SEQ, BATCH, STEPS, LR = 16, 4, 3, 1e-3
+PIPE = dict(L=8, D=16, M=6, mb=4, S=4)
+WORLDS = {"train": 8, "elastic": 4}
+
+
+def start(cmd, env=None) -> subprocess.Popen:
+    """``cmd`` started in a session of its own."""
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
+
+
+def finish(proc: subprocess.Popen, timeout: float) -> subprocess.CompletedProcess:
+    """Wait for ``proc``; on ``timeout`` every process of its session is
+    killed and the result says so (returncode -9)."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        err += f"\nkilled after {timeout} s"
+    return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+
+def run_world(cmd, timeout: float, env=None) -> subprocess.CompletedProcess:
+    return finish(start(cmd, env), timeout)
+
+
+def world_cmd(name: str, out_dir) -> list:
+    return [sys.executable, str(pathlib.Path(__file__).resolve()), name, str(out_dir)]
+
+
+def env() -> dict:
+    e = dict(os.environ)
+    e["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + e.get("PYTHONPATH", "")
+    e["OMP_NUM_THREADS"] = "1"
+    return e
+
+
+# -- inside a world ------------------------------------------------------------
+
+def _entry(rank: int, name: str, world: int, out: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(out, f"{name}.store"),
+                                                         world),
+                            rank=rank, world_size=world)
+    try:
+        globals()[f"world_{name}"](rank, pathlib.Path(out))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _cfg():
+    from repro_torch.configs import registry
+
+    return registry.get_smoke(ARCH)
+
+
+def _batch(cfg, i: int) -> dict:
+    import torch
+
+    from repro_torch.data.pipeline import DataConfig, batch_for_model
+
+    data = DataConfig(vocab=cfg.vocab, seq_len=SEQ, global_batch=BATCH)
+    return {k: torch.from_numpy(v) for k, v in batch_for_model(data, cfg, i).items()}
+
+
+def _initial(cfg, out: pathlib.Path):
+    """The JAX package's initial parameters (``<out>/init``), as a plain
+    module and optimizer state."""
+    from repro_torch import models
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.train.optimizer import init_state
+
+    params = models.init(cfg, seed=1, device="cpu")
+    ckpt.restore(out / "init", template={"params": params})
+    return params, init_state(params)
+
+
+def _whole(t):
+    from torch.distributed.tensor import DTensor
+
+    return (t.full_tensor() if isinstance(t, DTensor) else t).detach().clone()
+
+
+def _params(params) -> dict:
+    return {n: _whole(p) for n, p in params.named_parameters()}
+
+
+def _step(cfg, taps: list):
+    """``make_train_step`` whose ``compress_grads`` records each step's
+    gradients, whole (a gather on every rank), and passes them on."""
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_step import make_train_step
+
+    def tap(grads):
+        taps.append({n: _whole(g) for n, g in grads.items()})
+        return grads
+
+    return make_train_step(cfg, OptimizerConfig(lr=LR, warmup_steps=1), compress_grads=tap)
+
+
+def _metrics(m) -> dict:
+    return {k: float(v) for k, v in m.items()}
+
+
+def world_train(rank: int, out: pathlib.Path) -> None:
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.distributed import collectives, sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = _cfg()
+    res: dict = {}
+    if rank == 0:   # the single-device port
+        taps: list = []
+        step = _step(cfg, taps)
+        params, opt = _initial(cfg, out)
+        res["single"] = {"metrics": [], "params": []}
+        for i in range(STEPS):
+            params, opt, m = step(params, opt, _batch(cfg, i))
+            res["single"]["metrics"].append(_metrics(m))
+            res["single"]["params"].append(_params(params))
+        res["single"]["grads"] = taps
+    dist.barrier()
+
+    mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
+    taps = []
+    step = _step(cfg, taps)
+    params, opt = _initial(cfg, out)
+    shd.shard_params(params, cfg, mesh)
+    opt = shd.shard_opt_state(opt, cfg, mesh)
+    res["sharded"] = {"metrics": [], "params": [],
+                      "placements": {n: str(tuple(p.placements))
+                                     for n, p in params.named_parameters()}}
+    for i in range(STEPS):
+        params, opt, m = step(params, opt, shd.shard_batch(_batch(cfg, i), cfg, mesh))
+        res["sharded"]["metrics"].append(_metrics(m))
+        res["sharded"]["params"].append(_params(params))
+        if i == 1:
+            ckpt.save(out / "ckpt_2x4", 2, {"params": params, "opt_state": opt})
+            res["saved"] = {"params": _params(params),
+                            "m": {n: _whole(t) for n, t in opt["m"].items()},
+                            "v": {n: _whole(t) for n, t in opt["v"].items()},
+                            "step": _whole(opt["step"])}
+    res["sharded"]["grads"] = taps
+
+    # One step from the start under the activation policy: its values, and
+    # the placements the constrained activations took.
+    seen = set()
+    real = shd._constrain
+
+    def recording(x, spec):
+        y = real(x, spec)
+        seen.add((str(spec), str(tuple(y.placements))))
+        return y
+
+    shd._constrain = recording
+    shd.set_activation_policy(dp="data", tp="model", tp_size=4)
+    try:
+        taps = []
+        step = _step(cfg, taps)
+        params, opt = _initial(cfg, out)
+        shd.shard_params(params, cfg, mesh)
+        opt = shd.shard_opt_state(opt, cfg, mesh)
+        params, opt, m = step(params, opt, shd.shard_batch(_batch(cfg, 0), cfg, mesh))
+    finally:
+        shd.clear_activation_policy()
+        shd._constrain = real
+    res["policy"] = {"metrics": _metrics(m), "params": _params(params), "grads": taps[0],
+                     "constrained": sorted(seen)}
+
+    # The hierarchical reduction on 2x2x2, integer-valued float32 leaves
+    # whose sizes do not divide the intra size.
+    mesh3 = make_mesh((2, 2, 2), ("pod", "data", "model"), device="cpu")
+    shapes = {"a": (7, 3), "b": (5,), "nested": {"c": (2, 3, 3)}}
+
+    def tree(seed):
+        g = np.random.default_rng(seed)
+        return {"a": torch.from_numpy(g.integers(-50, 50, (7, 3)).astype(np.float32)),
+                "b": torch.from_numpy(g.integers(-50, 50, 5).astype(np.float32)),
+                "nested": {"c": torch.from_numpy(g.integers(-50, 50, (2, 3, 3))
+                                                 .astype(np.float32))}}
+
+    mine = tree(100 + rank)
+    hier = collectives.hierarchical_psum(mesh3)(mine)
+    wide = collectives.hierarchical_psum(mesh3, intra_axes=("data", "model"))(mine)
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, mine)
+    coords = mesh3.mesh.tolist()   # [pod][data][model] -> rank
+    model_of = {coords[p][d][m]: m for p in range(2) for d in range(2) for m in range(2)}
+    flat_group = None
+    for m_ in range(2):
+        ranks = [r for r, mm in sorted(model_of.items()) if mm == m_]
+        g_ = dist.new_group(ranks=ranks)
+        if model_of[rank] == m_:
+            flat_group = g_
+
+    def leaves(t, prefix=""):
+        for k, v in t.items():
+            if isinstance(v, dict):
+                yield from leaves(v, prefix + k + "/")
+            else:
+                yield prefix + k, v
+
+    psum = {"hier_vs_numpy": [], "hier_vs_flat": [], "wide_vs_numpy": []}
+    got_h, got_w = dict(leaves(hier)), dict(leaves(wide))
+    for name, x in leaves(mine):
+        want = sum(dict(leaves(everyone[r]))[name].double()
+                   for r in range(len(everyone)) if model_of[r] == model_of[rank]).float()
+        want_all = sum(dict(leaves(e))[name].double() for e in everyone).float()
+        flat = x.clone()
+        dist.all_reduce(flat, group=flat_group)
+        psum["hier_vs_numpy"].append((name, torch.equal(got_h[name], want)))
+        psum["hier_vs_flat"].append((name, torch.equal(got_h[name], flat)))
+        psum["wide_vs_numpy"].append((name, torch.equal(got_w[name], want_all)))
+    same = collectives.hierarchical_psum_shardmapped(mesh3, None)(tree(7))
+    ok = torch.tensor([all(v for _, v in rows) for rows in psum.values()], dtype=torch.int32)
+    dist.all_reduce(ok, op=dist.ReduceOp.MIN)
+    res["psum"] = {**psum, "all_ranks_ok": ok.tolist(), "same_input": dict(leaves(same)),
+                   "input": dict(leaves(tree(7))), "shapes": shapes}
+    if rank == 0:
+        torch.save(res, out / "train.pt")
+
+
+def world_elastic(rank: int, out: pathlib.Path) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import models
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.convert import stack_index
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.pipeline import pipeline_apply, split_layers_into_stages
+    from repro_torch.launch.mesh import destroy, make_mesh
+    from repro_torch.runtime.elastic import elastic_restore, plan_remesh
+    from repro_torch.train.optimizer import init_state
+
+    cfg = _cfg()
+    root = out / "ckpt_2x4"
+    flat, _ = ckpt.restore(root)
+
+    def fresh():
+        p = models.init(cfg, seed=5, device="cpu")
+        return {"params": p, "opt_state": init_state(p)}
+
+    def differing(state) -> list:
+        """Leaves whose whole tensor is not the checkpoint's, bit for bit."""
+        bad = []
+        leaves = [(f"params::{n}", p) for n, p in state["params"].named_parameters()]
+        leaves += [(f"opt_state::{k}::{n}", t) for k in ("m", "v")
+                   for n, t in state["opt_state"][k].items()]
+        for key, t in leaves:
+            head, name = key.rsplit("::", 1)
+            leaf, idx = stack_index(name)
+            want = flat[f"{head}::{leaf.replace('.', '::')}"]
+            want = torch.from_numpy(want[idx] if idx else want)
+            if not torch.equal(_whole(t), want):
+                bad.append(key)
+        if int(_whole(state["opt_state"]["step"])) != int(flat["opt_state::step"]):
+            bad.append("opt_state::step")
+        return bad
+
+    res: dict = {}
+    plan = plan_remesh(4, model_axis=2)
+    state, step_no, mesh = elastic_restore(root, cfg, plan, fresh(), device="cpu")
+    res["restored_2x2"] = {"step": step_no, "mesh": tuple(mesh.mesh.shape),
+                           "axes": tuple(mesh.mesh_dim_names), "differing": differing(state),
+                           "placements": {n: str(tuple(p.placements))
+                                          for n, p in state["params"].named_parameters()}}
+    taps: list = []
+    step = _step(cfg, taps)
+    params, opt, m = step(state["params"], state["opt_state"],
+                          shd.shard_batch(_batch(cfg, 2), cfg, mesh))
+    res["mesh_step"] = {"metrics": _metrics(m), "params": _params(params), "grads": taps[0]}
+    if rank == 0:
+        single = fresh()
+        single, _ = ckpt.restore(root, template=single)
+        taps = []
+        params, opt, m = _step(cfg, taps)(single["params"], single["opt_state"], _batch(cfg, 2))
+        res["single_step"] = {"metrics": _metrics(m), "params": _params(params),
+                              "grads": taps[0]}
+    del state, params, opt
+
+    # GPipe over 4 stages: 8 tanh layers, 6 microbatches of 4 (the JAX test's).
+    import numpy as np
+
+    g = np.random.default_rng(0)
+    L, D, M, mb, S = (PIPE[k] for k in ("L", "D", "M", "mb", "S"))
+    Ws = torch.from_numpy((g.standard_normal((L, D, D)) * 0.2).astype(np.float32))
+    x = torch.from_numpy(g.standard_normal((M, mb, D)).astype(np.float32))
+
+    def stage_fn(w, xx):
+        for i in range(w.shape[0]):
+            xx = torch.tanh(xx @ w[i])
+        return xx
+
+    smesh = make_mesh((S,), ("stage",), device="cpu")
+    piped = pipeline_apply(stage_fn, split_layers_into_stages(Ws, S), x, smesh)
+    stacked = shd.distribute(split_layers_into_stages(Ws, S), smesh, ("stage",))
+    piped_dt = pipeline_apply(stage_fn, stacked, x, smesh)
+    ref = x
+    for w in Ws:
+        ref = torch.tanh(ref @ w)
+    everyone = [None] * dist.get_world_size()
+    dist.all_gather_object(everyone, piped)
+    res["pipeline"] = {"out": piped, "sequential": ref,
+                       "same_on_every_rank": all(torch.equal(o, piped) for o in everyone),
+                       "stage_sharded_equal": torch.equal(piped_dt, piped)}
+    dist.barrier()
+    destroy()
+    if rank != 0:
+        return
+    # A one-rank world restores the same checkpoint.
+    state, step_no, mesh = elastic_restore(root, cfg, plan_remesh(1, model_axis=1), fresh(),
+                                           device="cpu")
+    res["restored_1"] = {"step": step_no, "mesh": tuple(mesh.mesh.shape),
+                         "world": dist.get_world_size(), "differing": differing(state)}
+    destroy()
+    torch.save(res, out / "elastic.pt")
+
+
+JAX_REF = textwrap.dedent(r"""
+    import sys, pathlib
+    import jax, numpy as np, jax.numpy as jnp
+    from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
+    from repro import models
+    from repro.configs import registry
+    from repro.data.pipeline import DataConfig, batch_for_model
+    from repro.distributed import sharding as shd
+    from repro.distributed.collectives import hierarchical_psum_shardmapped
+    from repro.distributed.pipeline import pipeline_apply, split_layers_into_stages
+    from repro.train.optimizer import OptimizerConfig, init_state
+    from repro.train.train_step import make_loss_fn, make_train_step
+
+    out = pathlib.Path(sys.argv[1])
+    ARCH, SEQ, BATCH, STEPS, LR = %(train)r
+    L, D, M, mb, S = %(pipe)r
+
+    def mesh_of(shape, axes):
+        return jax.make_mesh(shape, axes, axis_types=(AxisType.Auto,) * len(axes))
+
+    def flat(tree):
+        return {"/".join(str(k.key) for k in path): np.asarray(v)
+                for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+    cfg = registry.get_smoke(ARCH)
+    params = models.init(jax.random.PRNGKey(0), cfg)
+    opt = init_state(params)
+    mesh = mesh_of((2, 4), ("data", "model"))
+    named = lambda specs: jax.tree.map(lambda s: NamedSharding(mesh, s), specs,
+                                       is_leaf=lambda x: isinstance(x, P))
+    nps = named(shd.param_specs(params, cfg, mode="train"))
+    nos = named(shd.opt_state_specs(params, cfg))
+    bs = NamedSharding(mesh, P("data", None))
+    p = jax.tree.map(jax.device_put, params, nps)
+    o = jax.tree.map(jax.device_put, opt, nos)
+    step = jax.jit(make_train_step(cfg, OptimizerConfig(lr=LR, warmup_steps=1)),
+                   in_shardings=(nps, nos, bs), out_shardings=(nps, nos, None))
+    grad = jax.jit(jax.grad(make_loss_fn(cfg)), in_shardings=(nps, bs), out_shardings=nps)
+    data = DataConfig(vocab=cfg.vocab, seq_len=SEQ, global_batch=BATCH)
+    res = {}
+    for i in range(STEPS):
+        b = {k: jax.device_put(jnp.asarray(v), bs)
+             for k, v in batch_for_model(data, cfg, i).items()}
+        if i == 0:
+            res.update({"grads1/" + k: v for k, v in flat(grad(p, b)).items()})
+        p, o, m = step(p, o, b)
+        res[f"loss/{i}"] = np.float32(m["loss"])
+        res[f"grad_norm/{i}"] = np.float32(m["grad_norm"])
+        res.update({f"params{i + 1}/" + k: v for k, v in flat(p).items()})
+
+    g = np.random.default_rng(0)
+    Ws = jnp.asarray((g.standard_normal((L, D, D)) * 0.2).astype(np.float32))
+    x = jnp.asarray(g.standard_normal((M, mb, D)).astype(np.float32))
+    def stage_fn(w, xx):
+        for i in range(w.shape[0]):
+            xx = jnp.tanh(xx @ w[i])
+        return xx
+    res["pipeline"] = np.asarray(pipeline_apply(stage_fn, split_layers_into_stages(Ws, S), x,
+                                                mesh_of((S,), ("stage",))))
+
+    g = np.random.default_rng(7)
+    tree = {"a": jnp.asarray(g.integers(-50, 50, (7, 3)).astype(np.float32)),
+            "b": jnp.asarray(g.integers(-50, 50, 5).astype(np.float32)),
+            "nested": {"c": jnp.asarray(g.integers(-50, 50, (2, 3, 3)).astype(np.float32))}}
+    m3 = mesh_of((2, 2, 2), ("pod", "data", "model"))
+    summed = hierarchical_psum_shardmapped(m3, jax.tree.map(lambda _: P(), tree))(tree)
+    res.update({"psum/" + k: v for k, v in flat(summed).items()})
+    np.savez(out / "jax_ref.npz", **res)
+""") % {"train": (ARCH, SEQ, BATCH, STEPS, LR),
+        "pipe": tuple(PIPE[k] for k in ("L", "D", "M", "mb", "S"))}
+
+
+def jax_env() -> dict:
+    e = env()
+    e["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    e["JAX_PLATFORMS"] = "cpu"
+    return e
+
+
+if __name__ == "__main__":
+    name, out_dir = sys.argv[1], sys.argv[2]
+    import torch.multiprocessing as mp
+
+    sys.path.insert(0, str(ROOT / "src"))
+    pathlib.Path(out_dir, f"{name}.store").unlink(missing_ok=True)   # a stale store hangs
+    mp.spawn(_entry, args=(name, WORLDS[name], out_dir), nprocs=WORLDS[name], join=True)

@@ -221,3 +221,66 @@ def test_training_modules_load_no_jax_and_default_to_the_card():
         train.main(["--arch", "qwen3-14b", "--smoke", "--steps", "1"])
     with pytest.raises(RuntimeError, match="cuda"):
         convert.opt_state_from_numpy({"m": {}, "v": {}, "step": np.int32(0)})
+
+
+def test_distributed_modules_load_no_jax_and_default_to_the_card(tmp_path):
+    """The mesh, sharding, compression, collectives, pipeline and elastic
+    modules load no JAX; ``make_mesh``, ``make_production_mesh``,
+    ``elastic_restore`` and ``launch.train --mesh`` left at their default
+    device raise without a card, before any process group starts."""
+    mods = ("repro_torch.launch.mesh", "repro_torch.distributed.sharding",
+            "repro_torch.distributed.compression", "repro_torch.distributed.collectives",
+            "repro_torch.distributed.pipeline", "repro_torch.runtime.elastic")
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import sys, {', '.join(mods)}; "
+         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))"],
+        cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "[]", proc.stdout + proc.stderr
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device is valid")
+    import torch.distributed as dist
+
+    from repro_torch import models
+    from repro_torch.configs import registry
+    from repro_torch.launch import mesh, train
+    from repro_torch.runtime import elastic
+    from repro_torch.train.optimizer import init_state
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        mesh.make_mesh((1, 1), ("data", "model"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        mesh.make_production_mesh()
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--arch", "qwen3-14b", "--smoke", "--steps", "1", "--mesh", "1x1",
+                    "--ckpt", str(tmp_path)])
+    cfg = registry.get_smoke("qwen3-14b")
+    params = models.init(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        elastic.elastic_restore(tmp_path, cfg, elastic.plan_remesh(1, model_axis=1),
+                                {"params": params, "opt_state": init_state(params)})
+    assert not dist.is_initialized()
+
+
+def test_make_mesh_checks_the_world_size():
+    """A mesh of the wrong size for the world names both sizes; the
+    one-rank CPU world ``make_mesh`` starts is gloo's, and ``destroy``
+    tears it down."""
+    code = (
+        "import torch.distributed as dist\n"
+        "from repro_torch.launch import mesh\n"
+        "try:\n"
+        "    mesh.make_production_mesh(device='cpu')\n"
+        "except ValueError as e:\n"
+        "    print('refused:', e)\n"
+        "m = mesh.make_mesh((1, 1), ('data', 'model'), device='cpu')\n"
+        "print(tuple(m.mesh_dim_names), tuple(m.mesh.shape), dist.get_backend())\n"
+        "mesh.destroy()\n"
+        "print(dist.is_initialized())\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.splitlines() == [
+        "refused: a 16x16 mesh needs 256 ranks; the world has 1",
+        "('data', 'model') (1, 1) gloo", "False"], proc.stdout
