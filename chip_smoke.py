@@ -282,7 +282,23 @@ device mesh.  One JSON line per phase:
    sharded steps against the same 2 single-device steps, their wall times
    and a profiled sharded step; one step each with top-k and int8 gradient
    compression; ``hierarchical_psum`` and a one-stage ``pipeline_apply``;
-   ``launch.train --mesh 1x1`` as a child process; no kernel launched.
+   ``launch.train --mesh 1x1`` as a child process; no kernel launched;
+24. ``serve_mesh`` (in phase 23's world, before the launcher child): phase
+   19's dense serve step cell (qwen3-14b at full width in bf16, 2 layers,
+   batch 4 x 4,096 tokens over 16 partitions, a written prefix) through
+   ``make_serve_step`` on the 1 x 1 mesh (parameters placed by
+   ``shard_params(mode="serve")``, inputs by ``shard_serve_inputs``) for 8
+   steps beside the single-device step on the same state: logits and pools
+   bit for bit, each step's wall time;
+25. ``moe_train_mesh``: qwen3-moe-30b-a3b at full width in bf16, 2 layers,
+   2 train steps on the 1 x 1 mesh against the same steps single-device
+   from the same state, bit for bit; step seconds and peak memory;
+26. ``dryrun``: ``python -m repro_torch.launch.dryrun`` in a child process
+   (started with phase 20, CPU only, the card hidden from it) on three
+   full-width cells in fake 256/512-rank worlds (qwen3-14b train_4k 16x16,
+   qwen3-moe-30b-a3b decode_32k 2x16x16, zamba2-7b long_500k 16x16) under
+   the card's torch: every record ``ok``, each cell's per-device bytes
+   beside the card's memory.
 
 Each phase from 15 on starts from a freed card and reports its peak
 memory.  Then the ``{"kernels": [...]}`` line (K1-K8; K5's and K6's
@@ -5361,6 +5377,7 @@ def run_train_mesh(torch, state, root, single_step_s: float, single_prof: dict) 
     bit_identical = not not_bitwise and all(
         a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
         for a, b in zip(mesh_rows, single_rows))
+    state.clear()     # the caller's dict too: phases 24-25 start from a freed card
     del got, want, state, sp, so
     torch.cuda.empty_cache()
     parts["steps_checked"] = time.perf_counter() - t0
@@ -5431,9 +5448,15 @@ def run_train_mesh(torch, state, root, single_step_s: float, single_prof: dict) 
     pipe_err = (piped - ref).abs().max().item()
     pipe_seq = torch.stack([stage_fn(Ws, x[i]) for i in range(M)])
     pipe_equal = torch.equal(piped, pipe_seq)
-    destroy()
+    del Ws, x, piped, ref, pipe_seq, tree, summed
     torch.cuda.empty_cache()
     parts["psum_pipeline"] = time.perf_counter() - t0
+    t_nested = time.perf_counter()
+    run_serve_mesh(torch, mesh)
+    run_moe_train_mesh(torch, mesh)
+    t0 += time.perf_counter() - t_nested     # phases 24-25 report their own seconds
+    destroy()
+    torch.cuda.empty_cache()
 
     # The launcher on a 1 x 1 mesh, as a child process with its own world.
     ck = TRAIN_CKPT / "launch_mesh"
@@ -5485,13 +5508,265 @@ def run_train_mesh(torch, state, root, single_step_s: float, single_prof: dict) 
 
 
 def run_training(torch) -> None:
-    """Phases 20-23."""
+    """Phases 20-26 (phase 26's child runs beside phases 20-25)."""
     t0 = time.perf_counter()
+    dry = start_dryrun()
     run_train_exact(torch)
     run_train_resume(torch)
     state, root, step_s, prof = run_train_full(torch)
     run_train_mesh(torch, state, root, step_s, prof)
+    finish_dryrun(torch, dry)
     emit("training_phases", seconds=time.perf_counter() - t0)
+
+
+# ---------------------------------------------------------------------------
+# Phases 24-26: the sharded serve step and MoE's sharded train step on phase
+# 23's 1 x 1 mesh, each beside its single-device step on the same state (one
+# rank: the same ATen ops on the same tensors, so bit for bit), and the dry
+# run's full-width cells in a child process.  No kernel is on these paths:
+# the sharded steps run ``kernel_mode="reference"``, as the JAX package's dry
+# run and sharded test do, and phase 19's dense serve step launches none.
+# ---------------------------------------------------------------------------
+
+MOE_MESH_ARCH, MOE_MESH_LAYERS = "qwen3-moe-30b-a3b", 2
+MOE_MESH_BATCH, MOE_MESH_TOKENS, MOE_MESH_STEPS = 4, 1024, 2
+DRYRUN_CELLS = ("qwen3-14b:train_4k:16x16", "qwen3-moe-30b-a3b:decode_32k:2x16x16",
+                "zamba2-7b:long_500k:16x16")
+DRYRUN_OUT = ROOT / "build" / "repro_torch" / "cache" / "chip_smoke_dryrun"
+DRYRUN_TIMEOUT_S = 600
+
+
+def _step_rows_ms(torch, step, params, state: dict, tokens, ctx0, place) -> tuple:
+    """``SERVE_STEP_STEPS`` serve steps over ``state`` (updated in place):
+    (logits of each step as local tensors, each step's wall ms).  ``place``
+    turns a step's tokens and contexts into the step's inputs."""
+    logits, ms = [], []
+    for s in range(SERVE_STEP_STEPS):
+        state.update(place({"tokens": tokens[s], "ctx_len": ctx0 + 1 + s}))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, new = step(params, state)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        state.update(new)
+        logits.append(_local(out))
+    return logits, ms
+
+
+def run_serve_mesh(torch, mesh) -> None:
+    """Phase 24, ``serve_mesh``: phase 19's dense serve step cell (qwen3-14b,
+    bf16, 2 layers, batch 4 x 4,096 tokens, 16 partitions, a numpy-seeded
+    prefix written through ``write_kv_global``), 8 steps single-device and
+    8 steps on ``mesh`` (1 x 1) from the same state; logits and pools bit
+    for bit; no kernel launched."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import models
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels.common import launch_tally
+    from repro_torch.serve.serve_step import make_serve_step
+
+    sc = _serve_cases()
+    _phase_start(torch)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(registry.get_config(SERVE_ARCH),
+                              num_layers=SERVE_STEP_CUT[SERVE_ARCH])
+    cell = ShapeConfig(**SERVE_STEP_CELL)
+    B, S = cell.global_batch, cell.seq_len
+    gen = torch.Generator(device=dev).manual_seed(FAMILY_SEED)
+    specs = registry.input_specs(cfg, cell, num_partitions=SERVE_STEP_PARTITIONS)
+    ctx0 = torch.from_numpy(np.random.default_rng(FAMILY_SEED).integers(
+        S * 3 // 4, S - SERVE_STEP_STEPS + 1, B).astype(np.int32)).to(dev)
+
+    def normal(shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def integers(high, shape):
+        return torch.randint(0, high, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    inputs = sc.random_inputs(cfg, specs, ctx0 + 1, normal, integers)
+    L, _, _, _, page, Hkv, hd = inputs["k_pools"].shape
+    for name in ("k_pools", "v_pools"):
+        inputs[name].zero_()
+        kv = normal((L, B, int(ctx0.max()), Hkv, hd)).to(inputs[name].dtype)
+        sc.write_prefix(inputs[name], inputs["tables"], kv, ctx0, page)
+        del kv
+    tokens = integers(cfg.vocab, (SERVE_STEP_STEPS, B))
+    params = models.init(cfg, seed=FAMILY_SEED, device=dev)
+    step = make_serve_step(cfg, kernel_mode="reference")
+    single = {k: v.clone() for k, v in inputs.items()}
+    _zero_launches()
+    with launch_tally() as tally, torch.no_grad():
+        want, single_ms = _step_rows_ms(torch, step, params, single, tokens, ctx0, dict)
+        t1 = time.perf_counter()
+        shd.shard_params(params, cfg, mesh, mode="serve")
+        placed = shd.shard_serve_inputs(inputs, cfg, cell, mesh)
+        place_s = time.perf_counter() - t1
+        got, mesh_ms = _step_rows_ms(torch, step, params, placed, tokens, ctx0,
+                                     lambda x: shd.shard_serve_inputs(x, cfg, cell, mesh))
+    launched = sum(_launches().values()) + sum(tally.values())
+    differ = [s for s, (a, b) in enumerate(zip(got, want)) if not torch.equal(a, b)]
+    pools_equal = {k: torch.equal(_local(placed[k]), single[k]) for k in ("k_pools", "v_pools")}
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    emit("serve_mesh", arch=SERVE_ARCH, family=cfg.family, dtype=cfg.dtype, layers=L,
+         mesh=[1, 1], world=1, cell=SERVE_STEP_CELL, partitions=SERVE_STEP_PARTITIONS,
+         prefix_tokens=ctx0.tolist(), steps=SERVE_STEP_STEPS, kernel_mode="reference",
+         placements={k: str(tuple(v.placements)) for k, v in placed.items()},
+         place_s=place_s, step_ms_single=single_ms, step_ms_mesh=mesh_ms,
+         step_ms_single_mean=sum(single_ms) / len(single_ms),
+         step_ms_mesh_mean=sum(mesh_ms) / len(mesh_ms),
+         step_ms_mesh_warm_mean=sum(mesh_ms[1:]) / (len(mesh_ms) - 1),
+         bit_identical=not differ and all(pools_equal.values()), steps_differing=differ,
+         pools_equal=pools_equal, max_abs_err=err, finite=finite, launches=launched,
+         peak_gb=_peak_gb(torch), seconds=time.perf_counter() - t0)
+    if differ or not all(pools_equal.values()) or not finite:
+        fail(f"serve_mesh: the 1 x 1 serve step differs from the single-device one at steps "
+             f"{differ}, pools equal {pools_equal} (max |diff| {err}), finite {finite}")
+    if launched:
+        fail(f"serve_mesh: the phase launched {launched} kernels")
+    del params, inputs, single, placed, got, want
+    torch.cuda.empty_cache()
+
+
+def run_moe_train_mesh(torch, mesh) -> None:
+    """Phase 25, ``moe_train_mesh``: qwen3-moe-30b-a3b at full width in bf16
+    cut to 2 layers (128 experts, top-8), ``MOE_MESH_STEPS`` train steps of
+    4 x 1,024 tokens single-device, then the same steps on ``mesh`` (1 x 1)
+    from the same state (the same seed), bit for bit; each step's seconds
+    and each run's peak memory (the sharded run's includes the single-device
+    state held for the comparison, ``held_for_comparison_gb``); no kernel
+    launched."""
+    import dataclasses
+
+    from repro_torch import models
+    from repro_torch.configs import registry
+    from repro_torch.data.pipeline import DataConfig, batch_for_model
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels.common import launch_tally
+    from repro_torch.train.optimizer import OptimizerConfig, init_state
+    from repro_torch.train.train_step import make_train_step
+
+    _phase_start(torch)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(registry.get_config(MOE_MESH_ARCH), num_layers=MOE_MESH_LAYERS)
+    data = DataConfig(vocab=cfg.vocab, seq_len=MOE_MESH_TOKENS, global_batch=MOE_MESH_BATCH)
+    batches = [{k: torch.from_numpy(v).cuda(non_blocking=False)
+                for k, v in batch_for_model(data, cfg, i).items()}
+               for i in range(MOE_MESH_STEPS)]
+    step = make_train_step(cfg, OptimizerConfig(warmup_steps=1, total_steps=MOE_MESH_STEPS))
+    _zero_launches()
+    with launch_tally() as tally:
+        torch.cuda.reset_peak_memory_stats()
+        params = models.init(cfg, seed=TRAIN_SEED, device="cuda")
+        opt = init_state(params)
+        single_rows = _mesh_step_rows(torch, step, params, opt, batches)
+        peak_single = _peak_gb(torch)
+        want = [(n, t.detach().clone()) for n, t in _state_leaves(params, opt)]
+        held_gb = sum(t.numel() * t.element_size() for _, t in want) / 1e9
+        del params, opt
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = models.init(cfg, seed=TRAIN_SEED, device="cuda")
+        opt = init_state(params)
+        shd.shard_params(params, cfg, mesh)
+        opt = shd.shard_opt_state(opt, cfg, mesh)
+        mesh_rows = _mesh_step_rows(torch, step, params, opt,
+                                    [shd.shard_batch(b, cfg, mesh) for b in batches])
+        peak_mesh = _peak_gb(torch)
+    launched = sum(_launches().values()) + sum(tally.values())
+    got = [(n, _local(t)) for n, t in _state_leaves(params, opt)]
+    not_bitwise = _bitwise(torch, got, want)
+    bit_identical = not not_bitwise and all(
+        a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+        for a, b in zip(mesh_rows, single_rows))
+    finite = all(math.isfinite(r["loss"]) for r in single_rows + mesh_rows)
+    n_params = sum(p.numel() for p in params.parameters())
+    emit("moe_train_mesh", arch=MOE_MESH_ARCH, layers=MOE_MESH_LAYERS, dtype=cfg.dtype,
+         experts=cfg.moe.num_experts, top_k=cfg.moe.top_k, parameters=n_params,
+         batch=MOE_MESH_BATCH, tokens=MOE_MESH_TOKENS, steps=MOE_MESH_STEPS, mesh=[1, 1],
+         single_steps=single_rows, mesh_steps=mesh_rows, bit_identical=bit_identical,
+         not_bit_identical=not_bitwise[:8], finite=finite, peak_gb_single=peak_single,
+         peak_gb_mesh=peak_mesh, held_for_comparison_gb=held_gb,
+         peak_gb_mesh_without_held=peak_mesh - held_gb, launches=launched,
+         seconds=time.perf_counter() - t0)
+    if not bit_identical or not finite:
+        fail(f"moe_train_mesh: the 1 x 1 steps differ from the single-device ones "
+             f"({not_bitwise[:4]}; losses {[r['loss'] for r in mesh_rows]} against "
+             f"{[r['loss'] for r in single_rows]})")
+    if launched:
+        fail(f"moe_train_mesh: the phase launched {launched} kernels")
+    del params, opt, got, want, batches
+    torch.cuda.empty_cache()
+
+
+def start_dryrun():
+    """Phase 26's child, started before the training phases so that it runs
+    beside them: the dry run of ``DRYRUN_CELLS`` (meta device, fake worlds;
+    the card hidden from it)."""
+    import shutil
+    import subprocess
+
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--cells", ",".join(DRYRUN_CELLS),
+         "--out", str(DRYRUN_OUT), "--no-resume"],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1",
+                       "CUDA_VISIBLE_DEVICES": ""},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def finish_dryrun(torch, started) -> None:
+    """Phase 26, ``dryrun``: wait for the child; one summary a cell, its
+    per-device argument bytes and peak estimate beside the card's memory;
+    every cell must be ``ok``, its peak estimate free of DTensor's
+    propagation tensors, and every decode cell free of pool-sized
+    collectives."""
+    import subprocess
+
+    t_start, proc = started
+    t0 = time.perf_counter()
+    try:
+        out, err = proc.communicate(timeout=max(1.0, DRYRUN_TIMEOUT_S - (t0 - t_start)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        err += f"\nkilled after {DRYRUN_TIMEOUT_S} s"
+    total = torch.cuda.get_device_properties(0).total_memory
+    cells = []
+    for cell in DRYRUN_CELLS:
+        arch, shape, mesh = cell.split(":")
+        path = DRYRUN_OUT / f"{arch}__{shape}__{mesh}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {"ok": False, "error": "none"}
+        mem = rec.get("memory", {})
+        cells.append({k: rec.get(k) for k in (
+            "arch", "shape", "mesh", "kind", "chips", "ok", "error", "trace_s", "torch_version",
+            "mesh_device_type", "param_count", "input_bytes", "flops", "flops_scope",
+            "collective_bytes", "collective_count", "largest_collective_bytes",
+            "pool_layer_shard_bytes", "pool_sized_collectives", "shard_shapes_checked")}
+            | {"argument_bytes": mem.get("argument_bytes"),
+               "peak_live_bytes_estimate": mem.get("peak_live_bytes"),
+               "propagation_excluded": mem.get("propagation_excluded"),
+               "peak_top": mem.get("peak_top", [])[:3],
+               "card_total_memory": total,
+               "argument_share_of_card": (mem.get("argument_bytes") or 0) / total,
+               "uneven_leaves": len(rec.get("uneven", []))})
+    emit("dryrun", cells=cells, rc=proc.returncode, wall_s=time.perf_counter() - t_start,
+         waited_s=time.perf_counter() - t0, stdout=out.splitlines()[-6:],
+         out_dir=str(DRYRUN_OUT.relative_to(ROOT)))
+    bad = [(c["arch"], c["shape"], c["mesh"], c.get("error")) for c in cells
+           if not c["ok"] or not c["propagation_excluded"]]
+    if proc.returncode != 0 or bad:
+        fail(f"dryrun: rc {proc.returncode}, failed cells {bad}: {err[-2000:]}")
+    pooled = [(c["arch"], c["shape"]) for c in cells if c.get("pool_sized_collectives")]
+    if pooled:
+        fail(f"dryrun: pool-sized collectives in {pooled}")
 
 
 if __name__ == "__main__":

@@ -19,7 +19,7 @@ path (``layers/attn/wq``), at the JAX leaf's rank: a port parameter
 leading entries, which the rules never shard.  :func:`placements` turns a
 spec into DTensor placements on a :class:`DeviceMesh`; :func:`shard_params`,
 :func:`shard_opt_state` and :func:`shard_batch` place a training state and
-a batch with them.
+a batch with them, :func:`shard_serve_inputs` a serve step's state.
 """
 from __future__ import annotations
 
@@ -272,19 +272,62 @@ def shard_batch(batch: Dict[str, torch.Tensor], cfg: ModelConfig, mesh) -> Dict:
     return {k: distribute(v, mesh, specs.get(k, (dp,))) for k, v in batch.items()}
 
 
+def shard_serve_inputs(inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
+                       shape: ShapeConfig, mesh) -> Dict:
+    """A serve step's inputs (whole tensors, the same on every rank) placed
+    by :func:`serve_input_specs` for ``shape`` (multi-pod where the mesh has
+    a ``pod`` axis): pools and tables with B over the data axes and P over
+    the partition axes, each rank keeping its own shard."""
+    specs = serve_input_specs(cfg, shape, multi_pod=_multi_pod(mesh))
+    return {k: distribute(v, mesh, specs[k]) for k, v in inputs.items()}
+
+
 def gather_rows(table, ids):
     """``table[ids]`` (an embedding lookup), the rows in ``ids``'s
     placements.  For a DTensor table the ids are replicated for the lookup
     and the rows redistributed afterwards: the lookup's backward (an
     ``index_put``) fails in DTensor on sharded ids (torch 2.11: "Shard dim
     -1 in placements ... must be normalized"), and ``F.embedding`` fails on
-    the train layout in both versions (an ``IndexError``)."""
+    the train layout in both versions (an ``IndexError``).
+
+    A table sharded on its rows only (the serve layout: vocab over
+    ``model``) is read shard-locally instead (:func:`_vocab_parallel_rows`):
+    DTensor's rule for the index would all-gather the whole table."""
     if not (is_dtensor(table) and is_dtensor(ids)):
         return table[ids]
-    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor import Replicate, Shard
 
+    if all(isinstance(p, Replicate) or p == Shard(0) for p in table.placements) \
+            and Shard(0) in table.placements:
+        return _vocab_parallel_rows(table, ids)
     whole = ids.redistribute(ids.device_mesh, (Replicate(),) * ids.device_mesh.ndim)
     return aligned(table[whole], ids)
+
+
+def _vocab_parallel_rows(table, ids):
+    """``table[ids]`` for a table sharded on dim 0 only: each rank looks the
+    ids up in its own rows (zeros for ids it does not hold), and one
+    all-reduce (a sum with one non-zero term, exact) over the mesh dims that
+    shard the table gives every rank its rows, in ``ids``'s batch
+    placements."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = table.device_mesh
+    vocab = [p == Shard(0) for p in table.placements]
+    rows = tuple(Replicate() if v else p for v, p in zip(vocab, ids.placements))
+    if tuple(ids.placements) != rows:
+        ids = ids.redistribute(mesh, rows)
+    local, mine_ids = table.to_local(), ids.to_local()
+    v0 = compute_local_shape_and_global_offset(table.shape, mesh, table.placements)[1][0]
+    rel = mine_ids - v0
+    held = (rel >= 0) & (rel < local.shape[0])
+    got = torch.where(held[..., None], local[rel.clamp(0, max(local.shape[0] - 1, 0))], 0)
+    shape = (*ids.shape, table.shape[1])
+    pending = tuple(Partial("sum") if v else p for v, p in zip(vocab, rows))
+    return DTensor.from_local(got, mesh, pending, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride()
+                              ).redistribute(mesh, rows)
 
 
 def batch_only(x):
@@ -303,6 +346,14 @@ def batch_only(x):
     if want == tuple(x.placements):
         return x
     return x.redistribute(x.device_mesh, want)
+
+
+def whole(x):
+    """``x`` unchanged, or, for a DTensor, the whole tensor as a plain tensor
+    on every rank (a shard all-gathered, a pending partial sum reduced):
+    MoE's [tokens, k] routing ids, where DTensor's index rules fail on a
+    sharded dim."""
+    return x.full_tensor() if is_dtensor(x) else x
 
 
 def replicate_dim(x, dim: int, parts: int):

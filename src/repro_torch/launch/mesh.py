@@ -7,7 +7,8 @@ processes of one ``torch.distributed`` world: NCCL for ``"cuda"``, gloo for
 world when none exists: from torchrun's ``RANK`` / ``WORLD_SIZE`` /
 ``MASTER_ADDR`` / ``MASTER_PORT`` where they are set, else as a one-rank
 world on an in-process ``HashStore`` (no network port).  A caller that
-starts its own world (a ``FileStore``, say) calls
+starts its own world (a ``FileStore``, say, or the dry run's ``fake``
+backend, whose collectives move nothing) calls
 ``torch.distributed.init_process_group`` first; :func:`make_mesh` then uses
 it.  :func:`destroy` tears the world down.
 
@@ -39,7 +40,7 @@ def init_world(device: Union[str, torch.device] = "cuda") -> Tuple[int, int]:
     backend = "nccl" if dev.type == "cuda" else "gloo"
     if dist.is_initialized():
         have = str(dist.get_backend())
-        if backend not in have:
+        if backend not in have and have != "fake":   # the dry run's world: no data moves
             raise RuntimeError(f"a {have} process group exists; a {dev.type} mesh needs "
                                f"{backend}")
         return dist.get_rank(), dist.get_world_size()

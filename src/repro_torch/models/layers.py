@@ -123,7 +123,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     cos = torch.cos(angles)[..., None, :]                            # [..., T, 1, D/2]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-2)
+    # dim counted from the front: DTensor 2.11 shifts a shard wrongly for dim=-2
+    out = torch.stack([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=x.ndim - 1)
     return out.reshape(x.shape).to(x.dtype)
 
 

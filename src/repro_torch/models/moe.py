@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import is_dtensor, whole
 from repro_torch.models.layers import Device, _normal, dense_init, param
 
 
@@ -62,6 +63,84 @@ def _top_k(gates: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], ids[..., :k]
 
 
+class _Shards:
+    """Where a rank's share of the work lies: tokens ``t0 .. t0 + Tl - 1`` of
+    the flattened batch and experts ``e0 .. e0 + El - 1``, all of both for
+    plain tensors.  On a mesh the tokens keep their batch shard over the
+    axes that shard them (the token axes) and the experts theirs over the
+    axes that shard the expert weights' leading dim (the expert axes); each
+    method below is the identity on plain tensors."""
+
+    def __init__(self, xf: torch.Tensor, w: torch.Tensor, E: int, C: int):
+        self.mesh = xf.device_mesh if is_dtensor(xf) else None
+        self.t0, self.Tl, self.e0, self.El = 0, xf.shape[0], 0, E
+        if self.mesh is None:
+            return
+        from torch.distributed.tensor import Partial, Replicate, Shard
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        mesh, D = self.mesh, xf.shape[1]
+        wp = w.placements if is_dtensor(w) else (Replicate(),) * mesh.ndim
+        ex = [isinstance(q, Shard) and q.dim == 0 for q in wp]
+        tk = [isinstance(q, Shard) and q.dim == 0 and not e for q, e in zip(xf.placements, ex)]
+
+        def pl(tok, exp, other=Replicate()):
+            return tuple(tok if t else exp if e else other for t, e in zip(tk, ex))
+
+        self.tokens_pl = pl(Shard(0), Replicate())       # [T, ...]: rows over the token axes
+        self.tokens_grad = pl(Shard(0), Partial())       # each expert rank's share of their grad
+        self.dispatch_pl = pl(Partial(), Shard(0))       # [E, C, D]: my tokens' rows of my experts
+        self.experts_pl = pl(Shard(1), Shard(0))         # the expert products' layout
+        self.rows_pl = pl(Replicate(), Shard(0))         # [E, C, D]: my experts, every slot
+        self.rows_grad = pl(Partial(), Shard(0))
+        self.out_pl = pl(Shard(0), Partial())            # [T, D]: my experts' share of my tokens
+        T = xf.shape[0]
+        (self.Tl, _), (self.t0, _) = compute_local_shape_and_global_offset((T, D), mesh,
+                                                                           self.tokens_pl)
+        (self.El, _, _), (self.e0, _, _) = compute_local_shape_and_global_offset(
+            (E, C, D), mesh, self.rows_pl)
+
+    def tokens(self, t: torch.Tensor) -> torch.Tensor:
+        """A [T, ...] tensor's rows of this rank's tokens, plain."""
+        if self.mesh is None:
+            return t
+        if tuple(t.placements) != self.tokens_pl:
+            t = t.redistribute(self.mesh, self.tokens_pl)
+        return t.to_local(grad_placements=self.tokens_grad)
+
+    def dispatched(self, h: torch.Tensor, shape) -> torch.Tensor:
+        """[El, C, D] rows of this rank's tokens for its experts -> the
+        dispatch buffer: the token axes' rows summed, each rank keeping its
+        share of the slots (a reduce-scatter over the token axes)."""
+        if self.mesh is None:
+            return h
+        from torch.distributed.tensor import DTensor
+
+        h = DTensor.from_local(h, self.mesh, self.dispatch_pl, run_check=False, shape=shape,
+                               stride=torch.empty(shape, device="meta").stride())
+        return h.redistribute(self.mesh, self.experts_pl)
+
+    def expert_rows(self, ho: torch.Tensor) -> torch.Tensor:
+        """[E, C, D] expert outputs -> this rank's experts' [El, C, D], plain
+        (every slot: an all-gather over the token axes)."""
+        if self.mesh is None:
+            return ho
+        if tuple(ho.placements) != self.rows_pl:
+            ho = ho.redistribute(self.mesh, self.rows_pl)
+        return ho.to_local(grad_placements=self.rows_grad)
+
+    def combined(self, out: torch.Tensor, shape) -> torch.Tensor:
+        """[Tl, D] this rank's experts' share of its tokens' outputs -> the
+        output in the tokens' layout (summed over the expert axes)."""
+        if self.mesh is None:
+            return out
+        from torch.distributed.tensor import DTensor
+
+        out = DTensor.from_local(out, self.mesh, self.out_pl, run_check=False, shape=shape,
+                                 stride=torch.empty(shape, device="meta").stride())
+        return out.redistribute(self.mesh, self.tokens_pl)
+
+
 def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, T, D] -> (out [B, T, D], aux load-balance loss, a float32
     scalar)."""
@@ -73,11 +152,18 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor
     dev = x.device
 
     xf = x.reshape(tokens, D)
+    sh = _Shards(xf, p.w_gate, E, C)
+    if sh.mesh is not None and tuple(xf.placements) != sh.tokens_pl:
+        xf = xf.redistribute(sh.mesh, sh.tokens_pl)
     gates = torch.softmax(xf.float() @ p.router, dim=-1)                   # [T, E]
     weights, ids = _top_k(gates, K)                                        # [T, K]
     weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    flat_ids = ids.reshape(-1)                                             # [T*K]
+    # The routing's bookkeeping is integer work on the [tokens * K] ids, the
+    # same on every rank of a mesh: there the ids are replicated and it runs
+    # on the whole plain tensor (DTensor has no rule for writing a plain
+    # tensor in place from a DTensor).
+    flat_ids = whole(ids).reshape(-1)                                      # [T*K]
     tk = tokens * K
 
     # Aux load-balance loss (Switch-style): E * sum_e f_e * P_e.  The counts
@@ -99,13 +185,24 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor
     rank = pos - seg_start                                                 # rank within expert
     keep = rank < C
     slot = sorted_ids * C + torch.clamp_max(rank, C - 1)                   # [T*K]
+    # Each of this rank's tokens' k assignments, in token order: its sorted
+    # position, its slot (within this rank's experts) and whether it is kept.
+    unsort = torch.empty_like(sort)
+    unsort[sort] = pos
+    mine = unsort[sh.t0 * K:(sh.t0 + sh.Tl) * K]
+    s, kept = slot[mine], keep[mine]
+    if sh.El < E:                                   # this rank holds some of the experts
+        s = s - sh.e0 * C
+        kept = kept & (s >= 0) & (s < sh.El * C)
+        s = s.clamp(0, sh.El * C - 1)
 
-    token_of = sort // K                                                   # source token
-    # Dispatch: [E*C, D] buffer; dropped assignments go to one spare row past
-    # the end, never read (the JAX package's mode="drop").
-    buf = torch.zeros((E * C + 1, D), dtype=x.dtype, device=dev)
-    buf[torch.where(keep, slot, E * C)] = xf[token_of]
-    h = buf[:E * C].view(E, C, D)
+    # Dispatch: the [El*C, D] buffer filled from this rank's tokens (kept
+    # slots are distinct; the others go to one spare row past the end, never
+    # read: the JAX package's mode="drop").  On a mesh the token axes' rows
+    # are then summed.
+    buf = torch.zeros((sh.El * C + 1, D), dtype=x.dtype, device=dev)
+    buf[torch.where(kept, s, sh.El * C).view(sh.Tl, K)] = sh.tokens(xf)[:, None]
+    h = sh.dispatched(buf[:sh.El * C].view(sh.El, C, D), (E, C, D))
 
     # Expert GLU FFN, batched over experts.
     if cfg.activation == "gelu_glu":
@@ -113,13 +210,11 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor
     else:
         hg = F.silu(torch.bmm(h, p.w_gate.to(x.dtype)))
     hu = torch.bmm(h, p.w_up.to(x.dtype))
-    ho = torch.bmm(hg * hu, p.w_down.to(x.dtype)).reshape(E * C, D)
+    ho = sh.expert_rows(torch.bmm(hg * hu, p.w_down.to(x.dtype))).reshape(sh.El * C, D)
 
-    # Combine: each assignment's weighted output, back in token order.
-    w_flat = weights.reshape(-1)[sort]                                     # sorted order
-    contrib = ho[torch.clamp_max(slot, E * C - 1)] * \
-        torch.where(keep, w_flat, 0.0)[:, None].to(x.dtype)
-    unsort = torch.empty_like(sort)
-    unsort[sort] = pos
-    out = contrib[unsort].view(tokens, K, D).sum(1)
+    # Combine: each assignment's weighted output (zero where not kept),
+    # summed over each token's k.
+    w = torch.where(kept, sh.tokens(weights).reshape(-1), 0.0)
+    contrib = ho[s] * w[:, None].to(x.dtype)
+    out = sh.combined(contrib.view(sh.Tl, K, D).sum(1), (tokens, D))
     return out.reshape(B, T, D), aux

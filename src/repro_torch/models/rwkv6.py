@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import gather_rows
+from repro_torch.distributed.sharding import aligned, batch_only, gather_rows
 from repro_torch.kernels.common import as_device
 from repro_torch.kernels.rwkv6_scan import rwkv6_decode_step, rwkv6_scan
 from repro_torch.models.layers import (
@@ -193,19 +193,21 @@ def decode_step(params: RWKV6, tokens: torch.Tensor, cfg: ModelConfig, state: di
                 kernel_mode: str = "auto"):
     """O(1) per-token decode (the state's size does not grow with the
     context).  Returns (logits [B, V], new state)."""
-    x = params.embed[tokens.long()][:, None, :]
+    x = gather_rows(params.embed, tokens.long())[:, None, :]
     tm_s, cm_s, wkv_s = [], [], []
     for i, lp in enumerate(params.layers):
         h, tm_new, wkv_new = _time_mix(
             lp.tm, apply_norm(lp.ln1, x, cfg.norm), cfg, kernel_mode,
             shift_state=state["tm_shift"][i], wkv_state=state["wkv"][i])
-        x = x + h
+        x = batch_only(x + h)
         h, cm_new = _channel_mix(lp.cm, apply_norm(lp.ln2, x, cfg.norm),
                                  shift_state=state["cm_shift"][i])
-        x = x + h
-        tm_s.append(tm_new)
-        cm_s.append(cm_new)
-        wkv_s.append(wkv_new)
+        x = batch_only(x + h)
+        # On a mesh each layer's new state takes its input's placements
+        # (a stack of mixed pending sums and means has no rule).
+        tm_s.append(aligned(tm_new, state["tm_shift"][i]))
+        cm_s.append(aligned(cm_new, state["cm_shift"][i]))
+        wkv_s.append(aligned(wkv_new, state["wkv"][i]))
     x = apply_norm(params.final_norm, x, cfg.norm)
     logits = (x @ params.lm_head)[:, 0]
     return logits, {"tm_shift": torch.stack(tm_s), "cm_shift": torch.stack(cm_s),

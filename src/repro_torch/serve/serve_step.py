@@ -20,6 +20,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import aligned, gather_rows, is_dtensor
 from repro_torch.models import mamba2
 from repro_torch.models import rwkv6 as rwkv6_m
 from repro_torch.models import transformer as tfm
@@ -45,7 +46,7 @@ def _hybrid_serve(cfg: ModelConfig, kernel_mode: str):
     def step(params, inputs):
         tokens, ctx = inputs["tokens"], inputs["ctx_len"]
         k_pools, v_pools = inputs["k_pools"], inputs["v_pools"]
-        x = params.embed[tokens.long()][:, None, :]
+        x = gather_rows(params.embed, tokens.long())[:, None, :]
         conv, ssm = [], []
         for g, group in enumerate(params.mamba):
             for j, mp in enumerate(group):
@@ -77,7 +78,8 @@ def _encdec_serve(cfg: ModelConfig, kernel_mode: str):
         tokens, ctx = inputs["tokens"], inputs["ctx_len"]
         k_pools, v_pools = inputs["k_pools"], inputs["v_pools"]
         pos = (ctx - 1).long()
-        x = params.embed[tokens.long()][:, None, :] + params.dec_pos[pos][:, None, :]
+        x = gather_rows(params.embed, tokens.long())[:, None, :] + \
+            params.dec_pos[pos][:, None, :]
         for i, lp in enumerate(params.dec_layers):
             x, _, _ = decode_block_global(whisper.self_attention_block(lp), x, cfg,
                                           k_pools[i], v_pools[i], inputs["tables"], ctx,
@@ -90,11 +92,34 @@ def _encdec_serve(cfg: ModelConfig, kernel_mode: str):
     return step
 
 
+def _placed(logits, new_state, inputs):
+    """The sharded step's outputs in ``sharding.serve_output_specs``'
+    placements: logits [B, V] with B as the tokens and V over ``model``,
+    each new state tensor as its input."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    tok = inputs["tokens"]
+    want = tuple(p if isinstance(p, Shard) else Shard(1) if name == "model" else Replicate()
+                 for p, name in zip(tok.placements, tok.device_mesh.mesh_dim_names))
+    if tuple(logits.placements) != want:
+        logits = logits.redistribute(tok.device_mesh, want)
+    return logits, {k: aligned(v, inputs[k]) for k, v in new_state.items()}
+
+
 def make_serve_step(cfg: ModelConfig, *, kernel_mode: str = "auto") -> Callable:
     """Returns ``step(params, inputs) -> (logits [B, V], new_state)`` for the
     decode shapes.  ``auto`` runs the kernels for data on the card (the JAX
-    package defaults to ``reference`` here, its dry-run choice)."""
-    return {
+    package defaults to ``reference`` here, its dry-run choice).
+
+    The same step serves a sharded state: parameters placed by
+    ``shard_params(..., mode="serve")`` and inputs by
+    ``sharding.shard_serve_inputs``.  It then runs under
+    ``implicit_replication`` (a plain tensor the model makes counts as
+    replicated), each rank reads only its own partitions' pages
+    (:mod:`repro_torch.models.paged_global`), and the outputs come back in
+    ``serve_output_specs``' placements.  Run it with
+    ``kernel_mode="reference"`` there, as the JAX package's dry run does."""
+    step = {
         "dense": _dense_serve,
         "moe": _dense_serve,
         "vlm": _dense_serve,
@@ -102,3 +127,12 @@ def make_serve_step(cfg: ModelConfig, *, kernel_mode: str = "auto") -> Callable:
         "ssm": _ssm_serve,
         "encdec": _encdec_serve,
     }[cfg.family](cfg, kernel_mode)
+
+    def serve(params, inputs):
+        if not is_dtensor(inputs["tokens"]):
+            return step(params, inputs)
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with implicit_replication():
+            return _placed(*step(params, inputs), inputs)
+    return serve

@@ -19,6 +19,7 @@ plain tensors.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict
 
 import torch
@@ -26,7 +27,7 @@ from torch import nn
 
 from repro_torch import models
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.distributed.sharding import is_dtensor, whole
 from repro_torch.train.optimizer import OptimizerConfig, apply_updates
 
 
@@ -77,7 +78,7 @@ def make_train_step(
 
         with implicit_replication():
             params, opt_state, metrics = _step(params, names, leaves, opt_state, batch)
-        return params, opt_state, {k: _whole(v) for k, v in metrics.items()}
+        return params, opt_state, {k: whole(v) for k, v in metrics.items()}
 
     def _step(params: nn.Module, names, leaves, opt_state: Dict, batch: Dict):
         if microbatches == 1:
@@ -112,10 +113,6 @@ def _sharded(leaves) -> bool:
     return any(is_dtensor(p) for p in leaves)
 
 
-def _whole(t: torch.Tensor) -> torch.Tensor:
-    return t.full_tensor() if is_dtensor(t) else t
-
-
 def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """A DTensor gradient in its parameter's placements; else ``g``."""
     if is_dtensor(g) and g.placements != p.placements:
@@ -126,9 +123,15 @@ def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 def make_prefill_step(cfg: ModelConfig, *, kernel_mode: str = "auto") -> Callable:
     """Inference prefill: ``step(params, batch) -> next-token logits [B, V]``
     of a prompt batch (``batch["tokens"]`` [B, T]) through the family's
-    ``forward``.  ``auto`` runs the kernels for data on the card (the JAX
+    ``forward``; on DTensor parameters under ``implicit_replication``, as
+    the train step.  ``auto`` runs the kernels for data on the card (the JAX
     package defaults to ``reference`` here, its dry-run choice)."""
     def step(params, batch):
-        logits, _ = models.forward(params, batch, cfg, kernel_mode=kernel_mode)
-        return logits[:, -1]
+        scope = contextlib.nullcontext()
+        if _sharded(list(params.parameters())):
+            from torch.distributed.tensor.experimental import implicit_replication
+
+            scope = implicit_replication()
+        with scope:
+            return models.forward(params, batch, cfg, kernel_mode=kernel_mode)[0][:, -1]
     return step

@@ -18,6 +18,16 @@ the limit passes, so a hang fails a test instead of stopping the run.
   ``elastic_restore(plan_remesh(4, model_axis=2))`` and one more step,
   beside the single-device step from the same checkpoint; ``pipeline_apply``
   over 4 stages; then a one-rank world restoring the same checkpoint.
+* ``serve`` (8 ranks): the JAX package's sharded serve test's 12 decode
+  steps through ``make_serve_step``, single-device and sharded on 2x4 (one
+  step's collectives traced), then zamba2's smoke config through the
+  registry's decode and long-decode inputs (one sequence, partitions over
+  both axes) on a 2x2 mesh of ranks 0-3; :data:`JAX_SERVE_REF`
+  is that JAX test's body on an Auto-axis mesh.
+* ``moe`` (4 ranks): qwen3-moe-30b-a3b's smoke config from the JAX
+  package's initial parameters (``<dir>/moe_init``), 3 steps single-device
+  and 3 sharded on 2x2 (one MoE block's forward and backward traced), then
+  step 1 on a 1 x 1 mesh.
 * :data:`JAX_REF`: the JAX package's sharded step, pipeline and reduction
   on meshes of Auto axes over 8 forced host devices (``jax.make_mesh``
   gives Explicit axes on jax 0.9.0, which the three tests of
@@ -36,7 +46,16 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCH = "qwen3-14b"
 SEQ, BATCH, STEPS, LR = 16, 4, 3, 1e-3
 PIPE = dict(L=8, D=16, M=6, mb=4, S=4)
-WORLDS = {"train": 8, "elastic": 4}
+# The serve world: the JAX package's sharded serve test's cell
+# (tests/test_distributed.py::test_serve_step_sharded_lowers_and_runs).
+SERVE_ARCH, SERVE = "stablelm-12b", dict(B=4, T=12, page=4, P=4)
+# zamba2 on 2x2: a decode batch (partitions over ``model``) and one long
+# sequence (partitions over every axis), each with a written prefix.
+HYBRID_ARCH, HYBRID_T, HYBRID_PAGE, HYBRID_STEPS = "zamba2-7b", 16, 4, 3
+HYBRID = {"decode": dict(B=2, P=2, prefix=(9, 6)), "long_decode": dict(B=1, P=4, prefix=(11,))}
+TRACED_STEP = 6                    # the serve step whose collectives are recorded
+MOE_ARCH = "qwen3-moe-30b-a3b"
+WORLDS = {"train": 8, "elastic": 4, "serve": 8, "moe": 4}
 
 
 def start(cmd, env=None) -> subprocess.Popen:
@@ -360,6 +379,307 @@ def world_elastic(rank: int, out: pathlib.Path) -> None:
                          "world": dist.get_world_size(), "differing": differing(state)}
     destroy()
     torch.save(res, out / "elastic.pt")
+
+
+def serve_cfg(registry):
+    """The serve world's config (either package's registry): stablelm-12b's
+    smoke config with 4-token pages."""
+    import dataclasses
+
+    return dataclasses.replace(registry.get_smoke(SERVE_ARCH), kv_page_size=SERVE["page"])
+
+
+def _serve_geometry():
+    """(B, T, page, partitions, pages a partition holds of a sequence)."""
+    B, T, page, Pn = (SERVE[k] for k in ("B", "T", "page", "P"))
+    pages = -(-T // page)
+    return B, T, page, Pn, -(-pages // Pn)
+
+
+def world_serve(rank: int, out: pathlib.Path) -> None:
+    """The JAX sharded serve test's 12 decode steps (stablelm-12b smoke, 4
+    partitions of 4-token pages, B 4) through ``make_serve_step``:
+    single-device on rank 0, then sharded on 2x4 with one step's collectives
+    traced; then zamba2's smoke config through the registry's inputs on a 2x2
+    mesh of ranks 0-3 beside its single-device step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch import models
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.dryrun import StepTrace
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.serve.serve_step import make_serve_step
+
+    cfg = serve_cfg(registry)
+    B, T, page, Pn, pl = _serve_geometry()
+    tokens = torch.from_numpy(np.load(out / "serve_tokens.npy")).to(torch.int32)
+
+    def fresh():
+        params = models.init(cfg, seed=1, device="cpu")
+        ckpt.restore(out / "serve_init", template={"params": params})
+        L, Hkv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+        pools = torch.zeros(L, B, Pn, pl, page, Hkv, hd)
+        tables = torch.arange(pl, dtype=torch.int32).repeat(B, Pn, 1)
+        return params, {"k_pools": pools, "v_pools": pools.clone(), "tables": tables}
+
+    step = make_serve_step(cfg, kernel_mode="reference")
+    res: dict = {}
+    if rank == 0:
+        params, state = fresh()
+        logits = []
+        with torch.no_grad():
+            for t in range(T):
+                lg, new = step(params, {**state, "tokens": tokens[:, t],
+                                        "ctx_len": torch.full((B,), t + 1, dtype=torch.int32)})
+                state.update(new)
+                logits.append(lg)
+        res["single"] = {"logits": torch.stack(logits), "k_pools": state["k_pools"],
+                         "v_pools": state["v_pools"]}
+    dist.barrier()
+
+    mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
+    shape = ShapeConfig("serve_world", T, B, "decode")
+    params, state = fresh()
+    shd.shard_params(params, cfg, mesh, mode="serve")
+    tok0 = {"tokens": tokens[:, 0], "ctx_len": torch.ones(B, dtype=torch.int32)}
+    placed = shd.shard_serve_inputs({**state, **tok0}, cfg, shape, mesh)
+    res["placements"] = {k: str(tuple(v.placements)) for k, v in placed.items()}
+    res["local_shapes"] = {k: tuple(v.to_local().shape) for k, v in placed.items()}
+    state = {k: placed[k] for k in ("k_pools", "v_pools", "tables")}
+    logits, traced = [], {}
+    with torch.no_grad():
+        for t in range(T):
+            inputs = {**state, **shd.shard_serve_inputs(
+                {"tokens": tokens[:, t], "ctx_len": torch.full((B,), t + 1, dtype=torch.int32)},
+                cfg, shape, mesh)}
+            if t == TRACED_STEP:
+                pool = state["k_pools"].to_local()
+                with CommDebugMode() as comm, StepTrace([pool]) as trace:
+                    lg, new = step(params, inputs)
+                traced = {"comm_counts": {str(k): v for k, v in comm.get_comm_counts().items()},
+                          "comm_total": comm.get_total_counts(), "sizes": trace.sizes,
+                          "pool_layer_shard_bytes": pool[0].numel() * pool.element_size()}
+            else:
+                lg, new = step(params, inputs)
+            state.update({k: new[k] for k in ("k_pools", "v_pools")})
+            logits.append(lg.full_tensor())
+    res["sharded"] = {"logits": torch.stack(logits),
+                      "logits_placements": str(tuple(lg.placements)),
+                      "out_placements": {k: str(tuple(v.placements)) for k, v in new.items()},
+                      "k_pools": state["k_pools"].full_tensor(),
+                      "v_pools": state["v_pools"].full_tensor(), "traced": traced}
+    mesh = DeviceMesh("cpu", torch.arange(4).reshape(2, 2), mesh_dim_names=("data", "model"))
+    res["hybrid"] = {kind: _hybrid_2x2(rank, mesh, kind) for kind in HYBRID}
+    if rank == 0:
+        torch.save(res, out / "serve.pt")
+
+
+def _hybrid_2x2(rank, mesh, kind: str) -> dict:
+    """zamba2's smoke config, the registry's inputs for a ``kind`` cell
+    with a written prefix, ``HYBRID_STEPS`` steps single-device (rank 0)
+    and on ``mesh``, a 2x2 mesh of ranks 0-3 (ranks 4-7 joined its groups
+    only)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _serve_cases as sc
+
+    from repro_torch import models
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.serve.serve_step import make_serve_step
+
+    cfg = dataclasses.replace(registry.get_smoke(HYBRID_ARCH), kv_page_size=HYBRID_PAGE)
+    B, Pn = HYBRID[kind]["B"], HYBRID[kind]["P"]
+    shape = ShapeConfig("hybrid_world", HYBRID_T, B, kind)
+    gen = torch.Generator().manual_seed(5)
+    specs = registry.input_specs(cfg, shape, num_partitions=Pn)
+    ctx0 = torch.tensor(HYBRID[kind]["prefix"], dtype=torch.int32)
+
+    def normal(shape_):
+        return torch.randn(shape_, generator=gen)
+
+    inputs = sc.random_inputs(cfg, specs, ctx0 + 1, normal,
+                              lambda high, s: torch.randint(0, high, s, generator=gen,
+                                                            dtype=torch.int32))
+    L = inputs["k_pools"].shape[0]
+    for name in ("k_pools", "v_pools"):
+        inputs[name].zero_()
+        sc.write_prefix(inputs[name], inputs["tables"],
+                        normal((L, B, int(ctx0.max()), cfg.num_kv_heads, cfg.head_dim)), ctx0,
+                        HYBRID_PAGE)
+    tokens = torch.randint(0, cfg.vocab, (HYBRID_STEPS, B), generator=gen, dtype=torch.int32)
+    step = make_serve_step(cfg, kernel_mode="reference")
+    keys = ("conv_state", "ssm_state", "k_pools", "v_pools")
+    res: dict = {}
+    with torch.no_grad():
+        if rank == 0:
+            params = models.init(cfg, seed=3, device="cpu")
+            state = {k: v.clone() for k, v in inputs.items()}
+            logits = []
+            for s in range(HYBRID_STEPS):
+                state.update(tokens=tokens[s], ctx_len=ctx0 + 1 + s)
+                lg, new = step(params, state)
+                state.update(new)
+                logits.append(lg)
+            res["single"] = {"logits": torch.stack(logits), **{k: state[k] for k in keys}}
+        if rank < 4:
+            params = models.init(cfg, seed=3, device="cpu")
+            shd.shard_params(params, cfg, mesh, mode="serve")
+            state = shd.shard_serve_inputs(inputs, cfg, shape, mesh)
+            res["placements"] = {k: str(tuple(state[k].placements)) for k in keys}
+            logits = []
+            for s in range(HYBRID_STEPS):
+                state.update(shd.shard_serve_inputs({"tokens": tokens[s],
+                                                     "ctx_len": ctx0 + 1 + s}, cfg, shape, mesh))
+                lg, new = step(params, state)
+                state.update(new)
+                logits.append(lg.full_tensor())
+            res["sharded"] = {"logits": torch.stack(logits),
+                              **{k: state[k].full_tensor() for k in keys}}
+    dist.barrier()
+    return res
+
+
+def world_moe(rank: int, out: pathlib.Path) -> None:
+    """qwen3-moe-30b-a3b's smoke config from the JAX package's initial
+    parameters (``<out>/moe_init``): ``STEPS`` steps single-device (rank 0)
+    and on a 2x2 ``("data", "model")`` mesh; then step 1 on a 1 x 1 mesh."""
+    import torch
+
+    from repro_torch import models
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import registry
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.optimizer import init_state
+
+    cfg = registry.get_smoke(MOE_ARCH)
+
+    def initial():
+        params = models.init(cfg, seed=1, device="cpu")
+        ckpt.restore(out / "moe_init", template={"params": params})
+        return params, init_state(params)
+
+    res: dict = {}
+    if rank == 0:
+        taps: list = []
+        step = _step(cfg, taps)
+        params, opt = initial()
+        res["single"] = {"metrics": [], "params": []}
+        for i in range(STEPS):
+            params, opt, m = step(params, opt, _batch(cfg, i))
+            res["single"]["metrics"].append(_metrics(m))
+            res["single"]["params"].append(_params(params))
+        res["single"]["grads"] = taps
+    import torch.distributed as dist
+
+    dist.barrier()
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    taps = []
+    step = _step(cfg, taps)
+    params, opt = initial()
+    shd.shard_params(params, cfg, mesh)
+    opt = shd.shard_opt_state(opt, cfg, mesh)
+    res["sharded"] = {"metrics": [], "params": [],
+                      "placements": {n: str(tuple(p.placements))
+                                     for n, p in params.named_parameters()}}
+    for i in range(STEPS):
+        params, opt, m = step(params, opt, shd.shard_batch(_batch(cfg, i), cfg, mesh))
+        res["sharded"]["metrics"].append(_metrics(m))
+        res["sharded"]["params"].append(_params(params))
+    res["sharded"]["grads"] = taps
+    res["sharded"]["traced_block"] = _moe_block_collectives(cfg, params.layers[0].moe, mesh)
+    dist.barrier()
+    # The same first step on a 1 x 1 mesh of rank 0 (the others join its
+    # groups only): one rank runs the same ATen ops on the same tensors.
+    from torch.distributed.device_mesh import DeviceMesh
+
+    one = DeviceMesh("cpu", torch.zeros(1, 1, dtype=torch.int64), mesh_dim_names=("data", "model"))
+    if rank == 0:
+        taps = []
+        params, opt = initial()
+        shd.shard_params(params, cfg, one)
+        opt = shd.shard_opt_state(opt, cfg, one)
+        params, opt, m = _step(cfg, taps)(params, opt, shd.shard_batch(_batch(cfg, 0), cfg, one))
+        res["one_rank"] = {"metrics": _metrics(m), "params": _params(params)}
+        torch.save(res, out / "moe.pt")
+
+
+def _moe_block_collectives(cfg, p, mesh) -> dict:
+    """One MoE block's forward and backward on a [BATCH, SEQ, D] batch
+    sharded over ``data``, traced below DTensor: each collective's (kind,
+    result bytes), beside the bytes of the whole token batch and of the
+    whole [E * C, D] dispatch buffer."""
+    import torch
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.dryrun import StepTrace
+    from repro_torch.models.moe import _capacity, moe_forward
+
+    x = torch.randn(BATCH, SEQ, cfg.d_model, generator=torch.Generator().manual_seed(5))
+    x = distribute_tensor(x, mesh, (Shard(0), Replicate())).requires_grad_()
+    with implicit_replication(), StepTrace() as trace:      # as the train step runs it
+        out, aux = moe_forward(p, x, cfg)
+        (out.float().square().sum() + aux).backward()
+    tokens, E = BATCH * SEQ, cfg.moe.num_experts
+    return {"sizes": trace.sizes, "batch_bytes": tokens * cfg.d_model * 4,
+            "buffer_bytes": E * _capacity(tokens, cfg) * cfg.d_model * 4}
+
+
+JAX_SERVE_REF = textwrap.dedent(r"""
+    import sys, pathlib, dataclasses
+    import jax, numpy as np, jax.numpy as jnp
+    from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
+    from repro.configs import registry
+    from repro.models import transformer as tfm
+    from repro.models.paged_global import decode_block_global
+
+    out = pathlib.Path(sys.argv[1])
+    ARCH, (B, T, page, Pn) = %(serve)r
+    cfg = dataclasses.replace(registry.get_smoke(ARCH), kv_page_size=page)
+    params = tfm.init(jax.random.PRNGKey(0), cfg)
+    tokens = jnp.asarray(np.load(out / "serve_tokens.npy"))
+    mesh = jax.make_mesh((2, 4), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    n_pages = (T + page - 1) // page
+    pl = (n_pages + Pn - 1) // Pn
+    kp = jnp.zeros((cfg.num_layers, B, Pn, pl, page, cfg.num_kv_heads, cfg.head_dim),
+                   jnp.float32)
+    vp = jnp.zeros_like(kp)
+    tables = jnp.asarray(np.tile(np.arange(pl, dtype=np.int32), (B, Pn, 1)))
+    pool_sh = NamedSharding(mesh, P(None, "data", "model", None, None, None, None))
+    kp = jax.device_put(kp, pool_sh); vp = jax.device_put(vp, pool_sh)
+
+    def serve(params, tok, kp, vp, tables, ctx):
+        x = tfm.embed_tokens(params, cfg, tok[:, None])
+        def body(x, scanned):
+            lp, kpool, vpool = scanned
+            x, kpool, vpool = decode_block_global(lp, x, cfg, kpool, vpool, tables, ctx)
+            return x, (kpool, vpool)
+        x, (kp2, vp2) = jax.lax.scan(body, x, (params["layers"], kp, vp))
+        return tfm.unembed(params, cfg, x)[:, 0], kp2, vp2
+
+    jit = jax.jit(serve, out_shardings=(NamedSharding(mesh, P("data", "model")), pool_sh,
+                                        pool_sh))
+    logits = []
+    for t in range(T):
+        lg, kp, vp = jit(params, tokens[:, t], kp, vp, tables, jnp.full((B,), t + 1, jnp.int32))
+        logits.append(np.asarray(lg))
+    np.savez(out / "jax_serve.npz", logits=np.stack(logits), k_pools=np.asarray(kp),
+             v_pools=np.asarray(vp))
+""") % {"serve": (SERVE_ARCH, tuple(SERVE[k] for k in ("B", "T", "page", "P")))}
 
 
 JAX_REF = textwrap.dedent(r"""
