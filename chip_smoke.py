@@ -274,7 +274,7 @@ device mesh.  One JSON line per phase:
    parameters, bf16, float32 moments), the same traffic for 6 steps, one
    17.0 GB checkpoint written, restored bit for bit and deleted; step
    time, tokens/s, model FLOP/s and their share of the bf16 peak, peak
-   memory, and a profiled step;
+   memory (step time and peak beside the earlier ones), and a profiled step;
 23. ``train_mesh``: the distributed layer on a one-rank NCCL world (NCCL
    gives each rank its own card; wider meshes are tested under gloo on the
    CPU): phase 22's checkpoint restored onto a 1 x 1 ``("data", "model")``
@@ -294,11 +294,13 @@ device mesh.  One JSON line per phase:
    2 train steps on the 1 x 1 mesh against the same steps single-device
    from the same state, bit for bit; step seconds and peak memory;
 26. ``dryrun``: ``python -m repro_torch.launch.dryrun`` in a child process
-   (started with phase 20, CPU only, the card hidden from it) on three
+   (started with phase 20, CPU only, the card hidden from it) on four
    full-width cells in fake 256/512-rank worlds (qwen3-14b train_4k 16x16,
-   qwen3-moe-30b-a3b decode_32k 2x16x16, zamba2-7b long_500k 16x16) under
-   the card's torch: every record ``ok``, each cell's per-device bytes
-   beside the card's memory.
+   qwen3-moe-30b-a3b decode_32k 2x16x16, zamba2-7b long_500k 16x16,
+   qwen3-moe-30b-a3b prefill_32k 16x16) under the card's torch: every record
+   ``ok``, each cell's per-device bytes beside the card's memory and its
+   peak beside its earlier one; a train or prefill cell's peak within 70
+   GiB and no tensor live at it holding the whole vocabulary.
 
 Each phase from 15 on starts from a freed card and reports its peak
 memory.  Then the ``{"kernels": [...]}`` line (K1-K8; K5's and K6's
@@ -4853,6 +4855,9 @@ TRAIN_REFUSALS = {"qwen3-14b": "flash_attention", "rwkv6-1.6b": "rwkv6_scan",
                   "zamba2-7b": "mamba2_scan"}
 TRAIN_ARCH = VLM_ARCH              # internvl2-2b: bf16 training state fits one card
 TRAIN_BATCH, TRAIN_TEXT_TOKENS, TRAIN_MICROBATCHES, TRAIN_STEPS = 8, 2048, 2, 6
+# train_full on the H100 (700 W) before the plain attention and rmsnorm
+# recomputed in their backward passes: step seconds (the runs' range), peak.
+TRAIN_FULL_BEFORE = {"step_s": (3.15, 3.47), "peak_gb": 35.24}
 TRAIN_RESUME_LAYERS = 2
 TRAIN_CKPT = ROOT / "build" / "repro_torch" / "cache" / "chip_smoke_train"
 BF16_DENSE_PEAK = 989e12           # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
@@ -5239,7 +5244,8 @@ def run_train_full(torch):
          tokens_per_s=tokens / step_s, model_flops_per_step=flops,
          model_flops_per_s=flops["total"] / step_s,
          bf16_dense_peak_share=flops["total"] / step_s / BF16_DENSE_PEAK,
-         peak_gb=peak_gb, loss_falls=losses[-1] < losses[0], launches=launched)
+         peak_gb=peak_gb, loss_falls=losses[-1] < losses[0], launches=launched,
+         before_step_s=TRAIN_FULL_BEFORE["step_s"], before_peak_gb=TRAIN_FULL_BEFORE["peak_gb"])
     emit("train_full_checkpoint", step=at, disk_free_gb_before=disk_free_gb,
          bytes=ckpt_bytes, records=records, restore_s=restore_s,
          restored_not_bit_identical=restored_bad)
@@ -5531,7 +5537,16 @@ def run_training(torch) -> None:
 MOE_MESH_ARCH, MOE_MESH_LAYERS = "qwen3-moe-30b-a3b", 2
 MOE_MESH_BATCH, MOE_MESH_TOKENS, MOE_MESH_STEPS = 4, 1024, 2
 DRYRUN_CELLS = ("qwen3-14b:train_4k:16x16", "qwen3-moe-30b-a3b:decode_32k:2x16x16",
-                "zamba2-7b:long_500k:16x16")
+                "zamba2-7b:long_500k:16x16", "qwen3-moe-30b-a3b:prefill_32k:16x16")
+# Each cell's peak estimate before the sharded train and prefill paths kept
+# the vocabulary and the heads sharded (under the card's torch where it ran
+# there, else on the CPU), and the bound a train or prefill cell is
+# held to: an H100's 79.1 GiB less ~10% for what the estimate leaves out.
+DRYRUN_PEAK_BYTES_BEFORE = {"qwen3-14b:train_4k:16x16": (300.6e9, "card"),
+                          "qwen3-moe-30b-a3b:decode_32k:2x16x16": (4.72e9, "card"),
+                          "zamba2-7b:long_500k:16x16": (2.25e9, "card"),
+                          "qwen3-moe-30b-a3b:prefill_32k:16x16": (297.8 * 2 ** 30, "cpu")}
+DRYRUN_PEAK_BOUND = 70 * 2 ** 30
 DRYRUN_OUT = ROOT / "build" / "repro_torch" / "cache" / "chip_smoke_dryrun"
 DRYRUN_TIMEOUT_S = 600
 
@@ -5724,11 +5739,15 @@ def start_dryrun():
 
 def finish_dryrun(torch, started) -> None:
     """Phase 26, ``dryrun``: wait for the child; one summary a cell, its
-    per-device argument bytes and peak estimate beside the card's memory;
-    every cell must be ``ok``, its peak estimate free of DTensor's
-    propagation tensors, and every decode cell free of pool-sized
-    collectives."""
+    per-device argument bytes and peak estimate beside the card's memory and
+    its earlier peak; every cell must be ``ok``, its peak estimate free of
+    DTensor's propagation tensors, every decode cell free of pool-sized
+    collectives, and every train or prefill cell within
+    ``DRYRUN_PEAK_BOUND`` with no tensor live at its peak that holds the
+    whole vocabulary."""
     import subprocess
+
+    from repro_torch.configs import registry
 
     t_start, proc = started
     t0 = time.perf_counter()
@@ -5739,12 +5758,17 @@ def finish_dryrun(torch, started) -> None:
         out, err = proc.communicate()
         err += f"\nkilled after {DRYRUN_TIMEOUT_S} s"
     total = torch.cuda.get_device_properties(0).total_memory
-    cells = []
+    cells, over = [], []
     for cell in DRYRUN_CELLS:
         arch, shape, mesh = cell.split(":")
         path = DRYRUN_OUT / f"{arch}__{shape}__{mesh}.json"
         rec = json.loads(path.read_text()) if path.exists() else {"ok": False, "error": "none"}
         mem = rec.get("memory", {})
+        vocab = registry.get_config(arch).vocab
+        whole_vocab = [t for t in mem.get("peak_top", []) if vocab in t["shape"]]
+        peak = mem.get("peak_live_bytes") or 0
+        if rec.get("kind") in ("train", "prefill") and (peak > DRYRUN_PEAK_BOUND or whole_vocab):
+            over.append((cell, peak / 2 ** 30, whole_vocab[:2]))
         cells.append({k: rec.get(k) for k in (
             "arch", "shape", "mesh", "kind", "chips", "ok", "error", "trace_s", "torch_version",
             "mesh_device_type", "param_count", "input_bytes", "flops", "flops_scope",
@@ -5754,6 +5778,10 @@ def finish_dryrun(torch, started) -> None:
                "peak_live_bytes_estimate": mem.get("peak_live_bytes"),
                "propagation_excluded": mem.get("propagation_excluded"),
                "peak_top": mem.get("peak_top", [])[:3],
+               "peak_live_bytes_before": DRYRUN_PEAK_BYTES_BEFORE[cell][0],
+               "peak_before_from": DRYRUN_PEAK_BYTES_BEFORE[cell][1],
+               "peak_bound_bytes": DRYRUN_PEAK_BOUND if rec.get("kind") in ("train", "prefill")
+               else None, "whole_vocabulary_at_peak": len(whole_vocab),
                "card_total_memory": total,
                "argument_share_of_card": (mem.get("argument_bytes") or 0) / total,
                "uneven_leaves": len(rec.get("uneven", []))})
@@ -5767,6 +5795,9 @@ def finish_dryrun(torch, started) -> None:
     pooled = [(c["arch"], c["shape"]) for c in cells if c.get("pool_sized_collectives")]
     if pooled:
         fail(f"dryrun: pool-sized collectives in {pooled}")
+    if over:
+        fail(f"dryrun: train or prefill cells over {DRYRUN_PEAK_BOUND / 2 ** 30:.0f} GiB or "
+             f"holding the whole vocabulary at their peak (GiB): {over}")
 
 
 if __name__ == "__main__":

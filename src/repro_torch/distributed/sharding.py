@@ -20,6 +20,16 @@ leading entries, which the rules never shard.  :func:`placements` turns a
 spec into DTensor placements on a :class:`DeviceMesh`; :func:`shard_params`,
 :func:`shard_opt_state` and :func:`shard_batch` place a training state and
 a batch with them, :func:`shard_serve_inputs` a serve step's state.
+
+Where DTensor's own rules would gather a whole batch, a whole vocabulary or
+every head onto each rank (they price only their inputs' redistribution),
+the models compute on each rank's shards and place the result themselves:
+:func:`tp_product` (the Megatron column- and row-parallel products after
+the FSDP gather), :class:`VocabShards` (the vocab-parallel loss),
+:func:`shard_heads` (attention over each rank's heads),
+:func:`on_batch_and_heads` (the scans) and :func:`gather_rows` (the
+vocab-parallel embedding lookup).  Each is the identity on plain tensors
+and runs the single-device ops on a one-rank mesh.
 """
 from __future__ import annotations
 
@@ -282,34 +292,53 @@ def shard_serve_inputs(inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
     return {k: distribute(v, mesh, specs[k]) for k, v in inputs.items()}
 
 
+def contiguous_stride(shape) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape``, for
+    ``DTensor.from_local``; computed, not read off an empty tensor, which
+    would be a whole global-shape tensor on a meta-device trace."""
+    stride, step = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(stride))
+
+
 def gather_rows(table, ids):
     """``table[ids]`` (an embedding lookup), the rows in ``ids``'s
-    placements.  For a DTensor table the ids are replicated for the lookup
-    and the rows redistributed afterwards: the lookup's backward (an
-    ``index_put``) fails in DTensor on sharded ids (torch 2.11: "Shard dim
-    -1 in placements ... must be normalized"), and ``F.embedding`` fails on
-    the train layout in both versions (an ``IndexError``).
+    placements.
 
-    A table sharded on its rows only (the serve layout: vocab over
-    ``model``) is read shard-locally instead (:func:`_vocab_parallel_rows`):
-    DTensor's rule for the index would all-gather the whole table."""
+    A DTensor table is read shard-locally (:func:`_vocab_parallel_rows`):
+    a train-mode table (V over ``model``, D over the data axes) first has
+    its D dim gathered (the FSDP all-gather GSPMD makes), and each rank then
+    looks its own tokens up in its own rows.  DTensor's rules would
+    all-gather the whole table (serve layout) or look the whole batch up
+    and move the rows to ``ids``'s placements (train layout: the whole
+    batch's [B, T, D] rows on every rank where the mesh has no
+    all-to-all); ``F.embedding`` fails on the train layout in both versions
+    (an ``IndexError``), and the lookup's backward (an ``index_put``) on
+    sharded ids in torch 2.11 ("Shard dim -1 in placements ... must be
+    normalized")."""
     if not (is_dtensor(table) and is_dtensor(ids)):
         return table[ids]
     from torch.distributed.tensor import Replicate, Shard
 
-    if all(isinstance(p, Replicate) or p == Shard(0) for p in table.placements) \
-            and Shard(0) in table.placements:
+    if any(isinstance(p, Shard) and p.dim % table.ndim == 1 for p in table.placements):
+        table = table.redistribute(table.device_mesh, tuple(
+            Replicate() if isinstance(p, Shard) and p.dim % table.ndim == 1 else p
+            for p in table.placements))
+    if all(isinstance(p, Replicate) or p == Shard(0) for p in table.placements):
         return _vocab_parallel_rows(table, ids)
     whole = ids.redistribute(ids.device_mesh, (Replicate(),) * ids.device_mesh.ndim)
     return aligned(table[whole], ids)
 
 
 def _vocab_parallel_rows(table, ids):
-    """``table[ids]`` for a table sharded on dim 0 only: each rank looks the
-    ids up in its own rows (zeros for ids it does not hold), and one
-    all-reduce (a sum with one non-zero term, exact) over the mesh dims that
-    shard the table gives every rank its rows, in ``ids``'s batch
-    placements."""
+    """``table[ids]`` for a table sharded on dim 0 only (or replicated):
+    each rank looks the ids up in its own rows (zeros for ids it does not
+    hold), and one all-reduce (a sum with one non-zero term, exact) over the
+    mesh dims that shard the table gives every rank its rows, in ``ids``'s
+    batch placements.  The table's gradient returns as each rank's partial
+    sum over the mesh dims that shard the ids."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
@@ -318,7 +347,10 @@ def _vocab_parallel_rows(table, ids):
     rows = tuple(Replicate() if v else p for v, p in zip(vocab, ids.placements))
     if tuple(ids.placements) != rows:
         ids = ids.redistribute(mesh, rows)
-    local, mine_ids = table.to_local(), ids.to_local()
+    local = table.to_local(grad_placements=tuple(
+        Shard(0) if v else Partial() if isinstance(r, Shard) else Replicate()
+        for v, r in zip(vocab, rows)))
+    mine_ids = ids.to_local()
     v0 = compute_local_shape_and_global_offset(table.shape, mesh, table.placements)[1][0]
     rel = mine_ids - v0
     held = (rel >= 0) & (rel < local.shape[0])
@@ -326,7 +358,7 @@ def _vocab_parallel_rows(table, ids):
     shape = (*ids.shape, table.shape[1])
     pending = tuple(Partial("sum") if v else p for v, p in zip(vocab, rows))
     return DTensor.from_local(got, mesh, pending, run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta").stride()
+                              stride=contiguous_stride(shape)
                               ).redistribute(mesh, rows)
 
 
@@ -343,6 +375,140 @@ def batch_only(x):
 
     want = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
                  for p in x.placements)
+    if want == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, want)
+
+
+def _fsdp(w):
+    """``w`` unchanged, or, for a DTensor weight with a dim sharded over the
+    data axes (train mode's FSDP), ``w`` with that dim gathered and its
+    shards over ``model`` kept: the FSDP all-gather GSPMD makes before a
+    product (its backward a reduce-scatter of the gradient).  DTensor's own
+    rule for ``x @ w`` with x's batch over the data axes instead shards the
+    contraction and all-reduces the whole [B/data, T, d_out] product over
+    ``model`` (it prices only the inputs' redistribution)."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(w.device_mesh.mesh_dim_names or ())
+    want = tuple(Replicate() if isinstance(p, Shard) and names[j] in ("pod", "data") else p
+                 for j, p in enumerate(w.placements))
+    if want == tuple(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, want)
+
+
+def tp_product(x, w):
+    """``x @ w`` for a weight ``w`` [d_in, d_out] (``x`` [..., d_in]).
+
+    For a DTensor weight the product runs on each rank's shards by the
+    Megatron rules, after :func:`_fsdp` gathers the weight's data-axes dims:
+    over a mesh dim that shards d_out (column-parallel) ``x`` is whole and
+    the output sharded on its last dim; over one that shards d_in
+    (row-parallel) ``x`` is sharded on its last dim and the output's
+    partial sums are all-reduced; over any other dim ``x`` keeps its batch
+    shard (or stays replicated) and the output follows it.  (A pending sum
+    left to the next op can reach a norm's mean, whose ``Partial("avg")``
+    DTensor cannot take a gradient back into.)  The gradients return in the
+    matching layouts (partial sums where a dim was contracted).  DTensor's
+    own rules may instead shard the contraction where ``x`` is replicated,
+    or gather an operand in the backward pass, and each leaves a product
+    larger than the rank's share: they price only the inputs'
+    redistribution.  Plain weights multiply as they are."""
+    if not is_dtensor(w):
+        return x @ w
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    w = _fsdp(w)
+    mesh, last = w.device_mesh, x.ndim - 1
+    if not is_dtensor(x):
+        x = DTensor.from_local(x, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+    x_pl, out_pl, gx_pl, gw_pl = [], [], [], []
+    for pw, px in zip(w.placements, x.placements):
+        if pw == Shard(1):                      # column-parallel
+            x_pl.append(Replicate()), out_pl.append(Shard(last))
+            gx_pl.append(Partial()), gw_pl.append(Shard(1))
+        elif pw == Shard(0):                    # row-parallel
+            x_pl.append(Shard(last)), out_pl.append(Partial())
+            gx_pl.append(Shard(last)), gw_pl.append(Shard(0))
+        else:
+            keep = Shard(0) if px == Shard(0) else Replicate()
+            x_pl.append(keep), out_pl.append(keep)
+            gx_pl.append(keep), gw_pl.append(Partial() if keep == Shard(0) else Replicate())
+    if tuple(x.placements) != tuple(x_pl):
+        x = x.redistribute(mesh, tuple(x_pl))
+    out = x.to_local(grad_placements=gx_pl) @ w.to_local(grad_placements=gw_pl)
+    shape = (*x.shape[:-1], w.shape[1])
+    out = DTensor.from_local(out, mesh, tuple(out_pl), run_check=False, shape=shape,
+                             stride=contiguous_stride(shape))
+    if any(p.is_partial() for p in out_pl):
+        out = out.redistribute(mesh, tuple(Replicate() if p.is_partial() else p
+                                           for p in out_pl))
+    return out
+
+
+def on_batch_and_heads(fn, args, dims, out_dims):
+    """``fn(*args)``, for DTensor ``args`` on each rank's shards: a scan or
+    other op whose batch rows and heads are independent.  ``dims`` gives
+    each arg's (batch dim, head dim), None where it has none; ``out_dims``
+    the same for each of ``fn``'s outputs.  The first arg with both sets
+    the split: its batch where it is sharded over a mesh dim, its heads
+    where they are, every other mesh dim replicated.  Each rank runs ``fn``
+    on its rows and heads (an arg without a batch or head dim whole on that
+    mesh dim, its gradient returned as a partial sum there), and the
+    outputs are placed as the split says.  DTensor would otherwise dispatch
+    each of the scan's many small ops (its propagation costs each one
+    milliseconds on a 16x16 mesh).  Plain args: ``fn(*args)``."""
+    ref = next(a for a, d in zip(args, dims) if d == (0, 1))
+    if not is_dtensor(ref):
+        return fn(*args)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = ref.device_mesh
+    role = ["b" if p == Shard(0) else "h" if p == Shard(1) else None for p in ref.placements]
+    B, H = ref.shape[0], ref.shape[1]
+
+    def pl(d, grad: bool):
+        out = []
+        for r in role:
+            i = None if r is None else d[0] if r == "b" else d[1]
+            out.append(Replicate() if r is None else Shard(i) if i is not None
+                       else Partial() if grad else Replicate())
+        return tuple(out)
+
+    local = []
+    for a, d in zip(args, dims):
+        if not is_dtensor(a):
+            a = DTensor.from_local(a, mesh, (Replicate(),) * mesh.ndim, run_check=False)
+        if tuple(a.placements) != pl(d, False):
+            a = a.redistribute(mesh, pl(d, False))
+        local.append(a.to_local(grad_placements=pl(d, True)))
+    outs = []
+    for o, d in zip(fn(*local), out_dims):
+        shape = list(o.shape)
+        if d[0] is not None:
+            shape[d[0]] = B
+        if d[1] is not None:
+            shape[d[1]] = H
+        outs.append(DTensor.from_local(o, mesh, pl(d, False), run_check=False,
+                                       shape=tuple(shape), stride=contiguous_stride(shape)))
+    return tuple(outs)
+
+
+def shard_heads(x):
+    """``x`` unchanged, or, for a DTensor [B, T, H, hd], ``x`` with its batch
+    where it is sharded (dim 0) and its heads sharded over every other mesh
+    dim, unevenly where the dims' sizes do not divide H (DTensor chunks a
+    dim): each rank then norms, rotates and attends only its own heads
+    (:func:`repro_torch.models.attention.attend`).  Replicated heads go
+    there by a local chunk."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Shard
+
+    want = tuple(p if isinstance(p, Shard) and p.dim == 0 else Shard(2) for p in x.placements)
     if want == tuple(x.placements):
         return x
     return x.redistribute(x.device_mesh, want)
@@ -387,16 +553,120 @@ def aligned(x, like):
     return x.redistribute(like.device_mesh, like.placements)
 
 
-def pin(x):
-    """``x``, and in the backward pass its gradient redistributed to ``x``'s
-    placements (a DTensor redistribute to its own placements: the identity
-    forward, a constraint on the cotangent, as ``with_sharding_constraint``
-    constrains both).  Where a view merged dims in the forward pass, the
-    gradient arriving at it must split them again (the same rule as
-    :func:`replicate_dim`'s)."""
-    if not is_dtensor(x):
+class VocabShards:
+    """The rank-local operands of an unembedding ``hidden @ head`` (hidden
+    [B, ..., D], head [D, V]) with the vocabulary kept sharded, and the
+    collectives that reduce over it.
+
+    For a DTensor head the head is gathered on D (the FSDP all-gather GSPMD
+    makes) and keeps V where it is (over ``model``), and ``hidden`` keeps
+    its batch over every other mesh dim (the data axes) and is replicated
+    over the vocabulary's: a rank-local product is then the rank's
+    [B/data, ..., V/model] block of the logits, with no other collective.
+    ``hidden`` and ``head`` are those local tensors; their gradients return
+    as partial sums (``hidden`` over the vocabulary's mesh dims, ``head``
+    over the batch's), which DTensor reduces.  ``offset`` is the global
+    index of the rank's first vocabulary column.  For plain tensors every
+    collective is the identity and the operands are the tensors given.
+    """
+
+    def __init__(self, hidden: torch.Tensor, head: torch.Tensor):
+        self.hidden, self.head, self.offset = hidden, head, 0
+        self.mesh, self.vocab_dims, self.batch_dims = None, (), ()
+        if not is_dtensor(head):
+            return
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        mesh = self.mesh = head.device_mesh
+        vocab = [isinstance(p, Shard) and p.dim % head.ndim == 1 for p in head.placements]
+        self.vocab_dims = tuple(j for j, v in enumerate(vocab) if v)
+        self.batch_dims = tuple(j for j, v in enumerate(vocab) if not v)
+        head_pl = tuple(Shard(1) if v else Replicate() for v in vocab)
+        self._rows = tuple(Replicate() if v else Shard(0) for v in vocab)
+        if not is_dtensor(hidden):
+            hidden = DTensor.from_local(hidden, mesh, (Replicate(),) * mesh.ndim,
+                                        run_check=False)
+        self.hidden = hidden.redistribute(mesh, self._rows).to_local(
+            grad_placements=tuple(Partial() if v else Shard(0) for v in vocab))
+        self.head = head.redistribute(mesh, head_pl).to_local(
+            grad_placements=tuple(Shard(1) if v else Partial() for v in vocab))
+        self.offset = compute_local_shape_and_global_offset(head.shape, mesh, head_pl)[1][1]
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's rows (leading dim) of ``x`` (a DTensor or a whole
+        tensor), those of ``hidden``: the labels of its tokens."""
+        if self.mesh is None:
+            return x
+        from torch.distributed.tensor import DTensor, Replicate
+
+        if not is_dtensor(x):
+            x = DTensor.from_local(x, self.mesh, (Replicate(),) * self.mesh.ndim,
+                                   run_check=False)
+        return x.redistribute(self.mesh, self._rows).to_local()
+
+    def gold(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """``logits[..., labels]`` where the rank holds the label's column,
+        else 0 (a −1 label gives 0 everywhere): summed over the vocabulary
+        (:meth:`sum_vocab`) it is the gold logit."""
+        rel = labels.long() - self.offset
+        held = (rel >= 0) & (rel < logits.shape[-1])
+        got = logits.gather(-1, rel.clamp(0, max(logits.shape[-1] - 1, 0))[..., None])[..., 0]
+        return torch.where(held, got, torch.zeros((), dtype=got.dtype, device=got.device))
+
+    def max_vocab(self, x: torch.Tensor) -> torch.Tensor:
+        """The max of ``x`` over the vocabulary's mesh dims; no gradient."""
+        return _all_reduce(x.detach(), "max", self.mesh, self.vocab_dims)
+
+    def sum_vocab(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the vocabulary's mesh dims; the gradient
+        passes through (each rank's result is used alike, as a replicated
+        value)."""
+        return _SumOver.apply(x, self.mesh, self.vocab_dims)
+
+    def sum_batch(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the batch's mesh dims, as :meth:`sum_vocab`."""
+        return _SumOver.apply(x, self.mesh, self.batch_dims)
+
+    def replicated(self, x: torch.Tensor) -> torch.Tensor:
+        """``x``, the same value on every rank, as a replicated DTensor
+        (plain ``x`` unchanged), so that a sum with a DTensor term (MoE's
+        aux loss) hands the gradient back to the rank-local graph as a
+        plain tensor."""
+        if self.mesh is None:
+            return x
+        from torch.distributed.tensor import DTensor, Replicate
+
+        return DTensor.from_local(x, self.mesh, (Replicate(),) * self.mesh.ndim,
+                                  run_check=False)
+
+
+def _all_reduce(x: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
+    """``x`` reduced by ``op`` over each of ``mesh``'s dims ``dims`` in turn
+    (functional collectives, which the dry run's trace counts)."""
+    if not dims:
         return x
-    return x.redistribute(x.device_mesh, x.placements)
+    import torch.distributed._functional_collectives as funcol
+
+    for d in dims:
+        x = funcol.all_reduce(x, op, (mesh, d))
+        if isinstance(x, funcol.AsyncCollectiveTensor):
+            x = x.wait()
+    return x
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce (sum) in the forward pass, the identity in the backward
+    pass: every rank of the group goes on with the same sum, so the
+    gradient each rank receives is already the sum's."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        return _all_reduce(x, "sum", mesh, dims)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
 
 
 # ---------------------------------------------------------------------------

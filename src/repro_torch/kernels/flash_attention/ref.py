@@ -58,25 +58,42 @@ def flash_attention_ref(
     block_k: int = 512,
 ) -> torch.Tensor:
     """Blocked online-softmax attention, f32 statistics, q's dtype out.  A
-    row that sees no key (l == 0) returns 0."""
-    B, Hq, Tq, D = q.shape
-    Hkv, Tk = k.shape[1], k.shape[2]
-    G = Hq // Hkv
-    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
-    block_k = max(1, min(block_k, Tk))
+    row that sees no key (l == 0) returns 0.  Under autograd the backward
+    pass recomputes each block's probabilities from the saved log-sum-exp
+    (:class:`_FlashRef`), so no [B, H, Tq, block_k] tensor outlives its
+    block."""
+    scale = sm_scale if sm_scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashRef.apply(q, k, v, causal, scale, block_k)
+    return _flash_forward(q, k, v, causal, scale, block_k)[0]
 
-    qf = q.float().reshape(B, Hkv, G, Tq, D)
-    q_pos = (torch.arange(Tq, device=q.device) + (Tk - Tq))[:, None]   # decode alignment
-    m = torch.full((B, Hkv, G, Tq), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((B, Hkv, G, Tq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, Hkv, G, Tq, D), dtype=torch.float32, device=q.device)
+
+def _blocks(q: torch.Tensor, k: torch.Tensor, causal: bool, block_k: int):
+    """(start, key mask [Tq, blk]) of each KV block, the decode-aligned
+    causal mask (query i sees keys <= i + Tk - Tq) included."""
+    Tq, Tk = q.shape[2], k.shape[2]
+    block_k = max(1, min(block_k, Tk))
+    q_pos = (torch.arange(Tq, device=q.device) + (Tk - Tq))[:, None]
     for start in range(0, Tk, block_k):
-        kc = k[:, :, start:start + block_k].float()
-        vc = v[:, :, start:start + block_k].float()
-        k_pos = start + torch.arange(kc.shape[2], device=q.device)[None, :]
+        k_pos = start + torch.arange(min(block_k, Tk - start), device=q.device)[None, :]
         mask = k_pos < Tk
         if causal:
             mask = mask & (k_pos <= q_pos)
+        yield start, start + block_k, mask
+
+
+def _flash_forward(q, k, v, causal: bool, scale: float, block_k: int):
+    """(output in q's dtype [B, Hq, Tq, D], float32 output [B, Hkv, G, Tq,
+    D], log-sum-exp [B, Hkv, G, Tq]; +inf where a row sees no key)."""
+    B, Hq, Tq, D = q.shape
+    Hkv = k.shape[1]
+    G = Hq // Hkv
+    qf = q.float().reshape(B, Hkv, G, Tq, D)
+    m = torch.full_like(qf[..., 0], NEG_INF)
+    l = torch.zeros_like(qf[..., 0])
+    acc = torch.zeros_like(qf)
+    for start, end, mask in _blocks(q, k, causal, block_k):
+        kc, vc = k[:, :, start:end].float(), v[:, :, start:end].float()
         s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kc) * scale
         s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
@@ -86,4 +103,45 @@ def flash_attention_ref(
         acc = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p, vc)
         m = m_new
     safe_l = torch.where(l > 0, l, 1.0)
-    return (acc / safe_l[..., None]).reshape(B, Hq, Tq, D).to(q.dtype)
+    of = acc / safe_l[..., None]
+    lse = torch.where(l > 0, m + torch.log(safe_l), float("inf"))
+    return of.reshape(B, Hq, Tq, D).to(q.dtype), of, lse
+
+
+class _FlashRef(torch.autograd.Function):
+    """:func:`flash_attention_ref` with the flash backward pass: it keeps
+    q, k, v, the float32 output and the log-sum-exp, and per KV block
+    recomputes p = exp(s - lse) and forms dv += p^T do, dp = do v^T,
+    ds = p (dp - rowsum(do * o)), dq += ds k, dk += ds^T q (scaled), all in
+    float32.  Autograd through the forward loop would keep each block's
+    [B, H, Tq, block_k] scores and probabilities until the backward pass."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, block_k):
+        o, of, lse = _flash_forward(q, k, v, causal, scale, block_k)
+        ctx.save_for_backward(q, k, v, of, lse)
+        ctx.args = (causal, scale, block_k)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, of, lse = ctx.saved_tensors
+        causal, scale, block_k = ctx.args
+        B, Hq, Tq, D = q.shape
+        Hkv = k.shape[1]
+        qf = q.float().reshape(B, Hkv, Hq // Hkv, Tq, D)
+        dof = do.float().reshape(qf.shape)
+        delta = (dof * of).sum(-1)
+        dq = torch.zeros_like(qf)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        for start, end, mask in _blocks(q, k, causal, block_k):
+            kc, vc = k[:, :, start:end].float(), v[:, :, start:end].float()
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kc) * scale
+            p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+            dv[:, :, start:end] = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+            ds = p * (torch.einsum("bhgqd,bhkd->bhgqk", dof, vc) - delta[..., None])
+            dq += torch.einsum("bhgqk,bhkd->bhgqd", ds, kc) * scale
+            dk[:, :, start:end] = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf) * scale
+        return (dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None)

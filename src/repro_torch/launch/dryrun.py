@@ -18,8 +18,11 @@ step:
   HLO), and the live local tensors, whose largest total is
   ``memory.peak_live_bytes`` (an estimate: an allocator's rounding,
   fragmentation and workspaces are not in it);
-* ``FlopCounterMode``, above it, counts the step's FLOPs over the global
-  shapes (``flops_scope: "global"``; XLA's per-device cost analysis has no
+* ``FlopCounterMode``, entered before it, counts the FLOPs of the same
+  rank-local ops (``flops_scope: "device"``, as XLA's per-device cost
+  analysis; the sharded paths multiply rank-local shards themselves, which
+  a counter above DTensor would count at one rank's shapes beside
+  DTensor's ops at the global ones; XLA's per-device cost analysis has no
   torch counterpart).
 
 The mesh is ``"cpu"``-typed (``mesh_device_type``), where DTensor turns an
@@ -104,7 +107,7 @@ _PROPAGATION = ("propagate_op_sharding_non_cached", "_propagate_tensor_meta_non_
 
 
 class StepTrace(TorchDispatchMode):
-    """The rank-local ops of a step (entered outside ``FlopCounterMode``):
+    """The rank-local ops of a step (entered inside ``FlopCounterMode``):
     each collective's per-device result bytes by kind, and the live local
     tensors.  A storage that ``args`` hold (parameters, state, inputs) counts
     in ``argument_bytes``, not again when an op writes it in place.  The ops
@@ -414,7 +417,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: pathlib.Pat
         run, placed, specs, params = _setup(cfg, shape, mesh, multi_pod)
         rec["shard_shapes_checked"] = _checked_shapes(placed, want)
         args = [_local(t) for t in placed.values()]
-        with StepTrace(args) as trace, FlopCounterMode(display=False) as flops:
+        with FlopCounterMode(display=False) as flops, StepTrace(args) as trace:
             out = run()
         if not trace.propagation_excluded:
             raise RuntimeError("this torch's ShardingPropagator has none of "
@@ -433,7 +436,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: pathlib.Pat
             "propagation_excluded": trace.propagation_excluded,
         }
         rec["flops"] = float(flops.get_total_flops())
-        rec["flops_scope"] = "global"
+        rec["flops_scope"] = "device"
         rec["collective_bytes"] = trace.bytes
         rec["collective_count"] = trace.count
         rec["largest_collective_bytes"] = max((nb for _, nb in trace.sizes), default=0)

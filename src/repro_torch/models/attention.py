@@ -10,7 +10,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import (
-    batch_only, constrain_bthd, pin, replicate_dim,
+    constrain_bthd, contiguous_stride, is_dtensor, replicate_dim, shard_heads, tp_product,
 )
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention_partial
@@ -44,10 +44,11 @@ def _project_qkv(
     """x: [B, T, D] -> q [B, T, Hq, hd], k/v [B, T, Hkv, hd]; qk-norm before
     RoPE, then the activation constraint, as in the JAX package."""
     B, T, _ = x.shape
-    q = replicate_dim(x @ p.wq, -1, cfg.num_heads).reshape(B, T, cfg.num_heads, cfg.head_dim)
-    k = replicate_dim(x @ p.wk, -1, cfg.num_kv_heads).reshape(
+    q = shard_heads(replicate_dim(tp_product(x, p.wq), -1, cfg.num_heads).reshape(
+        B, T, cfg.num_heads, cfg.head_dim))
+    k = replicate_dim(tp_product(x, p.wk), -1, cfg.num_kv_heads).reshape(
         B, T, cfg.num_kv_heads, cfg.head_dim)
-    v = replicate_dim(x @ p.wv, -1, cfg.num_kv_heads).reshape(
+    v = replicate_dim(tp_product(x, p.wv), -1, cfg.num_kv_heads).reshape(
         B, T, cfg.num_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(q, p.q_norm)
@@ -68,12 +69,51 @@ def heads_first(x: torch.Tensor) -> torch.Tensor:
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, *,
            causal: bool, kernel_mode: str) -> torch.Tensor:
-    """q [B, T, Hq, hd], k/v [B, S, Hkv, hd] -> flash attention -> [B, T, q_dim]."""
+    """q [B, T, Hq, hd], k/v [B, S, Hkv, hd] -> flash attention -> [B, T, q_dim].
+    DTensor inputs go through :func:`_attend_sharded`."""
+    if is_dtensor(q):
+        return _attend_sharded(q, k, v, cfg, causal=causal, kernel_mode=kernel_mode)
     B, T = q.shape[:2]
-    q, k, v = batch_only(q), batch_only(k), batch_only(v)
-    o = pin(flash_attention(heads_first(q), heads_first(k), heads_first(v), causal=causal,
-                            kernel_mode=kernel_mode))             # [B, Hq, T, hd]
+    o = flash_attention(heads_first(q), heads_first(k), heads_first(v), causal=causal,
+                        kernel_mode=kernel_mode)                  # [B, Hq, T, hd]
     return o.transpose(1, 2).reshape(B, T, cfg.q_dim)
+
+
+def _attend_sharded(q, k, v, cfg: ModelConfig, *, causal: bool, kernel_mode: str):
+    """:func:`attend` on DTensors: each rank attends its own batch rows over
+    its share of the query heads (:func:`shard_heads`: split over every
+    mesh dim that does not shard the batch), reading the KV heads its query
+    heads use; the heads are then gathered back.  DTensor's own rules
+    replicate the heads (their [Hkv, G] grouping cannot be sharded unless
+    each shard holds whole groups), so every rank would attend every head
+    of its rows.  One rank holds every head and runs :func:`attend`'s ops."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    q = shard_heads(q)
+    mesh, B, T, H, hd = q.device_mesh, *q.shape
+    rows = [p == Shard(0) for p in q.placements]
+    kv_pl = tuple(Shard(0) if r else Replicate() for r in rows)
+    ql = q.to_local(grad_placements=q.placements)
+    kl, vl = (t.redistribute(mesh, kv_pl).to_local(
+        grad_placements=tuple(Shard(0) if r else Partial() for r in rows)) for t in (k, v))
+    (_, _, nh, _), (_, _, h0, _) = compute_local_shape_and_global_offset(q.shape, mesh,
+                                                                          q.placements)
+    G = H // k.shape[2]
+    if h0 % G == 0 and nh % G == 0:            # whole groups: the grouped call
+        kh, vh = kl[:, :, h0 // G:(h0 + nh) // G], vl[:, :, h0 // G:(h0 + nh) // G]
+    else:                                      # each query head with its own KV head
+        idx = torch.arange(h0, h0 + nh, device=ql.device) // G
+        kh, vh = kl.index_select(2, idx), vl.index_select(2, idx)
+    if nh == 0:     # no head here: an empty output that still joins q, k and v to the graph,
+        # so that every rank's backward pass makes the same collectives
+        o = ql + (kh.sum() + vh.sum()).to(ql.dtype)
+    else:
+        o = flash_attention(heads_first(ql), heads_first(kh), heads_first(vh), causal=causal,
+                            kernel_mode=kernel_mode).transpose(1, 2).contiguous()
+    o = DTensor.from_local(o, mesh, q.placements, run_check=False, shape=q.shape,
+                           stride=contiguous_stride(q.shape))
+    return o.redistribute(mesh, kv_pl).reshape(B, T, cfg.q_dim)
 
 
 def attention_forward(
@@ -93,7 +133,7 @@ def attention_forward(
     q, k, v = _project_qkv(p, x, cfg, positions)
     if kv_override is not None:
         k, v = kv_override
-    return attend(q, k, v, cfg, causal=causal, kernel_mode=kernel_mode) @ p.wo
+    return tp_product(attend(q, k, v, cfg, causal=causal, kernel_mode=kernel_mode), p.wo)
 
 
 def cross_kv(p: Attention, enc: torch.Tensor, cfg: ModelConfig
@@ -101,8 +141,8 @@ def cross_kv(p: Attention, enc: torch.Tensor, cfg: ModelConfig
     """Encoder K/V [B, S, Hkv, hd] for cross-attention (no RoPE, as in
     whisper's cross-attention)."""
     B, S, _ = enc.shape
-    k = (enc @ p.wk).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = (enc @ p.wv).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    k = tp_product(enc, p.wk).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = tp_product(enc, p.wv).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     return k, v
 
 

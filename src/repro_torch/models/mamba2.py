@@ -10,6 +10,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import on_batch_and_heads, tp_product
 from repro_torch.kernels.common import as_device
 from repro_torch.kernels.mamba2_scan import mamba2_decode_step, mamba2_scan
 from repro_torch.models.layers import Device, Norm, _normal, dense_init, param, rmsnorm
@@ -77,7 +78,7 @@ def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig, *,
     B, T, D = x.shape
     d_inner, H, P, N = dims(cfg)
     h = rmsnorm(x, p.norm.scale)
-    z, xBC, dt_raw = _split_proj(h @ p.in_proj, cfg)
+    z, xBC, dt_raw = _split_proj(tp_product(h, p.in_proj), cfg)
     conv_state = None if state is None else state["conv"]
     xBC, new_conv = _causal_conv(xBC, p.conv_w, p.conv_b, conv_state)
     xs, Bm, C = torch.split(xBC, [d_inner, N, N], dim=-1)
@@ -90,12 +91,14 @@ def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig, *,
                                         C[:, 0].float(), p.D, state["ssm"])
         y = y[:, :, None, :]
     else:
-        y, new_ssm = mamba2_scan(xs, dt, A, Bm.float(), C.float(), p.D,
-                                 kernel_mode=kernel_mode)
+        y, new_ssm = on_batch_and_heads(
+            lambda *a: mamba2_scan(*a, kernel_mode=kernel_mode),
+            (xs, dt, A, Bm.float(), C.float(), p.D),
+            ((0, 1), (0, 1), (None, 0), (0, None), (0, None), (None, 0)), ((0, 1), (0, 1)))
     y = y.transpose(1, 2).reshape(B, T, d_inner)
     y = y * F.silu(z.to(y.dtype))
     y = rmsnorm(y, p.gate_norm)
-    out = x + (y.to(x.dtype) @ p.out_proj)
+    out = x + tp_product(y.to(x.dtype), p.out_proj)
     return out, {"conv": new_conv, "ssm": new_ssm}
 
 

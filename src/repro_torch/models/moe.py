@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import is_dtensor, whole
+from repro_torch.distributed.sharding import contiguous_stride, is_dtensor, tp_product, whole
 from repro_torch.models.layers import Device, _normal, dense_init, param
 
 
@@ -73,7 +73,7 @@ class _Shards:
 
     def __init__(self, xf: torch.Tensor, w: torch.Tensor, E: int, C: int):
         self.mesh = xf.device_mesh if is_dtensor(xf) else None
-        self.t0, self.Tl, self.e0, self.El = 0, xf.shape[0], 0, E
+        self.t0, self.Tl, self.e0, self.El, self.E = 0, xf.shape[0], 0, E, E
         if self.mesh is None:
             return
         from torch.distributed.tensor import Partial, Replicate, Shard
@@ -108,26 +108,40 @@ class _Shards:
             t = t.redistribute(self.mesh, self.tokens_pl)
         return t.to_local(grad_placements=self.tokens_grad)
 
-    def dispatched(self, h: torch.Tensor, shape) -> torch.Tensor:
-        """[El, C, D] rows of this rank's tokens for its experts -> the
-        dispatch buffer: the token axes' rows summed, each rank keeping its
-        share of the slots (a reduce-scatter over the token axes)."""
+    def slot_row(self, s: torch.Tensor, C: int) -> torch.Tensor:
+        """The row of slot ``s`` (= e C + c of this rank's experts) in the
+        [El * C, D] rows of :meth:`dispatched` and :meth:`expert_rows`: s
+        itself, or on a mesh slot-major c El + e, so that the exchanges over
+        the token axes split and join the slots' dim, the leading one, and
+        need no concatenation."""
+        return s if self.mesh is None else (s % C) * self.El + s // C
+
+    def dispatched(self, rows: torch.Tensor, C: int) -> torch.Tensor:
+        """[El * C, D] rows of this rank's tokens for its experts (in
+        :meth:`slot_row` order) -> the [E, C, D] dispatch buffer: on a mesh
+        the token axes' rows summed, each rank keeping its share of the
+        slots (a reduce-scatter over the token axes)."""
+        D = rows.shape[-1]
         if self.mesh is None:
-            return h
+            return rows.view(self.El, C, D)
         from torch.distributed.tensor import DTensor
 
-        h = DTensor.from_local(h, self.mesh, self.dispatch_pl, run_check=False, shape=shape,
-                               stride=torch.empty(shape, device="meta").stride())
-        return h.redistribute(self.mesh, self.experts_pl)
+        shape = (C, self.E, D)
+        h = DTensor.from_local(rows.view(C, self.El, D), self.mesh, _slot_major(self.dispatch_pl),
+                               run_check=False, shape=shape, stride=contiguous_stride(shape))
+        return h.redistribute(self.mesh, _slot_major(self.experts_pl)).transpose(0, 1).contiguous()
 
     def expert_rows(self, ho: torch.Tensor) -> torch.Tensor:
-        """[E, C, D] expert outputs -> this rank's experts' [El, C, D], plain
-        (every slot: an all-gather over the token axes)."""
+        """[E, C, D] expert outputs -> this rank's experts' rows, plain and
+        every slot (an all-gather over the token axes on a mesh), as
+        [El * C, D] in :meth:`slot_row` order."""
         if self.mesh is None:
-            return ho
-        if tuple(ho.placements) != self.rows_pl:
-            ho = ho.redistribute(self.mesh, self.rows_pl)
-        return ho.to_local(grad_placements=self.rows_grad)
+            return ho.reshape(-1, ho.shape[-1])
+        hot = ho.transpose(0, 1)
+        if tuple(hot.placements) != _slot_major(self.rows_pl):
+            hot = hot.redistribute(self.mesh, _slot_major(self.rows_pl))
+        rows = hot.to_local(grad_placements=_slot_major(self.rows_grad))
+        return rows.reshape(-1, rows.shape[-1])
 
     def combined(self, out: torch.Tensor, shape) -> torch.Tensor:
         """[Tl, D] this rank's experts' share of its tokens' outputs -> the
@@ -137,8 +151,33 @@ class _Shards:
         from torch.distributed.tensor import DTensor
 
         out = DTensor.from_local(out, self.mesh, self.out_pl, run_check=False, shape=shape,
-                                 stride=torch.empty(shape, device="meta").stride())
+                                 stride=contiguous_stride(shape))
         return out.redistribute(self.mesh, self.tokens_pl)
+
+
+def _slot_major(placements) -> tuple:
+    """[E, C, D] placements as those of its [C, E, D] transpose."""
+    from torch.distributed.tensor import Shard
+
+    return tuple(Shard(1 - p.dim) if isinstance(p, Shard) and p.dim in (0, 1) else p
+                 for p in placements)
+
+
+class _Combine(torch.autograd.Function):
+    """Each token's k gathered rows [T, k, D] summed with their weights
+    [T, k]: ``(rows * w[..., None]).sum(1)``.  The backward pass forms the
+    weights' gradient as one [k, D] x [D] product a token, where autograd
+    would keep a weighted [T, k, D] copy and make two more."""
+
+    @staticmethod
+    def forward(ctx, rows, w):
+        ctx.save_for_backward(rows, w)
+        return (rows * w[..., None]).sum(1)
+
+    @staticmethod
+    def backward(ctx, g):
+        rows, w = ctx.saved_tensors
+        return g[:, None, :] * w[..., None], torch.bmm(rows, g[..., None])[..., 0]
 
 
 def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -155,7 +194,7 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor
     sh = _Shards(xf, p.w_gate, E, C)
     if sh.mesh is not None and tuple(xf.placements) != sh.tokens_pl:
         xf = xf.redistribute(sh.mesh, sh.tokens_pl)
-    gates = torch.softmax(xf.float() @ p.router, dim=-1)                   # [T, E]
+    gates = torch.softmax(tp_product(xf.float(), p.router), dim=-1)        # [T, E]
     weights, ids = _top_k(gates, K)                                        # [T, K]
     weights = weights / weights.sum(-1, keepdim=True).clamp_min(1e-9)
 
@@ -200,9 +239,11 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor
     # slots are distinct; the others go to one spare row past the end, never
     # read: the JAX package's mode="drop").  On a mesh the token axes' rows
     # are then summed.
+    s = sh.slot_row(s, C)
     buf = torch.zeros((sh.El * C + 1, D), dtype=x.dtype, device=dev)
     buf[torch.where(kept, s, sh.El * C).view(sh.Tl, K)] = sh.tokens(xf)[:, None]
-    h = sh.dispatched(buf[:sh.El * C].view(sh.El, C, D), (E, C, D))
+    h = sh.dispatched(buf[:sh.El * C], C)
+    del buf                                         # the experts' inputs are h now
 
     # Expert GLU FFN, batched over experts.
     if cfg.activation == "gelu_glu":
@@ -210,11 +251,12 @@ def moe_forward(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor
     else:
         hg = F.silu(torch.bmm(h, p.w_gate.to(x.dtype)))
     hu = torch.bmm(h, p.w_up.to(x.dtype))
-    ho = sh.expert_rows(torch.bmm(hg * hu, p.w_down.to(x.dtype))).reshape(sh.El * C, D)
+    ho = sh.expert_rows(torch.bmm(hg * hu, p.w_down.to(x.dtype)))
 
     # Combine: each assignment's weighted output (zero where not kept),
     # summed over each token's k.
     w = torch.where(kept, sh.tokens(weights).reshape(-1), 0.0)
-    contrib = ho[s] * w[:, None].to(x.dtype)
-    out = sh.combined(contrib.view(sh.Tl, K, D).sum(1), (tokens, D))
+    gathered = ho[s].view(sh.Tl, K, D)
+    del ho                                          # every slot of the gathered rows
+    out = sh.combined(_Combine.apply(gathered, w.view(sh.Tl, K).to(x.dtype)), (tokens, D))
     return out.reshape(B, T, D), aux

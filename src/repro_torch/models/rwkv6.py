@@ -23,7 +23,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import aligned, batch_only, gather_rows
+from repro_torch.distributed.sharding import (
+    aligned, batch_only, gather_rows, on_batch_and_heads, tp_product,
+)
 from repro_torch.kernels.common import as_device
 from repro_torch.kernels.rwkv6_scan import rwkv6_decode_step, rwkv6_scan
 from repro_torch.models.layers import (
@@ -106,7 +108,7 @@ def _shift(x: torch.Tensor, last: Optional[torch.Tensor] = None) -> torch.Tensor
 
 
 def _decay(tm: TimeMix, xw: torch.Tensor) -> torch.Tensor:
-    lora = torch.tanh(xw @ tm.w_lora_a).float() @ tm.w_lora_b
+    lora = tp_product(torch.tanh(tp_product(xw, tm.w_lora_a)).float(), tm.w_lora_b)
     return torch.exp(-torch.exp(tm.w_base + lora))  # (0, 1), per channel
 
 
@@ -123,22 +125,24 @@ def _time_mix(tm: TimeMix, x: torch.Tensor, cfg: ModelConfig, kernel_mode: str,
     xs = _shift(x, shift_state)
     mu = tm.mu.to(x.dtype)
     xr, xk, xv, xw, xg = (x + mu[i] * (xs - x) for i in range(5))
-    r = _heads_first(xr @ tm.wr, H, N)
-    k = _heads_first(xk @ tm.wk, H, N)
-    v = _heads_first(xv @ tm.wv, H, N)
+    r = _heads_first(tp_product(xr, tm.wr), H, N)
+    k = _heads_first(tp_product(xk, tm.wk), H, N)
+    v = _heads_first(tp_product(xv, tm.wv), H, N)
     w = _heads_first(_decay(tm, xw), H, N)
-    g = F.silu(xg @ tm.wg)
+    g = F.silu(tp_product(xg, tm.wg))
     if T == 1 and wkv_state is not None:
         o, new_state = rwkv6_decode_step(r[:, :, 0], k[:, :, 0], v[:, :, 0], w[:, :, 0],
                                          tm.u, wkv_state)
         o = o[:, :, None, :]
     else:
-        o, new_state = rwkv6_scan(r, k, v, w.float(), tm.u, kernel_mode=kernel_mode)
+        o, new_state = on_batch_and_heads(
+            lambda *a: rwkv6_scan(*a, kernel_mode=kernel_mode), (r, k, v, w.float(), tm.u),
+            ((0, 1),) * 4 + ((None, 0),), ((0, 1), (0, 1)))
     # Per-head normalisation (GroupNorm in the reference implementation).
     o = o.transpose(1, 2)                                         # [B, T, H, N]
     o = o * torch.rsqrt((o.float() ** 2).mean(-1, keepdim=True) + 1e-6)
     o = (o.reshape(B, T, D) * (1.0 + tm.head_norm)).to(x.dtype)
-    out = ((o * g.to(o.dtype)) @ tm.wo).to(x.dtype)
+    out = tp_product(o * g.to(o.dtype), tm.wo).to(x.dtype)
     return out, x[:, -1, :].float(), new_state
 
 
@@ -147,16 +151,20 @@ def _channel_mix(cm: ChannelMix, x: torch.Tensor, shift_state=None):
     mu = cm.mu.to(x.dtype)
     xk = x + mu[0] * (xs - x)
     xr = x + mu[1] * (xs - x)
-    k = torch.square(torch.relu(xk @ cm.wk))
-    out = (torch.sigmoid(xr @ cm.wr) * (k @ cm.wv)).to(x.dtype)
+    k = torch.square(torch.relu(tp_product(xk, cm.wk)))
+    out = (torch.sigmoid(tp_product(xr, cm.wr)) * tp_product(k, cm.wv)).to(x.dtype)
     return out, x[:, -1, :].float()
 
 
 def _block(lp: Layer, x: torch.Tensor, cfg: ModelConfig, kernel_mode: str) -> torch.Tensor:
+    # On a mesh the residual stream keeps its batch over the data axes and D
+    # whole (``batch_only``: the channel mix's value projection shards D over
+    # ``model``, and a norm over a sharded D leaves a pending mean that
+    # DTensor cannot take a gradient back into), as in the decode step.
     h, _, _ = _time_mix(lp.tm, apply_norm(lp.ln1, x, cfg.norm), cfg, kernel_mode)
-    x = x + h
+    x = batch_only(x + h)
     h, _ = _channel_mix(lp.cm, apply_norm(lp.ln2, x, cfg.norm))
-    return x + h
+    return batch_only(x + h)
 
 
 def forward_hidden(params: RWKV6, tokens: torch.Tensor, cfg: ModelConfig, *,

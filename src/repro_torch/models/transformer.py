@@ -31,7 +31,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain_btd, gather_rows
+from repro_torch.distributed.sharding import (
+    batch_only, constrain_btd, gather_rows, tp_product,
+)
 from repro_torch.kernels.common import as_device
 from repro_torch.kernels.paged_attention import merge_partials, paged_attention_partial
 from repro_torch.models import attention as attn
@@ -87,9 +89,13 @@ def _block(cfg: ModelConfig, kernel_mode: str, x: torch.Tensor, lp: Layer):
     # package (its perf iteration 2).
     o = constrain_btd(attn.attention_forward(lp.attn, h, cfg, causal=True,
                                              kernel_mode=kernel_mode))
-    x = constrain_btd(x + o)
+    # On a mesh the residual stream keeps its batch over the data axes and D
+    # whole (``batch_only``: the row-sharded output projections leave
+    # partial sums, which the norm would carry into the next product and
+    # reduce there, over its wider output).
+    x = constrain_btd(batch_only(x + o))
     y, aux = ffn_forward(lp, apply_norm(lp.ln2, x, cfg.norm), cfg)
-    return constrain_btd(x + constrain_btd(y)), aux
+    return constrain_btd(batch_only(x + constrain_btd(y))), aux
 
 
 def embed_tokens(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -119,7 +125,7 @@ def head_matrix(params: Transformer, cfg: ModelConfig) -> torch.Tensor:
 
 
 def unembed(params: Transformer, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    return apply_norm(params.final_norm, x, cfg.norm) @ head_matrix(params, cfg)
+    return tp_product(apply_norm(params.final_norm, x, cfg.norm), head_matrix(params, cfg))
 
 
 def forward(params: Transformer, tokens: torch.Tensor, cfg: ModelConfig, *,

@@ -27,7 +27,7 @@ from torch import nn
 
 from repro_torch import models
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import is_dtensor, whole
+from repro_torch.distributed.sharding import is_dtensor, tp_product, whole
 from repro_torch.train.optimizer import OptimizerConfig, apply_updates
 
 
@@ -123,9 +123,15 @@ def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
 def make_prefill_step(cfg: ModelConfig, *, kernel_mode: str = "auto") -> Callable:
     """Inference prefill: ``step(params, batch) -> next-token logits [B, V]``
     of a prompt batch (``batch["tokens"]`` [B, T]) through the family's
-    ``forward``; on DTensor parameters under ``implicit_replication``, as
-    the train step.  ``auto`` runs the kernels for data on the card (the JAX
-    package defaults to ``reference`` here, its dry-run choice)."""
+    ``forward_hidden``: only the last position is unembedded, so the
+    [B, T, V] logits are never built (the JAX package slices them from the
+    whole product; the values agree up to the GEMM's rounding).  On DTensor
+    parameters it runs under ``implicit_replication``, as the train step,
+    and the logits come back with the batch over the data axes and V over
+    ``model`` (:func:`sharding.tp_product`), the JAX dry run's
+    ``P(dp, "model")``.  ``auto`` runs the kernels for data on the
+    card (the JAX package defaults to ``reference`` here, its dry-run
+    choice)."""
     def step(params, batch):
         scope = contextlib.nullcontext()
         if _sharded(list(params.parameters())):
@@ -133,5 +139,6 @@ def make_prefill_step(cfg: ModelConfig, *, kernel_mode: str = "auto") -> Callabl
 
             scope = implicit_replication()
         with scope:
-            return models.forward(params, batch, cfg, kernel_mode=kernel_mode)[0][:, -1]
+            hidden, head, _ = models.forward_hidden(params, batch, cfg, kernel_mode=kernel_mode)
+            return tp_product(hidden[:, -1], head)
     return step

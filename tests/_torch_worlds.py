@@ -28,6 +28,11 @@ the limit passes, so a hang fails a test instead of stopping the run.
   package's initial parameters (``<dir>/moe_init``), 3 steps single-device
   and 3 sharded on 2x2 (one MoE block's forward and backward traced), then
   step 1 on a 1 x 1 mesh.
+* ``vocab`` (8 ranks): the chunked cross-entropy on random inputs,
+  single-device, on a 2x4 mesh with the head in train placements and on a
+  1 x 1 mesh; then :data:`PREFILL_ARCHS`' prefill steps single-device and
+  on 2x4 from the JAX package's initial parameters; :data:`JAX_VOCAB_REF`
+  is the JAX package's sharded prefill on an Auto-axis mesh.
 * :data:`JAX_REF`: the JAX package's sharded step, pipeline and reduction
   on meshes of Auto axes over 8 forced host devices (``jax.make_mesh``
   gives Explicit axes on jax 0.9.0, which the three tests of
@@ -55,7 +60,25 @@ HYBRID_ARCH, HYBRID_T, HYBRID_PAGE, HYBRID_STEPS = "zamba2-7b", 16, 4, 3
 HYBRID = {"decode": dict(B=2, P=2, prefix=(9, 6)), "long_decode": dict(B=1, P=4, prefix=(11,))}
 TRACED_STEP = 6                    # the serve step whose collectives are recorded
 MOE_ARCH = "qwen3-moe-30b-a3b"
-WORLDS = {"train": 8, "elastic": 4, "serve": 8, "moe": 4}
+# The vocab world: the chunked loss on random float32 inputs (T not a
+# multiple of the block, a vocabulary that model=4 splits unevenly), and the
+# prefill step of a dense config whose 6 query heads (2 KV heads) split
+# 2/2/2/0 over model=4, and of the MoE, RWKV6 and Zamba2 smoke configs.
+VOCAB_LOSS = dict(B=4, T=13, D=8, V=250, block=4)
+PREFILL_ARCHS = {"dense": ("qwen3-14b", {"num_heads": 6}), "moe": (MOE_ARCH, {}),
+                 "ssm": ("rwkv6-1.6b", {}), "hybrid": ("zamba2-7b", {})}
+PREFILL_B, PREFILL_T = 4, 16
+SCAN_GRAD_KINDS = ("ssm", "hybrid")         # their loss and gradients, too
+WORLDS = {"train": 8, "elastic": 4, "serve": 8, "moe": 4, "vocab": 8}
+
+
+def prefill_cfg(registry, kind: str):
+    """The vocab world's prefill config of ``kind`` (either package's
+    registry)."""
+    import dataclasses
+
+    arch, over = PREFILL_ARCHS[kind]
+    return dataclasses.replace(registry.get_smoke(arch), **over)
 
 
 def start(cmd, env=None) -> subprocess.Popen:
@@ -617,6 +640,111 @@ def world_moe(rank: int, out: pathlib.Path) -> None:
         torch.save(res, out / "moe.pt")
 
 
+def world_vocab(rank: int, out: pathlib.Path) -> None:
+    """The chunked loss and the prefill step, single-device (rank 0) and
+    sharded: the loss on a 2x4 ``("data", "model")`` mesh with the head in
+    train placements (D over data, V over model) and on a 1 x 1 mesh of
+    rank 0; each prefill config on 2x4 from the JAX package's initial
+    parameters (``<out>/prefill_<kind>``)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch import models
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import registry
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.losses import chunked_cross_entropy
+    from repro_torch.train.train_step import make_prefill_step
+
+    data = np.load(out / "vocab_loss.npz")
+    block = VOCAB_LOSS["block"]
+
+    def loss_and_grads(mesh=None):
+        h, w = (torch.from_numpy(data[k]) for k in ("hidden", "head"))
+        y = torch.from_numpy(data["labels"])
+        if mesh is not None:
+            h = shd.distribute(h, mesh, ("data", None, None))
+            w = shd.distribute(w, mesh, ("data", "model"))
+            y = shd.distribute(y, mesh, ("data", None))
+        h.requires_grad_(True)
+        w.requires_grad_(True)
+        loss = chunked_cross_entropy(h, w, y, block=block)
+        gh, gw = torch.autograd.grad(loss, (h, w))
+        return {"loss": _whole(loss), "hidden": _whole(gh), "head": _whole(gw),
+                "placements": [str(tuple(t.placements)) if shd.is_dtensor(t) else None
+                               for t in (loss, gh, gw)]}
+
+    res: dict = {}
+    if rank == 0:
+        res["single"] = loss_and_grads()
+    dist.barrier()
+    mesh = make_mesh((2, 4), ("data", "model"), device="cpu")
+    res["sharded"] = loss_and_grads(mesh)
+    one = DeviceMesh("cpu", torch.zeros(1, 1, dtype=torch.int64), mesh_dim_names=("data", "model"))
+    if rank == 0:
+        res["one_rank"] = loss_and_grads(one)
+    dist.barrier()
+
+    tokens = torch.from_numpy(np.load(out / "prefill_tokens.npy")).to(torch.int32)
+    res["prefill"] = {}
+    for kind in PREFILL_ARCHS:
+        cfg = prefill_cfg(registry, kind)
+        step = make_prefill_step(cfg, kernel_mode="reference")
+
+        def initial():
+            params = models.init(cfg, seed=1, device="cpu")
+            ckpt.restore(out / f"prefill_{kind}", template={"params": params})
+            return params
+
+        got: dict = {}
+        if rank == 0:
+            with torch.no_grad():
+                got["single"] = step(initial(), {"tokens": tokens})
+        dist.barrier()
+        params = shd.shard_params(initial(), cfg, mesh, mode="train")
+        with torch.no_grad():
+            logits = step(params, shd.shard_batch({"tokens": tokens}, cfg, mesh))
+        got["sharded"] = logits.full_tensor()
+        got["placements"] = str(tuple(logits.placements))
+        got["local_shape"] = tuple(logits.to_local().shape)
+        res["prefill"][kind] = got
+
+    # The scans' gradients on each rank's rows and heads: the loss and its
+    # gradients of the state-space configs, single-device and on 2x4.
+    res["grads"] = {}
+    for kind in SCAN_GRAD_KINDS:
+        cfg = prefill_cfg(registry, kind)
+        batch = {"tokens": tokens}
+
+        def loss_and_grads(params, b):
+            names, leaves = zip(*params.named_parameters())
+            with torch.enable_grad():
+                loss = models.loss_fn(params.requires_grad_(True), b, cfg,
+                                      kernel_mode="reference")
+                grads = torch.autograd.grad(loss, leaves)
+            return {"loss": float(_whole(loss)), "grads": dict(zip(names, map(_whole, grads)))}
+
+        got = {}
+        if rank == 0:
+            params = models.init(cfg, seed=1, device="cpu")
+            ckpt.restore(out / f"prefill_{kind}", template={"params": params})
+            got["single"] = loss_and_grads(params, batch)
+        dist.barrier()
+        params = models.init(cfg, seed=1, device="cpu")
+        ckpt.restore(out / f"prefill_{kind}", template={"params": params})
+        shd.shard_params(params, cfg, mesh, mode="train")
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        with implicit_replication():
+            got["sharded"] = loss_and_grads(params, shd.shard_batch(batch, cfg, mesh))
+        res["grads"][kind] = got
+    if rank == 0:
+        torch.save(res, out / "vocab.pt")
+
+
 def _moe_block_collectives(cfg, p, mesh) -> dict:
     """One MoE block's forward and backward on a [BATCH, SEQ, D] batch
     sharded over ``data``, traced below DTensor: each collective's (kind,
@@ -752,6 +880,35 @@ JAX_REF = textwrap.dedent(r"""
     np.savez(out / "jax_ref.npz", **res)
 """) % {"train": (ARCH, SEQ, BATCH, STEPS, LR),
         "pipe": tuple(PIPE[k] for k in ("L", "D", "M", "mb", "S"))}
+
+
+JAX_VOCAB_REF = textwrap.dedent(r"""
+    import sys, pathlib, dataclasses
+    import jax, numpy as np, jax.numpy as jnp
+    from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
+    from repro import models
+    from repro.configs import registry
+    from repro.distributed import sharding as shd
+    from repro.train.train_step import make_prefill_step
+
+    out = pathlib.Path(sys.argv[1])
+    ARCHS = %(archs)r
+    mesh = jax.make_mesh((2, 4), ("data", "model"), axis_types=(AxisType.Auto,) * 2)
+    tokens = jnp.asarray(np.load(out / "prefill_tokens.npy"))
+    res = {}
+    for kind, (arch, over) in ARCHS.items():
+        cfg = dataclasses.replace(registry.get_smoke(arch), **over)
+        params = models.init(jax.random.PRNGKey(0), cfg)
+        nps = jax.tree.map(lambda s: NamedSharding(mesh, s),
+                           shd.param_specs(params, cfg, mode="train"),
+                           is_leaf=lambda x: isinstance(x, P))
+        bs = {"tokens": NamedSharding(mesh, P("data", None))}
+        step = jax.jit(make_prefill_step(cfg), in_shardings=(nps, bs),
+                       out_shardings=NamedSharding(mesh, P("data", "model")))
+        p = jax.tree.map(jax.device_put, params, nps)
+        res[kind] = np.asarray(step(p, {"tokens": jax.device_put(tokens, bs["tokens"])}))
+    np.savez(out / "jax_vocab.npz", **res)
+""") % {"archs": PREFILL_ARCHS}
 
 
 def jax_env() -> dict:

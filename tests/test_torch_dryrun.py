@@ -13,7 +13,14 @@ placements and counts, on the CPU:
   the DTensor local shapes equal :func:`dryrun.shard_shape`'s,
   ``param_count`` and ``input_bytes`` equal the JAX package's, collective
   bytes and FLOPs non-zero, and the decode cells' collectives all smaller
-  than one layer's local pool shard.
+  than one layer's local pool shard; the train cell's peak within 70 GiB
+  (an H100's 79.1 GiB less ~10% for what the estimate leaves out);
+* the guard of the sharded train and prefill paths at production scale:
+  qwen3-14b train_4k, qwen3-moe-30b-a3b train_4k and qwen3-moe-30b-a3b
+  prefill_32k on 16x16 in one subprocess, each cut to 2 layers and
+  otherwise at full width, batch, sequence and vocabulary: each peak within
+  10 GiB, and no tensor live at the peak holding the whole vocabulary for
+  more than a data shard's rows, or the whole batch of hidden states.
 """
 import functools
 import json
@@ -35,6 +42,20 @@ from repro_torch.launch import dryrun
 
 CELLS = [("qwen3-14b", "train_4k", "16x16"), ("qwen3-moe-30b-a3b", "decode_32k", "2x16x16"),
          ("zamba2-7b", "long_500k", "16x16")]
+CUT_CELLS = [("qwen3-14b", "train_4k", "16x16"), ("qwen3-moe-30b-a3b", "train_4k", "16x16"),
+             ("qwen3-moe-30b-a3b", "prefill_32k", "16x16")]
+CUT_LAYERS = 2
+GiB = 2 ** 30
+CARD_BOUND, CUT_BOUND = 70 * GiB, 10 * GiB
+# The dry run with every config cut to CUT_LAYERS layers, widths untouched.
+CUT_RUN = """
+import dataclasses, sys
+from repro_torch.configs import registry
+from repro_torch.launch import dryrun
+real = registry.get_config
+registry.get_config = lambda arch: dataclasses.replace(real(arch), num_layers=%d)
+sys.exit(dryrun.main(sys.argv[1:]))
+"""
 
 
 @functools.lru_cache(maxsize=None)
@@ -161,7 +182,7 @@ def test_full_width_cell_runs_on_a_fake_world(records, cell):
     arch, shape, mesh = cell
     assert rec["chips"] == (512 if mesh == "2x16x16" else 256)
     assert rec["shard_shapes_checked"] > 0
-    assert rec["flops"] > 0 and rec["flops_scope"] == "global"
+    assert rec["flops"] > 0 and rec["flops_scope"] == "device"
     assert sum(rec["collective_bytes"].values()) > 0
     assert sum(rec["collective_count"].values()) > 0
     mem = rec["memory"]
@@ -217,3 +238,56 @@ def test_decode_records_name_the_scatter_write(records):
     rec = _record(records, CELLS[1])
     assert rec["kv_write_mode"] == "scatter"
     assert "kv_write_mode" not in _record(records, CELLS[0])
+
+
+def test_full_width_train_cell_fits_a_card(records):
+    rec = _record(records, CELLS[0])
+    assert rec["memory"]["peak_live_bytes"] <= CARD_BOUND, rec["memory"]["peak_top"]
+
+
+@pytest.fixture(scope="module")
+def cut_records(tmp_path_factory):
+    out = tmp_path_factory.mktemp("dryrun_cut")
+    cells = ",".join(":".join(c) for c in CUT_CELLS)
+    run = W.run_world([W.sys.executable, "-c", CUT_RUN % CUT_LAYERS, "--cells", cells,
+                       "--out", str(out), "--no-resume"], 300, W.env())
+    recs = {}
+    for arch, shape, mesh in CUT_CELLS:
+        path = out / f"{arch}__{shape}__{mesh}.json"
+        if path.exists():
+            recs[(arch, shape, mesh)] = json.loads(path.read_text())
+    return run, recs
+
+
+def _cut(cut_records, cell):
+    """(record, the uncut config, the shape); the record's parameters are
+    the cut model's."""
+    rec = _record(cut_records, cell)
+    cfg = treg.get_config(cell[0])
+    assert rec["param_count"] < sum(p.numel() for p in treg.abstract_params(cfg).parameters())
+    return rec, cfg, TSHAPES[cell[1]]
+
+
+@pytest.mark.parametrize("cell", CUT_CELLS, ids=["-".join(c) for c in CUT_CELLS])
+def test_cut_cell_fits_within_10_gib(cut_records, cell):
+    rec, _, _ = _cut(cut_records, cell)
+    assert rec["memory"]["peak_live_bytes"] <= CUT_BOUND, rec["memory"]["peak_top"]
+
+
+@pytest.mark.parametrize("cell", CUT_CELLS, ids=["-".join(c) for c in CUT_CELLS])
+def test_cut_cell_keeps_the_vocabulary_sharded(cut_records, cell):
+    rec, cfg, shape = _cut(cut_records, cell)
+    rows = shape.global_batch // 16            # a data shard's rows
+    whole = [t for t in rec["memory"]["peak_top"]
+             if cfg.vocab in t["shape"] and t["shape"][0] > rows]
+    assert not whole, whole
+
+
+@pytest.mark.parametrize("cell", CUT_CELLS, ids=["-".join(c) for c in CUT_CELLS])
+def test_cut_cell_holds_no_whole_batch_of_hidden_states(cut_records, cell):
+    rec, cfg, shape = _cut(cut_records, cell)
+    whole = [t for t in rec["memory"]["peak_top"]
+             if t["shape"] and t["shape"][0] in (shape.global_batch,
+                                                  shape.global_batch * shape.seq_len)
+             and t["shape"][-1] == cfg.d_model]
+    assert not whole, whole
