@@ -294,13 +294,25 @@ device mesh.  One JSON line per phase:
    2 train steps on the 1 x 1 mesh against the same steps single-device
    from the same state, bit for bit; step seconds and peak memory;
 26. ``dryrun``: ``python -m repro_torch.launch.dryrun`` in a child process
-   (started with phase 20, CPU only, the card hidden from it) on four
+   (started with phase 20, CPU only, the card hidden from it) on five
    full-width cells in fake 256/512-rank worlds (qwen3-14b train_4k 16x16,
    qwen3-moe-30b-a3b decode_32k 2x16x16, zamba2-7b long_500k 16x16,
-   qwen3-moe-30b-a3b prefill_32k 16x16) under the card's torch: every record
+   qwen3-moe-30b-a3b prefill_32k 16x16, and zamba2-7b train_4k 16x16 cut to
+   one group of 3 Mamba2 layers) under the card's torch: every record
    ``ok``, each cell's per-device bytes beside the card's memory and its
    peak beside its earlier one; a train or prefill cell's peak within 70
    GiB and no tensor live at it holding the whole vocabulary.
+
+27. ``bench_run``: ``python -m repro_torch.bench.run --quick`` in a child
+   process on the card (every figure and ``kernels``; its checkpoints, run
+   logs, kernel-bench history and calibration tables in a temporary
+   directory; the roofline table from phase 26's records), then ``--explain-
+   dispatch`` and ``kernel_bench --check`` on what it wrote: exit code 0 with
+   no claim out of band but C2b, every kernel row within its tolerance of
+   its plain version, the calibration table fed with measured rates and the
+   decisions made from it, the band gate passing against the package's
+   references, the roofline table printed; each child's wall time and each
+   figure's.
 
 Each phase from 15 on starts from a freed card and reports its peak
 memory.  Then the ``{"kernels": [...]}`` line (K1-K8; K5's and K6's
@@ -469,6 +481,7 @@ def drive(torch):
     kernels += run_ssm(torch)
     families = run_families(torch)
     run_training(torch)
+    run_bench_run()
     for row in kernels:       # ``launches`` stays phase 8's, the run the row times
         if row["name"] in FAMILY_KERNELS:
             k = row["name"]
@@ -5537,7 +5550,8 @@ def run_training(torch) -> None:
 MOE_MESH_ARCH, MOE_MESH_LAYERS = "qwen3-moe-30b-a3b", 2
 MOE_MESH_BATCH, MOE_MESH_TOKENS, MOE_MESH_STEPS = 4, 1024, 2
 DRYRUN_CELLS = ("qwen3-14b:train_4k:16x16", "qwen3-moe-30b-a3b:decode_32k:2x16x16",
-                "zamba2-7b:long_500k:16x16", "qwen3-moe-30b-a3b:prefill_32k:16x16")
+                "zamba2-7b:long_500k:16x16", "qwen3-moe-30b-a3b:prefill_32k:16x16",
+                "zamba2-7b:train_4k:16x16:3")    # one group of 3 Mamba2 layers, full width
 # Each cell's peak estimate before the sharded train and prefill paths kept
 # the vocabulary and the heads sharded (under the card's torch where it ran
 # there, else on the CPU), and the bound a train or prefill cell is
@@ -5545,7 +5559,8 @@ DRYRUN_CELLS = ("qwen3-14b:train_4k:16x16", "qwen3-moe-30b-a3b:decode_32k:2x16x1
 DRYRUN_PEAK_BYTES_BEFORE = {"qwen3-14b:train_4k:16x16": (300.6e9, "card"),
                           "qwen3-moe-30b-a3b:decode_32k:2x16x16": (4.72e9, "card"),
                           "zamba2-7b:long_500k:16x16": (2.25e9, "card"),
-                          "qwen3-moe-30b-a3b:prefill_32k:16x16": (297.8 * 2 ** 30, "cpu")}
+                          "qwen3-moe-30b-a3b:prefill_32k:16x16": (297.8 * 2 ** 30, "cpu"),
+                          "zamba2-7b:train_4k:16x16:3": (378.68 * 2 ** 30, "cpu")}
 DRYRUN_PEAK_BOUND = 70 * 2 ** 30
 DRYRUN_OUT = ROOT / "build" / "repro_torch" / "cache" / "chip_smoke_dryrun"
 DRYRUN_TIMEOUT_S = 600
@@ -5760,8 +5775,9 @@ def finish_dryrun(torch, started) -> None:
     total = torch.cuda.get_device_properties(0).total_memory
     cells, over = [], []
     for cell in DRYRUN_CELLS:
-        arch, shape, mesh = cell.split(":")
-        path = DRYRUN_OUT / f"{arch}__{shape}__{mesh}.json"
+        arch, shape, mesh, *layers = cell.split(":")
+        cut = f"__L{layers[0]}" if layers else ""
+        path = DRYRUN_OUT / f"{arch}__{shape}__{mesh}{cut}.json"
         rec = json.loads(path.read_text()) if path.exists() else {"ok": False, "error": "none"}
         mem = rec.get("memory", {})
         vocab = registry.get_config(arch).vocab
@@ -5770,7 +5786,8 @@ def finish_dryrun(torch, started) -> None:
         if rec.get("kind") in ("train", "prefill") and (peak > DRYRUN_PEAK_BOUND or whole_vocab):
             over.append((cell, peak / 2 ** 30, whole_vocab[:2]))
         cells.append({k: rec.get(k) for k in (
-            "arch", "shape", "mesh", "kind", "chips", "ok", "error", "trace_s", "torch_version",
+            "arch", "shape", "mesh", "num_layers", "kind", "chips", "ok", "error", "trace_s",
+            "torch_version",
             "mesh_device_type", "param_count", "input_bytes", "flops", "flops_scope",
             "collective_bytes", "collective_count", "largest_collective_bytes",
             "pool_layer_shard_bytes", "pool_sized_collectives", "shard_shapes_checked")}
@@ -5798,6 +5815,121 @@ def finish_dryrun(torch, started) -> None:
     if over:
         fail(f"dryrun: train or prefill cells over {DRYRUN_PEAK_BOUND / 2 ** 30:.0f} GiB or "
              f"holding the whole vocabulary at their peak (GiB): {over}")
+
+
+
+# ---------------------------------------------------------------------------
+# Phase 27: the port's benchmark entry point as a user runs it, in a child process
+# on the card, with its state in a temporary directory.
+# ---------------------------------------------------------------------------
+
+BENCH_RUN_TIMEOUT_S = 420
+BENCH_RUN_ALLOWED_MISSES = {"C2b"}     # 0/4 in both packages on identical hit counts
+_FIG_SECONDS = re.compile(r"repro_torch\.bench\.run: (\w+): ([0-9.]+)s")
+
+
+def _csv_section(text: str, title: str) -> list:
+    """The rows (lists of strings) of the CSV printed under ``# <title...>``."""
+    lines = text.splitlines()
+    start = next((i for i, ln in enumerate(lines) if ln.startswith(f"# {title}")), None)
+    if start is None:
+        return []
+    rows = []
+    for ln in lines[start + 2:]:
+        if not ln.strip() or ln.startswith(("#", "[", " ")):
+            break
+        rows.append(ln.split(","))
+    return rows
+
+
+def run_bench_run() -> None:
+    """Phase 27, ``bench_run`` (see the module's docstring)."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    from repro_torch.core.dispatch import CalibrationStore
+
+    cache_root = ROOT / "build" / "repro_torch" / "cache"
+    cache_root.mkdir(parents=True, exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_bench_run_", dir=cache_root))
+    cache, history = tmp / "cache", tmp / "bench_history.json"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    walls = {}
+
+    def start(module, *args):
+        return time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", module, *args], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def finish(name, started, timeout=120.0):
+        t0, proc = started
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+            err += f"\nkilled after {timeout} s"
+        walls[name] = time.perf_counter() - t0
+        return subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
+
+    try:
+        run = finish("run", start("repro_torch.bench.run", "--quick", "--cache-dir", str(cache),
+                                  "--history", str(history), "--dryrun-dir", str(DRYRUN_OUT)),
+                     BENCH_RUN_TIMEOUT_S)
+        # The decisions read what the run recorded; the gate reads its rows.
+        explain = start("repro_torch.bench.run", "--explain-dispatch", "--cache-dir",
+                        str(cache), "--history", str(history))
+        check = start("repro_torch.bench.kernel_bench", "--check", "--history", str(history))
+        explain, check = finish("explain_dispatch", explain), finish("check", check)
+        claims = [ln for ln in run.stdout.splitlines()[
+            run.stdout.splitlines().index("# Claim summary") + 1:]
+            if ln.startswith(("[PASS]", "[MISS]"))] if "# Claim summary" in run.stdout else []
+        misses = sorted({ln.split()[1].rstrip(":") for ln in claims if ln.startswith("[MISS]")})
+        kernel_rows = _csv_section(run.stdout, "Kernel benches")
+        bad_rows = [r for r in kernel_rows if not float(r[3]) <= float(r[4])]
+        roofline = _csv_section(run.stdout, "Roofline")
+        rows = (json.loads(history.read_text())["history"] if history.exists() else [])
+        rates = {}
+        for t in sorted((cache / "calibration").glob("calib-*.json")):
+            rates.update(CalibrationStore(t).load().get("rates", {}))
+        measured = "measured:" in explain.stdout
+        chosen = [ln for ln in explain.stdout.splitlines() if ln.endswith("<-- chosen")]
+        summary = next((json.loads(ln.split("perfcheck summary:", 1)[1])
+                        for ln in check.stdout.splitlines() if "perfcheck summary:" in ln), None)
+        emit("bench_run", walls_s=walls, rc={"run": run.returncode,
+                                            "explain_dispatch": explain.returncode,
+                                            "check": check.returncode},
+             figure_seconds={m.group(1): float(m.group(2))
+                             for m in _FIG_SECONDS.finditer(run.stderr)},
+             claims=len(claims), misses=misses, kernel_rows=kernel_rows,
+             engine_rows=[{k: r.get(k) for k in (
+                 "bench", "n_accesses", "n_configs", "n_sims", "t_reference_s", "t_stackdist_s",
+                 "t_looped_s", "t_batched_s", "t_cuda_s", "speedup", "bit_identical",
+                 "nvidia_smi")} for r in rows],
+             calibration_rates=rates, explain_measured=measured, explain_chosen=chosen,
+             perfcheck=summary, roofline_rows=roofline,
+             run_stderr_tail=run.stderr.splitlines()[-6:])
+        if run.returncode != 0 or set(misses) - BENCH_RUN_ALLOWED_MISSES:
+            fail(f"bench_run: rc {run.returncode}, claims out of band {misses}: "
+                 f"{run.stderr[-2000:]}")
+        if len(kernel_rows) != 8 or bad_rows:
+            fail(f"bench_run: kernel rows {len(kernel_rows)} of 8, outside their tolerance "
+                 f"{bad_rows}")
+        if {r.get("bench") for r in rows} != {"sweep", "timeline", "timeline_batched",
+                                              "system_batched"} \
+                or not all(r.get("bit_identical") for r in rows):
+            fail(f"bench_run: engine rows {[(r.get('bench'), r.get('bit_identical')) for r in rows]}")
+        if not rates or explain.returncode != 0 or not measured or len(chosen) != 4:
+            fail(f"bench_run: calibration {sorted(rates)}, explain rc {explain.returncode}, "
+                 f"measured {measured}, decisions {len(chosen)}: {explain.stderr[-1000:]}")
+        if check.returncode != 0 or not summary or summary["n_failures"]:
+            fail(f"bench_run: kernel_bench --check rc {check.returncode}, {summary}: "
+                 f"{(check.stdout + check.stderr)[-2000:]}")
+        if not roofline:
+            fail("bench_run: no roofline table")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 if __name__ == "__main__":

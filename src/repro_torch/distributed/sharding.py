@@ -27,8 +27,9 @@ the models compute on each rank's shards and place the result themselves:
 :func:`tp_product` (the Megatron column- and row-parallel products after
 the FSDP gather), :class:`VocabShards` (the vocab-parallel loss),
 :func:`shard_heads` (attention over each rank's heads),
-:func:`on_batch_and_heads` (the scans) and :func:`gather_rows` (the
-vocab-parallel embedding lookup).  Each is the identity on plain tensors
+:func:`on_batch_and_heads` (the scans), :class:`HeadShards` (the Mamba2
+block on each rank's heads) and :func:`gather_rows` (the vocab-parallel
+embedding lookup).  Each is the identity on plain tensors
 and runs the single-device ops on a one-rank mesh.
 """
 from __future__ import annotations
@@ -641,6 +642,71 @@ class VocabShards:
                                   run_check=False)
 
 
+class HeadShards:
+    """A rank's share of a block's H heads, for a block computed on plain
+    local tensors between two DTensor activations (the Mamba2 block: its
+    ``in_proj`` output is laid out [z | x | B | C | dt], so a column shard
+    of it falls on no head boundary, and DTensor would replicate it).
+
+    ``x`` ([B, ..., D], a DTensor) keeps its batch where it is sharded
+    (dim 0); every other mesh dim splits the heads, ranks in mesh order,
+    ``ceil(H / parts)`` a rank (the last ranks may hold fewer, or none).
+    ``lo:hi`` are the rank's heads, :meth:`rows` its rows of ``x``,
+    :meth:`weight` hands out a whole parameter, :meth:`sum_heads` and
+    :meth:`place` reduce over the heads' mesh dims.  Every gradient returns
+    as a partial sum where the rank saw only part of the work.  The object
+    holds no tensor, so a checkpointed function may take it as an
+    argument."""
+
+    def __init__(self, x, H: int):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        self.mesh, self.shape = x.device_mesh, tuple(x.shape)
+        x = batch_only(x)
+        batch = [p == Shard(0) for p in x.placements]
+        self.head_dims = tuple(j for j, b in enumerate(batch) if not b)
+        coord, idx, parts = self.mesh.get_coordinate(), 0, 1
+        for j in self.head_dims:
+            idx, parts = idx * self.mesh.size(j) + coord[j], parts * self.mesh.size(j)
+        per = -(-H // parts)
+        self.lo = min(idx * per, H)
+        self.hi = min(self.lo + per, H)
+        self._partial = tuple(Shard(0) if b else Partial() for b in batch)
+        self._summed = tuple(Shard(0) if b else Replicate() for b in batch)
+
+    def rows(self, x) -> torch.Tensor:
+        """The rank's rows of the DTensor ``x`` (the one this was made from),
+        its gradient a partial sum over the heads' mesh dims."""
+        return batch_only(x).to_local(grad_placements=self._partial)
+
+    def weight(self, w):
+        """The whole of parameter ``w`` as a plain tensor on every rank (its
+        shards all-gathered), its gradient a partial sum on every mesh dim."""
+        if not is_dtensor(w):
+            return w
+        from torch.distributed.tensor import Partial, Replicate
+
+        n = w.device_mesh.ndim
+        return w.redistribute(w.device_mesh, (Replicate(),) * n).to_local(
+            grad_placements=(Partial(),) * n)
+
+    def sum_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of the rank-local ``x`` over the heads' mesh dims; its
+        gradient summed alike, since each rank uses the sum differently."""
+        return _AllReduceSum.apply(x, self.mesh, self.head_dims)
+
+    def place(self, out: torch.Tensor):
+        """The rank-local ``out`` [B/data, ..., D], a partial sum over the
+        heads' mesh dims, summed and placed as ``x`` was: rows where they
+        were, replicated over the heads' dims (row-parallel ``out_proj``)."""
+        from torch.distributed.tensor import DTensor
+
+        shape = (self.shape[0], *out.shape[1:])
+        return DTensor.from_local(out, self.mesh, self._partial, run_check=False, shape=shape,
+                                  stride=contiguous_stride(shape)
+                                  ).redistribute(self.mesh, self._summed)
+
+
 def _all_reduce(x: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
     """``x`` reduced by ``op`` over each of ``mesh``'s dims ``dims`` in turn
     (functional collectives, which the dry run's trace counts)."""
@@ -667,6 +733,21 @@ class _SumOver(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad, None, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """All-reduce (sum) in both passes: each rank goes on with the sum in a
+    computation of its own, so the sum's gradient is the sum of the
+    ranks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        ctx.mesh, ctx.dims = mesh, dims
+        return _all_reduce(x, "sum", mesh, dims)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad.contiguous(), "sum", ctx.mesh, ctx.dims), None, None
 
 
 # ---------------------------------------------------------------------------

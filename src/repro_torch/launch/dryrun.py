@@ -32,8 +32,9 @@ JAX package refuses them.  Every step runs with ``kernel_mode="reference"``,
 as in the JAX package; the KV pools are written by scatter, the one form the
 port has (the JAX package's ``REPRO_KV_WRITE_MODE`` picks among several, so
 the record's ``kv_write_mode`` is a constant here).  Records go to
-``build/repro_torch/dryrun/<arch>__<shape>__<mesh>.json``; no HLO exists, so
-none is written.  A process holds one default group, so the dry run runs in
+``build/repro_torch/dryrun/<arch>__<shape>__<mesh>.json`` (``__L<n>`` added
+for a cell cut to n layers: ``arch:shape:mesh:n``); no HLO exists, so none
+is written.  A process holds one default group, so the dry run runs in
 a process of its own.
 
 Usage:
@@ -41,10 +42,12 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch all --shape all --mesh both
   PYTHONPATH=src python -m repro_torch.launch.dryrun \
       --cells qwen3-14b:train_4k:16x16,zamba2-7b:long_500k:16x16
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --cells zamba2-7b:train_4k:16x16:3
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import heapq
 import json
@@ -375,15 +378,18 @@ def _setup(cfg, shape: ShapeConfig, mesh, multi_pod: bool):
 
 
 def lower_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: pathlib.Path,
-               resume: bool = True, act_constraints: bool = False, tag: str = "") -> dict:
+               resume: bool = True, act_constraints: bool = False, tag: str = "",
+               layers: int = 0) -> dict:
     """Run one cell on the meta device in a fake world and write its record
-    (``ok`` false with the error and traceback when it fails)."""
+    (``ok`` false with the error and traceback when it fails); ``layers``
+    > 0 cuts the config to that many layers."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.launch.mesh import make_production_mesh
 
     mesh_name = ("2x16x16" if multi_pod else "16x16") + tag
-    out_path = out_dir / f"{arch}__{shape_name}__{mesh_name}.json"
+    cut = f"__L{layers}" if layers else ""
+    out_path = out_dir / f"{arch}__{shape_name}__{mesh_name}{cut}.json"
     if resume and out_path.exists():
         rec = json.loads(out_path.read_text())
         if rec.get("ok"):
@@ -391,6 +397,8 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: pathlib.Pat
             return rec
 
     cfg = registry.get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     shape = SHAPES_BY_NAME[shape_name]
     ok, why = cell_applicable(cfg, shape)
     if not ok:
@@ -400,7 +408,7 @@ def lower_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: pathlib.Pat
     fake_world(math.prod(shape_mesh))
     mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
     rec = {
-        "arch": arch, "shape": shape_name, "mesh": mesh_name,
+        "arch": arch, "shape": shape_name, "mesh": mesh_name, "num_layers": cfg.num_layers,
         "kind": shape.kind, "chips": int(mesh.size()), "ok": False,
         "act_constraints": act_constraints, "mesh_device_type": mesh.device_type,
         "torch_version": torch.__version__,
@@ -476,24 +484,26 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="", help="suffix for output filenames")
     ap.add_argument("--cells", default="",
                     help="comma-separated arch:shape:mesh cells, in place of the product of "
-                         "--arch, --shape and --mesh")
+                         "--arch, --shape and --mesh; arch:shape:mesh:L cuts the config to L "
+                         "layers (widths, batch and sequence kept; the record's name ends "
+                         "in __L<L>)")
     args = ap.parse_args(argv)
 
     out_dir = pathlib.Path(args.out)
     if args.cells:
-        cells = [(a, s, m == "2x16x16") for a, s, m in
-                 (c.split(":") for c in args.cells.split(","))]
+        cells = [(c[0], c[1], c[2] == "2x16x16", int(c[3]) if len(c) > 3 else 0)
+                 for c in (cell.split(":") for cell in args.cells.split(","))]
     else:
         archs = registry.ARCH_IDS if args.arch == "all" else [args.arch]
         shapes = [s.name for s in SHAPES] if args.shape == "all" else [args.shape]
         meshes = [False, True] if args.mesh == "both" else [args.mesh == "2x16x16"]
-        cells = [(a, s, mp) for a in archs for s in shapes for mp in meshes
+        cells = [(a, s, mp, 0) for a in archs for s in shapes for mp in meshes
                  if cell_applicable(registry.get_config(a), SHAPES_BY_NAME[s])[0]]
 
     n_ok = n_fail = 0
-    for arch, sname, mp in sorted(cells, key=lambda c: c[2]):   # one world after the other
+    for arch, sname, mp, layers in sorted(cells, key=lambda c: c[2]):   # one world after the other
         rec = lower_cell(arch, sname, mp, out_dir, resume=not args.no_resume,
-                         act_constraints=args.act_constraints, tag=args.tag)
+                         act_constraints=args.act_constraints, tag=args.tag, layers=layers)
         n_ok += int(rec.get("ok", False))
         n_fail += int(not rec.get("ok", False))
     from repro_torch.launch.mesh import destroy

@@ -143,13 +143,13 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, scale, r = ctx.saved_tensors
-        xhat = x.float() * r
-        dyf = dy.float()                       # dy itself when dy is float32
-        dscale = (dyf * xhat).reshape(-1, x.shape[-1]).sum(0)
-        g = dyf * (1.0 + scale.float())
-        del dyf
-        # In place on the two buffers made here: three row-sized ones at most.
-        dx = g.sub_(xhat.mul_((g * xhat).mean(-1, keepdim=True))).mul_(r)
+        xhat = x * r                           # float32 (r is): no float32 copy of x
+        dscale = (dy * xhat).reshape(-1, x.shape[-1]).sum(0)
+        g = dy * (1.0 + scale.float())
+        # In place on the two buffers made here, the rows' dot products by
+        # a batched product: two row-sized float32 buffers at most.
+        dot = torch.einsum("...d,...d->...", g, xhat)[..., None] / x.shape[-1]
+        dx = g.sub_(xhat.mul_(dot)).mul_(r)
         return dx.to(x.dtype), dscale.to(scale.dtype), None
 
 

@@ -1,6 +1,8 @@
 """Mamba2 block (SSD), the port of ``src/repro/models/mamba2.py``: used
 inside the Zamba2 hybrid.  Prefill runs the SSD scan (kernel K8); a T = 1
-step with state runs :func:`mamba2_decode_step`."""
+step with state runs :func:`mamba2_decode_step`.  On a mesh (DTensor
+parameters, no state: training and prefill) each rank computes only its
+own heads (:func:`_block_on_heads`)."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -10,10 +12,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import on_batch_and_heads, tp_product
+from repro_torch.distributed.sharding import (
+    HeadShards, is_dtensor, tp_product,
+)
 from repro_torch.kernels.common import as_device
 from repro_torch.kernels.mamba2_scan import mamba2_decode_step, mamba2_scan
-from repro_torch.models.layers import Device, Norm, _normal, dense_init, param, rmsnorm
+from repro_torch.models.layers import (
+    Device, Norm, _normal, dense_init, param, remat_call, rmsnorm,
+)
 
 
 def dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -75,6 +81,8 @@ def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig, *,
     """x [B, T, D] -> (out [B, T, D], new state ``{"conv", "ssm"}``), a
     pre-norm residual block.  ``state`` (conv + ssm) enables T = 1 decode;
     None is prefill, through K8."""
+    if state is None and is_dtensor(p.in_proj):
+        return _block_on_heads(p, x, cfg, kernel_mode), None
     B, T, D = x.shape
     d_inner, H, P, N = dims(cfg)
     h = rmsnorm(x, p.norm.scale)
@@ -91,15 +99,67 @@ def block_forward(p: Block, x: torch.Tensor, cfg: ModelConfig, *,
                                         C[:, 0].float(), p.D, state["ssm"])
         y = y[:, :, None, :]
     else:
-        y, new_ssm = on_batch_and_heads(
-            lambda *a: mamba2_scan(*a, kernel_mode=kernel_mode),
-            (xs, dt, A, Bm.float(), C.float(), p.D),
-            ((0, 1), (0, 1), (None, 0), (0, None), (0, None), (None, 0)), ((0, 1), (0, 1)))
+        y, new_ssm = mamba2_scan(xs, dt, A, Bm.float(), C.float(), p.D,
+                                 kernel_mode=kernel_mode)
     y = y.transpose(1, 2).reshape(B, T, d_inner)
     y = y * F.silu(z.to(y.dtype))
     y = rmsnorm(y, p.gate_norm)
     out = x + tp_product(y.to(x.dtype), p.out_proj)
     return out, {"conv": new_conv, "ssm": new_ssm}
+
+
+def _block_on_heads(p: Block, x, cfg: ModelConfig, kernel_mode: str):
+    """:func:`block_forward`'s output on a mesh, each rank computing its own
+    heads (:class:`HeadShards`) on plain local tensors: the product with
+    its heads' columns of ``in_proj`` (z, x, dt) and with B and C (every
+    rank), the causal conv on its x channels and B, C, the scan on its
+    heads, the gate norm with its sum of squares summed over the heads'
+    ranks, its rows of ``out_proj``, the partial products summed.  No rank
+    holds the whole ``in_proj`` output or every head's scan.  The
+    parameters are gathered whole (each is at most D x (2 d_inner + 2N +
+    H)), cut to the rank's columns, and keep their placements.  Under
+    autograd the local part keeps only its inputs and is recomputed in the
+    backward pass (a group's recompute would otherwise hold every block's
+    conv, scan and norm intermediates at once).  No decode state is made
+    (prefill and training do not keep it)."""
+    d_inner, H, P, N = dims(cfg)
+    h = rmsnorm(x, p.norm.scale)
+    hs = HeadShards(h, H)
+    lo, hi = hs.lo, hs.hi
+    own = slice(lo * P, hi * P)
+    w = hs.weight(p.in_proj)
+    w_in = torch.cat([w[:, own], w[:, d_inner + lo * P:d_inner + hi * P],
+                      w[:, 2 * d_inner:2 * d_inner + 2 * N],
+                      w[:, 2 * d_inner + 2 * N + lo:2 * d_inner + 2 * N + hi]], 1)
+    conv_cols = lambda t: torch.cat([t[..., own], t[..., d_inner:]], -1)   # noqa: E731
+    weights = (w_in, conv_cols(hs.weight(p.conv_w)), conv_cols(hs.weight(p.conv_b)),
+               hs.weight(p.dt_bias)[lo:hi], hs.weight(p.A_log)[lo:hi], hs.weight(p.D)[lo:hi],
+               hs.weight(p.gate_norm)[own], hs.weight(p.out_proj)[own].contiguous())
+    out = remat_call(_heads_forward, hs, hs.rows(h), *weights, cfg, kernel_mode, remat=True)
+    return x + hs.place(out)
+
+
+def _heads_forward(hs: HeadShards, h, w_in, conv_w, conv_b, dt_bias, A_log, D, gate_norm,
+                   w_out, cfg: ModelConfig, kernel_mode: str):
+    """The rank-local part of :func:`_block_on_heads`: h [B/data, T, D] and
+    the rank's columns of each parameter -> its partial sum of ``out_proj``'s
+    product [B/data, T, D]."""
+    d_inner, _, P, N = dims(cfg)
+    B, T, Hl = h.shape[0], h.shape[1], dt_bias.shape[0]
+    d_own = Hl * P
+    z, xBC, dt_raw = torch.split(h @ w_in, [d_own, d_own + 2 * N, Hl], dim=-1)
+    xBC, _ = _causal_conv(xBC, conv_w, conv_b)
+    xs, Bm, C = torch.split(xBC, [d_own, N, N], dim=-1)
+    xs = xs.reshape(B, T, Hl, P).transpose(1, 2)               # [B, H_own, T, P]
+    dt = F.softplus(dt_raw.float() + dt_bias).transpose(1, 2)
+    y, _ = mamba2_scan(xs, dt, -torch.exp(A_log), Bm.float(), C.float(), D,
+                       kernel_mode=kernel_mode)
+    y = y.transpose(1, 2).reshape(B, T, d_own)
+    y = y * F.silu(z.to(y.dtype))
+    yf = y.float()                                             # rmsnorm over d_inner
+    var = hs.sum_heads((yf * yf).sum(-1, keepdim=True)) / d_inner
+    y = ((yf * torch.rsqrt(var + 1e-6)) * (1.0 + gate_norm.float())).to(y.dtype)
+    return y.to(w_out.dtype) @ w_out
 
 
 def init_block_state(cfg: ModelConfig, batch: int, *, device: Device = "cuda") -> dict:

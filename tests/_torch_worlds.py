@@ -69,6 +69,7 @@ PREFILL_ARCHS = {"dense": ("qwen3-14b", {"num_heads": 6}), "moe": (MOE_ARCH, {})
                  "ssm": ("rwkv6-1.6b", {}), "hybrid": ("zamba2-7b", {})}
 PREFILL_B, PREFILL_T = 4, 16
 SCAN_GRAD_KINDS = ("ssm", "hybrid")         # their loss and gradients, too
+HYBRID_TRAIN_STEPS = 2                      # Zamba2's train steps on 2x4 and one device
 WORLDS = {"train": 8, "elastic": 4, "serve": 8, "moe": 4, "vocab": 8}
 
 
@@ -713,7 +714,17 @@ def world_vocab(rank: int, out: pathlib.Path) -> None:
         res["prefill"][kind] = got
 
     # The scans' gradients on each rank's rows and heads: the loss and its
-    # gradients of the state-space configs, single-device and on 2x4.
+    # gradients of the state-space configs, single-device and on 2x4; the
+    # heads of every Mamba2 scan each rank ran on 2x4 (Zamba2's).
+    from repro_torch.models import mamba2 as m2
+
+    scanned: list = []
+    real_scan = m2.mamba2_scan
+
+    def recording_scan(x, *a, **kw):
+        scanned.append(int(x.shape[1]))
+        return real_scan(x, *a, **kw)
+
     res["grads"] = {}
     for kind in SCAN_GRAD_KINDS:
         cfg = prefill_cfg(registry, kind)
@@ -738,10 +749,52 @@ def world_vocab(rank: int, out: pathlib.Path) -> None:
         shd.shard_params(params, cfg, mesh, mode="train")
         from torch.distributed.tensor.experimental import implicit_replication
 
-        with implicit_replication():
-            got["sharded"] = loss_and_grads(params, shd.shard_batch(batch, cfg, mesh))
+        m2.mamba2_scan = recording_scan
+        try:
+            with implicit_replication():
+                got["sharded"] = loss_and_grads(params, shd.shard_batch(batch, cfg, mesh))
+        finally:
+            m2.mamba2_scan = real_scan
         res["grads"][kind] = got
+
+    # Zamba2 trains on 2x4 as on one device: HYBRID_TRAIN_STEPS steps of
+    # make_train_step from the JAX package's initial parameters.
+    from repro_torch.data.pipeline import DataConfig, batch_for_model
+    from repro_torch.train.optimizer import init_state
+
+    cfg = prefill_cfg(registry, "hybrid")
+    data = DataConfig(vocab=cfg.vocab, seq_len=PREFILL_T, global_batch=PREFILL_B)
+    batches = [{k: torch.from_numpy(v) for k, v in batch_for_model(data, cfg, i).items()}
+               for i in range(HYBRID_TRAIN_STEPS)]
+
+    def train(sharded: bool) -> dict:
+        taps: list = []
+        step = _step(cfg, taps)
+        params = models.init(cfg, seed=1, device="cpu")
+        ckpt.restore(out / "prefill_hybrid", template={"params": params})
+        opt = init_state(params)
+        if sharded:
+            shd.shard_params(params, cfg, mesh)
+            opt = shd.shard_opt_state(opt, cfg, mesh)
+        losses = []
+        for b in batches:
+            params, opt, m = step(params, opt, shd.shard_batch(b, cfg, mesh) if sharded else b)
+            losses.append(float(_whole(m["loss"])))
+        return {"losses": losses, "params": _params(params), "grads": taps}
+
     if rank == 0:
+        res["hybrid_train"] = {"single": train(False)}
+    dist.barrier()
+    m2.mamba2_scan = recording_scan
+    try:
+        sharded_train = train(True)
+    finally:
+        m2.mamba2_scan = real_scan
+    heads = [None] * dist.get_world_size()
+    dist.all_gather_object(heads, scanned)
+    if rank == 0:
+        res["hybrid_train"]["sharded"] = sharded_train
+        res["heads_scanned"] = heads
         torch.save(res, out / "vocab.pt")
 
 

@@ -16,11 +16,13 @@ placements and counts, on the CPU:
   than one layer's local pool shard; the train cell's peak within 70 GiB
   (an H100's 79.1 GiB less ~10% for what the estimate leaves out);
 * the guard of the sharded train and prefill paths at production scale:
-  qwen3-14b train_4k, qwen3-moe-30b-a3b train_4k and qwen3-moe-30b-a3b
-  prefill_32k on 16x16 in one subprocess, each cut to 2 layers and
-  otherwise at full width, batch, sequence and vocabulary: each peak within
-  10 GiB, and no tensor live at the peak holding the whole vocabulary for
-  more than a data shard's rows, or the whole batch of hidden states.
+  qwen3-14b train_4k, qwen3-moe-30b-a3b train_4k and prefill_32k, and
+  zamba2-7b train_4k and prefill_32k on 16x16 in one subprocess, each cut
+  to 2 layers (zamba2-7b to one group of 3 Mamba2 layers and the shared
+  attention) and otherwise at full width, batch, sequence and vocabulary:
+  each peak within 10 GiB, and no tensor live at the peak holding the whole
+  vocabulary for more than a data shard's rows, or the whole batch of
+  hidden states.
 """
 import functools
 import json
@@ -43,8 +45,9 @@ from repro_torch.launch import dryrun
 CELLS = [("qwen3-14b", "train_4k", "16x16"), ("qwen3-moe-30b-a3b", "decode_32k", "2x16x16"),
          ("zamba2-7b", "long_500k", "16x16")]
 CUT_CELLS = [("qwen3-14b", "train_4k", "16x16"), ("qwen3-moe-30b-a3b", "train_4k", "16x16"),
-             ("qwen3-moe-30b-a3b", "prefill_32k", "16x16")]
-CUT_LAYERS = 2
+             ("qwen3-moe-30b-a3b", "prefill_32k", "16x16"), ("zamba2-7b", "train_4k", "16x16"),
+             ("zamba2-7b", "prefill_32k", "16x16")]
+CUT_LAYERS = 2          # zamba2-7b: one group (hybrid_period, 3 Mamba2 layers), its least
 GiB = 2 ** 30
 CARD_BOUND, CUT_BOUND = 70 * GiB, 10 * GiB
 # The dry run with every config cut to CUT_LAYERS layers, widths untouched.
@@ -53,7 +56,8 @@ import dataclasses, sys
 from repro_torch.configs import registry
 from repro_torch.launch import dryrun
 real = registry.get_config
-registry.get_config = lambda arch: dataclasses.replace(real(arch), num_layers=%d)
+registry.get_config = lambda arch: dataclasses.replace(
+    real(arch), num_layers=max(%d, real(arch).hybrid_period))
 sys.exit(dryrun.main(sys.argv[1:]))
 """
 

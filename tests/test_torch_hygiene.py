@@ -284,3 +284,40 @@ def test_make_mesh_checks_the_world_size():
     assert proc.stdout.splitlines() == [
         "refused: a 16x16 mesh needs 256 ranks; the world has 1",
         "('data', 'model') (1, 1) gloo", "False"], proc.stdout
+
+
+def test_bench_modules_load_no_jax_and_default_to_the_card(tmp_path):
+    """The benchmark entry point, the kernel benches, the band gate and the
+    roofline load no JAX; the entry point, the kernel benches and the history's
+    stamp left at their default device raise without a card."""
+    mods = ("repro_torch.bench.run", "repro_torch.bench.kernel_bench",
+            "repro_torch.bench.perfcheck", "repro_torch.bench.roofline")
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import sys, {', '.join(mods)}; "
+         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', "
+         "'benchmarks')))"],
+        cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.strip() == "[]", proc.stdout + proc.stderr
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device is valid")
+    import logging
+
+    from repro_torch.bench import kernel_bench, run
+
+    root = logging.getLogger("repro_torch")
+    saved = (root.level, list(root.handlers), root.propagate)
+    try:
+        with pytest.raises(RuntimeError, match="cuda"):
+            run.main(["--quick", "--only", "fig7", "--cache-dir", str(tmp_path)])
+    finally:   # main's narration handler stops propagation to caplog's root
+        root.setLevel(saved[0])
+        root.handlers[:] = saved[1]
+        root.propagate = saved[2]
+    with pytest.raises(RuntimeError, match="cuda"):
+        kernel_bench.run(quick=True, history=tmp_path / "h.json", calibration_dir=tmp_path)
+    with pytest.raises(RuntimeError, match="cuda"):
+        kernel_bench.main(["--quick", "--history", str(tmp_path / "h.json")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kernel_bench.append_entry({"bench": "sweep"}, tmp_path / "h.json")
+    assert not (tmp_path / "h.json").exists()

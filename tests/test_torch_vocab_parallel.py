@@ -20,7 +20,17 @@ single-device port and the JAX package:
   step's, and within 1e-4 (the transformer tests' tolerance, absolute and
   relative) of JAX's ``make_prefill_step`` jitted on an Auto-axis 2x4 mesh;
 * the RWKV6 and Zamba2 losses and gradients on 2x4 against the
-  single-device port's, at the sharded losses' tolerances.
+  single-device port's, at the sharded losses' tolerances;
+* Zamba2 trained two steps of ``make_train_step`` on 2x4 and on one
+  device: each step's loss and gradients, and the parameters, at
+  tests/test_torch_distributed.py's sharded-training tolerances.  A
+  parameter whose gradient at some step is at the rounding's level (below
+  ``FLAT`` of its tensor's largest, not 0) takes AdamW's normalised step of that
+  rounding, up to lr a step either way: such entries are held to that
+  bound instead (one entry of ``mamba.1.0.in_proj`` had a first gradient of
+  -2.9e-8 against a largest 0.086 and moved 5.8e-5 apart).  Every Mamba2
+  scan of every rank on 2x4 ran on H/4 heads (the head-aligned block: each
+  rank its own heads).
 """
 import jax
 import jax.numpy as jnp
@@ -34,7 +44,8 @@ from repro.configs import registry as jreg
 from repro.models.losses import chunked_cross_entropy as jchunked
 from repro_torch.checkpoint import checkpoint as ckpt
 
-LOSS_TOL, GRAD_TOL = 1e-5, 1e-4
+LOSS_TOL, GRAD_TOL, PARAM_TOL = 1e-5, 1e-4, 1e-4
+FLAT = 1e-5     # a gradient entry below FLAT of its tensor's largest is rounding
 PREFILL_TOL, PREFILL_JAX_TOL = 1e-5, 1e-4
 
 
@@ -163,3 +174,37 @@ def test_sharded_scan_gradients_match_single_device(world, kind):
     assert abs(sharded["loss"] - single["loss"]) <= LOSS_TOL * abs(single["loss"])
     worst = max((_gap(g, single["grads"][n]), n) for n, g in sharded["grads"].items())
     assert worst[0] <= GRAD_TOL, worst
+
+
+def test_sharded_zamba2_trains_as_single_device(world):
+    got = _need(world, "port")["hybrid_train"]
+    single, sharded = got["single"], got["sharded"]
+    assert len(sharded["losses"]) == W.HYBRID_TRAIN_STEPS
+    for a, b in zip(sharded["losses"], single["losses"]):
+        assert abs(a - b) <= LOSS_TOL * abs(b), (a, b)
+    for got_g, want_g in zip(sharded["grads"], single["grads"]):
+        worst = max((_gap(g, want_g[n]), n) for n, g in got_g.items())
+        assert worst[0] <= GRAD_TOL, worst
+    flat_entries = 0
+    for n, p in sharded["params"].items():
+        want = single["params"][n].double()
+        flat = torch.zeros(want.shape, dtype=torch.bool)
+        for g in single["grads"]:
+            a = g[n].double().abs()
+            flat |= (a > 0) & (a < FLAT * a.max())
+        gap = (p.double() - want).abs()
+        assert float(torch.where(flat, 0.0, gap).max()) <= PARAM_TOL * float(want.abs().max()), n
+        assert float(torch.where(flat, gap, 0.0).max()) <= 2 * W.LR * W.HYBRID_TRAIN_STEPS, n
+        flat_entries += int(flat.sum())
+    assert flat_entries < 0.001 * sum(p.numel() for p in sharded["params"].values())
+
+
+def test_each_rank_scans_its_own_quarter_of_the_heads(world):
+    from repro_torch.configs import registry
+    from repro_torch.models.mamba2 import dims
+
+    H = dims(W.prefill_cfg(registry, "hybrid"))[1]
+    heads = _need(world, "port")["heads_scanned"]
+    assert len(heads) == 8 and H % 4 == 0
+    for rank, seen in enumerate(heads):
+        assert seen and set(seen) == {H // 4}, (rank, seen)
