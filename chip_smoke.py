@@ -314,12 +314,47 @@ device mesh.  One JSON line per phase:
    references, the roofline table printed; each child's wall time and each
    figure's.
 
+The orchestrator, scheduler and bench_run phases each end with a
+``runlog_reader`` line: ``python -m repro_torch.bench.obs_report``'s
+functions over that phase's own run logs, read before its directory goes
+(the scheduler's sub-runs write one log, each process worker its own, read
+as one comma-joined group; bench_run's are each figure's): each renders
+with exit 0, ``--fail-on-event downgrade`` exits 0, every log's
+``event_counts`` equals its run's own ``events`` summary; the orchestrator's
+accesses in ``engine_throughput`` equal its chunk spans' summed from the
+file, the merged scheduler group holds the killed worker's recovery events,
+and ``--diff`` of two of bench_run's figure logs exits 0.
+
+28. ``examples``, a main path of its own (counters set to 0 just before and
+   read just after): the JAX package's three examples as the port's
+   modules, on the card: ``repro_torch.examples.quickstart`` (the
+   bst_internal trace, 640,000 accesses: K1 four times, K2 twice; every
+   printed line and number equal to ``tests/data/torch_golden_examples.json``,
+   the JAX example's run), ``serve_paged`` (4 layers of width 128 in
+   float32, 8 requests and a 3-way fork: K5's float32 path 32 times, K6 4
+   times a decode step; the engine's counts, free pages and a fork that
+   allocates no page equal to the JAX example's, the invariants holding,
+   and every generated token equal to the same example's run again on the
+   same weights with the engine at ``kernel_mode="reference"``, which
+   launches nothing) and ``train_distributed`` (qwen3-14b's smoke config on
+   a 1 x 1 mesh of a one-rank NCCL world, the JAX example's 60 steps with a
+   checkpoint every 20, the loss falling, then ``elastic_restore`` onto the
+   one-card plan: the last checkpoint's step, bit for bit the trained
+   state); ``timing_site`` lines for K5's float32 path and K6 at
+   serve_paged's calls, each held to its plain version on those shapes.
+
+Phases 7 and 12 add ``timing_site`` lines for the float32 kernels (K5's FMA
+kernel at ``serve_exact``'s prefill calls; K7's and K8's at ``ssm_exact``'s):
+CUDA events, device time, the plain version, the bound at the float32
+rate (67 TFLOP/s) and, for K5, SDPA on the same float32 inputs.
+
 Each phase from 15 on starts from a freed card and reports its peak
 memory.  Then the ``{"kernels": [...]}`` line (K1-K8; K5's and K6's
 ``launches`` are phase 8's, the run their row times, and
-``launches_by_path`` adds phases 15-19's), the ``nvidia-smi`` name and
-power limit, and last ``{"ok": true, "device": {...}}``.  Needs one card;
-imports nothing of JAX or of the JAX package.
+``launches_by_path`` adds phases 15-19's and 28's; K1's and K2's
+``launches_by_path`` hold the main path's and phase 28's), the
+``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
+{...}}``.  Needs one card; imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
@@ -339,6 +374,7 @@ sys.path.insert(0, str(ROOT / "src"))
 GOLDEN = ROOT / "tests" / "data" / "torch_golden_sweeps.json"
 GOLDEN_TIMELINE = ROOT / "tests" / "data" / "torch_golden_timeline.json"
 GOLDEN_FIGS = ROOT / "tests" / "data" / "torch_golden_figs.json"
+GOLDEN_EXAMPLES = ROOT / "tests" / "data" / "torch_golden_examples.json"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 INT32_OPS_PER_S = 67e12        # 32-bit rate outside the tensor cores (data sheet, fp32)
 STREAM_CHUNK = 65_537          # accesses per stream chunk (odd on purpose)
@@ -482,11 +518,15 @@ def drive(torch):
     families = run_families(torch)
     run_training(torch)
     run_bench_run()
+    examples = run_examples(torch)
     for row in kernels:       # ``launches`` stays phase 8's, the run the row times
-        if row["name"] in FAMILY_KERNELS:
-            k = row["name"]
+        k = row["name"]
+        if k in FAMILY_KERNELS:
             row["launches_by_path"] = {"serve": row["launches"],
                                        **{p: n[k] for p, n in families.items()}}
+        if k in EXAMPLES_KERNELS:
+            row.setdefault("launches_by_path", {"main_path": row["launches"]})
+            row["launches_by_path"]["examples"] = examples[k]
     return kernels, name, smi
 
 
@@ -1375,6 +1415,22 @@ def _orchestrate(torch, figs, trace, runs, golden, golden_tl, root: pathlib.Path
 
     log = root / "orchestrator.jsonl"
     recs = [json.loads(line) for line in log.read_text().splitlines()]
+
+    def throughput(obs_report):
+        """The accesses of ``engine_throughput`` by engine against the chunk
+        spans' summed from the file's lines."""
+        chunks, tput = {}, {}
+        for r in recs:
+            if r.get("kind") == "span" and r.get("name") == "chunk":
+                a = r.get("attrs", {})
+                chunks[a.get("engine")] = chunks.get(a.get("engine"), 0) + int(a["accesses"])
+        for (engine, _), st in obs_report.engine_throughput(obs_report.load_log(log)).items():
+            tput[engine] = tput.get(engine, 0) + st["accesses"]
+        return ({"engine_accesses": tput, "chunk_accesses": chunks},
+                [] if chunks and tput == chunks else
+                [f"engine_throughput's accesses {tput} against its chunks' {chunks}"])
+
+    check_runlog("orchestrator", [log], extra=throughput)
     kinds = {r["kind"] for r in recs}
     counters = {k: summary["counters"].get(f"{k}.sim_accesses", {}).get("value")
                 for k in sim}
@@ -1482,9 +1538,11 @@ def _scheduled(torch, figs, trace, runs, golden, golden_tl, root: pathlib.Path) 
     from repro_torch.bench.faultinject import HoldShard, KillWorkerOnShard, PoisonShard
     from repro_torch.core import orchestrator as orch
     from repro_torch.core import scheduler as sch
+    from repro_torch.core.benchtime import device_metadata
     from repro_torch.core.sparta import SystemLatencies
     from repro_torch.core.sweep import sweep_system, sweep_tlb
     from repro_torch.core.timeline import sweep_timeline
+    from repro_torch.runtime import telemetry
 
     fig4, fig10 = figs["fig4"], figs["fig10"]
     lat = SystemLatencies(n_sockets=8)
@@ -1568,82 +1626,101 @@ def _scheduled(torch, figs, trace, runs, golden, golden_tl, root: pathlib.Path) 
                 for g, k in zip(got[3 * i:3 * i + 3], ("latency", "overhead", "done")))
 
     t0 = time.perf_counter()
-    for stem, (drive, want, kernel, mode) in engines.items():
-        for label, kw in (("thread", SCHED_THREAD), ("process", SCHED_PROCESS)):
-            wall, (got, meta) = _wall(torch, lambda: drive(cfg(), sch.ScheduleConfig(
-                poll_s=0.01, **kw)))
-            record(f"{stem} {label}", wall, got, want, meta, kernel, mode, expect(stem))
+    # The sub-runs write a run log, and each process worker its own beside it,
+    # which the port's reader renders as one group below.
+    runlogs = root / "runlogs"
+    with telemetry.run_scope(runlogs / "scheduler.jsonl", run="scheduler",
+                             device=device_metadata()):
+        for stem, (drive, want, kernel, mode) in engines.items():
+            for label, kw in (("thread", SCHED_THREAD), ("process", SCHED_PROCESS)):
+                wall, (got, meta) = _wall(torch, lambda: drive(cfg(), sch.ScheduleConfig(
+                    poll_s=0.01, runlog_dir=str(runlogs), **kw)))
+                record(f"{stem} {label}", wall, got, want, meta, kernel, mode, expect(stem))
 
-    # A process worker SIGKILLs itself as it starts shard 0: the parent sees
-    # it dead, respawns the slot, waits out the lease, re-dispatches.
-    wall, (got, meta) = _wall(torch, lambda: system(cfg("kill"), sch.ScheduleConfig(
-        poll_s=0.01, lease_ttl_s=SCHED_KILL_TTL_S, heartbeat_s=0.2,
-        on_shard_start=KillWorkerOnShard(0), **SCHED_PROCESS)))
-    record("system process, worker killed", wall, got, want10, meta, "system_sim", "cuda",
-           expect("system"))
-    missing = [e for e in ("worker_dead", "worker_respawn", "lease_expire", "redispatch")
-               if e not in rows["system process, worker killed"]["events"]]
-    if missing:
-        fail(f"scheduler: the killed worker's run records no {missing}")
+        # A process worker SIGKILLs itself as it starts shard 0: the parent sees
+        # it dead, respawns the slot, waits out the lease, re-dispatches.
+        wall, (got, meta) = _wall(torch, lambda: system(cfg("kill"), sch.ScheduleConfig(
+            poll_s=0.01, runlog_dir=str(runlogs), lease_ttl_s=SCHED_KILL_TTL_S, heartbeat_s=0.2,
+            on_shard_start=KillWorkerOnShard(0), **SCHED_PROCESS)))
+        record("system process, worker killed", wall, got, want10, meta, "system_sim", "cuda",
+               expect("system"))
+        missing = [e for e in ("worker_dead", "worker_respawn", "lease_expire", "redispatch")
+                   if e not in rows["system process, worker killed"]["events"]]
+        if missing:
+            fail(f"scheduler: the killed worker's run records no {missing}")
 
-    # A poisoned shard: quarantined with zero rows, the healthy rows equal,
-    # the manifest names it and crash_safety registers the run as degraded.
-    wall, (got, meta) = _wall(torch, lambda: system(cfg(), sch.ScheduleConfig(
-        poll_s=0.01, max_shard_attempts=2, on_shard_start=PoisonShard(1), **SCHED_THREAD),
-        name="fig10_poisoned"))
-    record("system thread, shard 1 poisoned", wall, got, want10, meta, "system_sim", "cuda",
-           expect("system", drop=(1,)), quarantined=1)
-    lo, hi = meta["scheduler"]["quarantined_shards"][0]["items"]
-    healthy = all(np.array_equal(np.delete(g, np.s_[lo:hi], 0), np.delete(w, np.s_[lo:hi], 0))
-                  for g, w in zip(got, want10))
-    zero = not any(g[lo:hi].any() for g in got)
-    before = list(common._DEGRADED_RUNS)
-    common._DEGRADED_RUNS.clear()
-    cs = common.crash_safety({"fig10_poisoned": meta})
-    degraded = common.degraded_runs()
-    common._DEGRADED_RUNS[:] = before
-    named = [q["name"] for q in cs["quarantined_shards"].get("fig10_poisoned", [])]
-    rows["system thread, shard 1 poisoned"].update(
-        items=[lo, hi], healthy_equal=healthy, quarantined_zero=zero, manifest=named,
-        degraded=degraded)
-    if not (healthy and zero and named == ["fig10_poisoned.s01of04"] and degraded):
-        fail(f"scheduler: the poisoned run: healthy rows equal {healthy}, quarantined rows "
-             f"zero {zero}, manifest {named}, degraded runs {degraded}")
+        # A poisoned shard: quarantined with zero rows, the healthy rows equal,
+        # the manifest names it and crash_safety registers the run as degraded.
+        wall, (got, meta) = _wall(torch, lambda: system(cfg(), sch.ScheduleConfig(
+            poll_s=0.01, max_shard_attempts=2, on_shard_start=PoisonShard(1), **SCHED_THREAD),
+            name="fig10_poisoned"))
+        record("system thread, shard 1 poisoned", wall, got, want10, meta, "system_sim", "cuda",
+               expect("system", drop=(1,)), quarantined=1)
+        lo, hi = meta["scheduler"]["quarantined_shards"][0]["items"]
+        healthy = all(np.array_equal(np.delete(g, np.s_[lo:hi], 0), np.delete(w, np.s_[lo:hi], 0))
+                      for g, w in zip(got, want10))
+        zero = not any(g[lo:hi].any() for g in got)
+        before = list(common._DEGRADED_RUNS)
+        common._DEGRADED_RUNS.clear()
+        cs = common.crash_safety({"fig10_poisoned": meta})
+        degraded = common.degraded_runs()
+        common._DEGRADED_RUNS[:] = before
+        named = [q["name"] for q in cs["quarantined_shards"].get("fig10_poisoned", [])]
+        rows["system thread, shard 1 poisoned"].update(
+            items=[lo, hi], healthy_equal=healthy, quarantined_zero=zero, manifest=named,
+            degraded=degraded)
+        if not (healthy and zero and named == ["fig10_poisoned.s01of04"] and degraded):
+            fail(f"scheduler: the poisoned run: healthy rows equal {healthy}, quarantined rows "
+                 f"zero {zero}, manifest {named}, degraded runs {degraded}")
 
-    # A straggler: shard 0's first attempt held past the deadline is
-    # duplicated onto the idle worker; the loser is verified identical.
-    wall, (got, meta) = _wall(torch, lambda: system(cfg(), sch.ScheduleConfig(
-        poll_s=0.01, deadline_s=0.3, on_shard_start=HoldShard(0, SCHED_HOLD_S),
-        **dict(SCHED_THREAD, shards=2))))
-    record("system thread, straggler", wall, got, want10, meta, "system_sim", "cuda",
-           expect("system", 2, twice=(0,)))
-    dup = [e["identical"] for e in meta["scheduler"]["events"]
-           if e["event"] == "duplicate_verified"]
-    rows["system thread, straggler"]["duplicates_identical"] = dup
-    if not dup or not all(dup):
-        fail(f"scheduler: the straggler's duplicate was verified {dup}")
+        # A straggler: shard 0's first attempt held past the deadline is
+        # duplicated onto the idle worker; the loser is verified identical.
+        wall, (got, meta) = _wall(torch, lambda: system(cfg(), sch.ScheduleConfig(
+            poll_s=0.01, deadline_s=0.3, on_shard_start=HoldShard(0, SCHED_HOLD_S),
+            **dict(SCHED_THREAD, shards=2))))
+        record("system thread, straggler", wall, got, want10, meta, "system_sim", "cuda",
+               expect("system", 2, twice=(0,)))
+        dup = [e["identical"] for e in meta["scheduler"]["events"]
+               if e["event"] == "duplicate_verified"]
+        rows["system thread, straggler"]["duplicates_identical"] = dup
+        if not dup or not all(dup):
+            fail(f"scheduler: the straggler's duplicate was verified {dup}")
 
-    # Shard checkpoints: a checkpointed run, then a rerun that completes from
-    # them alone.
-    c = cfg("resume", keep_checkpoint=True)
-    wall, (got, meta) = _wall(torch, lambda: timeline(c, sch.ScheduleConfig(
-        poll_s=0.01, **SCHED_THREAD)))
-    record("timeline thread, checkpointed", wall, got, want11, meta, "timeline", "cuda",
-           expect("timeline"))
-    blobs = sorted(p.name for p in (root / "resume").glob("*.ckpt"))
-    got, meta = timeline(cfg("resume", resume=True), sch.ScheduleConfig(
-        poll_s=0.01, **SCHED_THREAD))
-    equal = all(np.array_equal(g, w) for g, w in zip(got, want11))
-    resumed = {k: v for k, v in meta["scheduler"]["launches"].items() if v}
-    rows["timeline thread, resumed"] = {
-        "equal": equal, "blobs": blobs,
-        "completed_from_checkpoint": meta["completed_from_checkpoint"],
-        "launches_reported": resumed}
-    if not (equal and meta["completed_from_checkpoint"] and len(blobs) == 4) or resumed:
-        fail(f"scheduler: the resume from {blobs}: equal {equal}, completed from "
-             f"checkpoint {meta['completed_from_checkpoint']}, launches {resumed}")
+        # Shard checkpoints: a checkpointed run, then a rerun that completes from
+        # them alone.
+        c = cfg("resume", keep_checkpoint=True)
+        wall, (got, meta) = _wall(torch, lambda: timeline(c, sch.ScheduleConfig(
+            poll_s=0.01, **SCHED_THREAD)))
+        record("timeline thread, checkpointed", wall, got, want11, meta, "timeline", "cuda",
+               expect("timeline"))
+        blobs = sorted(p.name for p in (root / "resume").glob("*.ckpt"))
+        got, meta = timeline(cfg("resume", resume=True), sch.ScheduleConfig(
+            poll_s=0.01, **SCHED_THREAD))
+        equal = all(np.array_equal(g, w) for g, w in zip(got, want11))
+        resumed = {k: v for k, v in meta["scheduler"]["launches"].items() if v}
+        rows["timeline thread, resumed"] = {
+            "equal": equal, "blobs": blobs,
+            "completed_from_checkpoint": meta["completed_from_checkpoint"],
+            "launches_reported": resumed}
+        if not (equal and meta["completed_from_checkpoint"] and len(blobs) == 4) or resumed:
+            fail(f"scheduler: the resume from {blobs}: equal {equal}, completed from "
+                 f"checkpoint {meta['completed_from_checkpoint']}, launches {resumed}")
     torch.cuda.synchronize()
     phase_s = time.perf_counter() - t0
+    workers = sorted(runlogs.glob("scheduler-w*.jsonl"))
+
+    def recovery(obs_report):
+        """The merged group's events and shards: the killed worker's
+        recovery must be in them."""
+        merged = obs_report.merge_logs([obs_report.load_log(p)
+                                        for p in (runlogs / "scheduler.jsonl", *workers)])
+        counts, shards = obs_report.event_counts(merged), len(obs_report.shard_table(merged))
+        missing = [e for e in ("worker_dead", "lease_expire", "redispatch") if not counts.get(e)]
+        return ({"events": counts, "shards": shards,
+                 "scheduler_events": len(obs_report.scheduler_events(merged))},
+                [f"merged logs miss {missing}, {shards} shards"] if missing or not shards else [])
+
+    check_runlog("scheduler", [runlogs / "scheduler.jsonl"], workers, extra=recovery)
 
     bad = sum(r.get("golden_mismatches", 0) for r in rows.values())
     launches = {k: launches.get(k, 0) for k in _counters()}
@@ -3018,7 +3095,7 @@ def run_serve_exact(torch) -> None:
 
     from repro_torch import models
     from repro_torch.configs import registry
-    from repro_torch.serve.engine import SpartaEngine
+    from repro_torch.kernels.flash_attention import ops as k5ops
 
     t0 = time.perf_counter()
     cfg = dataclasses.replace(registry.get_config(SERVE_ARCH), num_layers=EXACT_LAYERS,
@@ -3026,11 +3103,15 @@ def run_serve_exact(torch) -> None:
     params = models.init(cfg, seed=SERVE_SEED, device="cuda")
     lengths = (300, 37, 513, 1, 256)             # ragged, one token, a page multiple
     prompts = _prompts(cfg, lengths, SERVE_SEED)
-    out, launches = {}, {}
+    out, launches, k5_calls = {}, {}, []
     for mode in ("cuda", "reference"):
-        out[mode], launches[mode] = _engine_tokens(
-            torch, cfg, params, prompts, mode, 8, 4, num_partitions=4, slots_per_partition=8,
-            max_batch=2)
+        undo = _k5_recording(k5ops, k5_calls) if mode == "cuda" else (lambda: None)
+        try:
+            out[mode], launches[mode] = _engine_tokens(
+                torch, cfg, params, prompts, mode, 8, 4, num_partitions=4,
+                slots_per_partition=8, max_batch=2)
+        finally:
+            undo()
     equal = out["cuda"] == out["reference"]
     emit("serve_exact", arch=SERVE_ARCH, layers=EXACT_LAYERS, dtype="float32",
          prompt_tokens=list(lengths), requests=len(out["cuda"]), equal_tokens=equal,
@@ -3042,6 +3123,11 @@ def run_serve_exact(torch) -> None:
             and launches["cuda"]["paged_attention"] > 0
             and not any(launches["reference"].values())):
         fail(f"serve_exact: unexpected kernel launches {launches}")
+    # K5's float32 path (the FMA kernel) at this phase's prefill calls.
+    _k5_site(torch, "K5 float32 serve_exact prefill",
+             f"{SERVE_ARCH} at {EXACT_LAYERS} layers, float32: prompts of {list(lengths)} "
+             f"tokens x {EXACT_LAYERS} layers, Hq {cfg.num_heads}, Hkv {cfg.num_kv_heads}, "
+             f"D {cfg.head_dim}, causal", k5_calls)
     del params
     torch.cuda.empty_cache()
 
@@ -3212,13 +3298,14 @@ def _flash_bytes_flops(Hq, Hkv, T, D, elem: int = 2):
     return (2 * Hq + 2 * Hkv) * T * D * elem, 4 * Hq * D * T * (T + 1) // 2
 
 
-def _k5_design(torch, D: int) -> dict:
-    """K5's bf16 design and tiles at head dim D, and the seconds the kernels'
-    library took to build in this run."""
+def _k5_design(torch, D: int, dtype=None) -> dict:
+    """K5's design and tiles at head dim D for ``dtype`` (bf16 unless
+    given), and the seconds the kernels' library took to build in this
+    run."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.kernel import tile_plan
 
-    plan = tile_plan(D, torch.bfloat16)
+    plan = tile_plan(D, dtype or torch.bfloat16)
     return {"design": plan.design, "tiles": plan._asdict(),
             "build_seconds": _build.load().build_s}
 
@@ -3657,8 +3744,18 @@ def run_ssm_exact(torch) -> None:
     decode-consistency property), both within 1e-3 of the logits' scale
     with equal greedy tokens."""
     from repro_torch import models
+    from repro_torch.kernels.mamba2_scan import ops as k8ops
+    from repro_torch.kernels.mamba2_scan.kernel import mamba2_scan_cuda
+    from repro_torch.kernels.mamba2_scan.ref import mamba2_scan_ref
+    from repro_torch.kernels.rwkv6_scan import ops as k7ops
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
     from repro_torch.train.train_step import make_prefill_step
 
+    scans = {"rwkv6_scan": ("K7", k7ops, rwkv6_scan_cuda, rwkv6_scan_ref,
+                            "rwkv6_scan_pallas", "src/repro/kernels/rwkv6_scan/kernel.py:112"),
+             "mamba2_scan": ("K8", k8ops, mamba2_scan_cuda, mamba2_scan_ref,
+                             "mamba2_scan_pallas", "src/repro/kernels/mamba2_scan/kernel.py:99")}
     torch.backends.cuda.matmul.allow_tf32 = False   # float32 products in full float32
     torch.backends.cudnn.allow_tf32 = False
     for arch in SSM_ARCHS:
@@ -3669,7 +3766,13 @@ def run_ssm_exact(torch) -> None:
                                dtype=torch.int32, device="cuda")
         batch = {"tokens": prompts}
         before = _launches()
-        kern = make_prefill_step(cfg)(params, batch)
+        calls = {k: [] for k in scans}
+        undo = [_recording(m, f"{k}_cuda", calls[k]) for k, (_, m, *_) in scans.items()]
+        try:
+            kern = make_prefill_step(cfg)(params, batch)
+        finally:
+            for u in undo:
+                u()
         l_kern = _family_launches(torch, before)
         before = _launches()
         plain = make_prefill_step(cfg, kernel_mode="reference")(params, batch)
@@ -3700,7 +3803,16 @@ def run_ssm_exact(torch) -> None:
                  f"tokens equal {prefill_tokens_equal}/{decode_tokens_equal}")
         if l_kern != want or any(l_plain.values()):
             fail(f"ssm_exact {arch}: launches {l_kern} (expected {want}), plain {l_plain}")
-        del params, full, dec
+        # The scans' float32 path (the FMA kernels) at this phase's calls.
+        for k, (tag, _, kernel, plain, function, replaces) in scans.items():
+            if calls[k]:
+                emit("timing_site", site=f"{tag} float32 ssm_exact prefill", kernel=k,
+                     function=function, replaces=replaces,
+                     shape=f"{arch} at {cfg.num_layers} layers, float32: "
+                           f"{_scan_shape(calls[k])}",
+                     launches=len(calls[k]), library_ms=None,
+                     **_scan_timing(torch, k, kernel, plain, calls[k], 0.0))
+        del params, full, dec, calls
         torch.cuda.empty_cache()
 
 
@@ -4304,7 +4416,7 @@ def _k5_site(torch, site: str, shape: str, calls: list) -> dict:
                 library_device_ms_events=lib_held_ms, bytes=nbytes, operations=flops,
                 tflops=flops / ms / 1e9,
                 device_tflops=flops / dev_ms["device_time_ms"] / 1e9, **dev_ms,
-                distinct_shapes=len(inputs), **_k5_design(torch, calls[0][0][3]))
+                distinct_shapes=len(inputs), **_k5_design(torch, calls[0][0][3], calls[0][2]))
     emit("timing_site", **line)
     return line
 
@@ -5928,8 +6040,196 @@ def run_bench_run() -> None:
                  f"{(check.stdout + check.stderr)[-2000:]}")
         if not roofline:
             fail("bench_run: no roofline table")
+        figure_logs = sorted((cache / "runlogs").glob("*.jsonl"))
+
+        def diff(obs_report):
+            """``--diff`` of the first two figures' logs."""
+            if len(figure_logs) < 2:
+                return {}, [f"{len(figure_logs)} figure logs, two needed for --diff"]
+            rc, lines = _render(obs_report, [*map(str, figure_logs[:2]), "--diff"])
+            return ({"diff": [p.name for p in figure_logs[:2]], "diff_rc": rc,
+                     "diff_lines": len(lines)}, [f"--diff exit {rc}"] if rc else [])
+
+        check_runlog("bench_run", figure_logs, extra=diff)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 28: the JAX package's examples as the port's modules; and the run-log
+# reader's checks, which the orchestrator, scheduler and bench_run phases call.
+# ---------------------------------------------------------------------------
+
+EXAMPLES_KERNELS = ("tlb_sim", "system_sim", "flash_attention", "paged_attention")
+EXAMPLES_CKPT = ROOT / "build" / "repro_torch" / "cache" / "chip_smoke_examples_ckpt"
+# serve_paged's engine numbers, which its traffic fixes whatever the tokens
+# (no stop token): the JAX example's on the CPU.
+SERVE_PAGED_WANT = {"requests": 8, "tokens": 96, "steps": 21, "free_pages": [56, 56, 57, 64],
+                    "fork_pages": 0, "branches": {8: 6, 9: 6, 10: 6}}
+SERVE_PAGED_LAYERS = 4
+
+
+def run_examples(torch) -> dict:
+    """Phase 28, ``examples`` (see the module's docstring); returns its
+    launches of K1, K2, K5 and K6."""
+    import contextlib
+    import functools
+    import io
+    import shutil
+
+    from repro_torch import models
+    from repro_torch.examples import quickstart, serve_paged, train_distributed
+    from repro_torch.kernels.flash_attention import ops as k5ops
+    from repro_torch.kernels.paged_attention import ops as k6ops
+
+    _phase_start(torch)
+    golden = json.loads(GOLDEN_EXAMPLES.read_text())["quickstart"]
+    runs = (("quickstart", lambda: quickstart.main([])),
+            ("serve_paged", lambda: serve_paged.main([])),
+            ("train_distributed", lambda: train_distributed.main(
+                ["--ckpt", str(EXAMPLES_CKPT)])))
+    out, walls, k5_calls, k6_calls = {}, {}, [], []
+    t0 = time.perf_counter()
+    _zero_launches()
+    undo = [_k5_recording(k5ops, k5_calls), _recording(k6ops, "paged_attention_cuda", k6_calls)]
+    try:
+        for name, run in runs:
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                out[name] = run()
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t1
+    finally:
+        for u in undo:
+            u()
+        shutil.rmtree(EXAMPLES_CKPT, ignore_errors=True)
+    launches = _launches()
+    phase_s = time.perf_counter() - t0
+    k6_calls = [a for a, _ in k6_calls]
+
+    # serve_paged again on the same weights (seed 0) with the engine on the
+    # plain versions: every generated token must be the kernels' run's.
+    real = serve_paged.SpartaEngine
+    serve_paged.SpartaEngine = functools.partial(real, kernel_mode="reference")
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            plain = serve_paged.main([], params=models.init(serve_paged.config(), seed=0,
+                                                            device="cuda"))
+    finally:
+        serve_paged.SpartaEngine = real
+    plain_launches = {k: n for k, n in _launches().items() if n != launches[k]}
+
+    q, sp, td = out["quickstart"], out["serve_paged"], out["train_distributed"]
+    q_bad = sorted(k for k in golden if q.get(k) != golden[k])
+    sp_bad = sorted(k for k, v in SERVE_PAGED_WANT.items() if sp[k] != v)
+    tokens_equal = sp["generated"] == plain["generated"]
+    td_ok = (td["losses"][-1] < td["losses"][0] and td["mesh"] == {"data": 1, "model": 1}
+             and td["restored_step"] == td["last_checkpoint_step"] == td["steps"]
+             and td["restore_bit_identical"])
+    want = {"tlb_sim": 4, "system_sim": 2,
+            "flash_attention": SERVE_PAGED_LAYERS * SERVE_PAGED_WANT["requests"],
+            "paged_attention": len(k6_calls)}
+    launch_bad = {k: n for k, n in launches.items()
+                  if (k in want and n != want[k])
+                  or (k == "paged_attention" and (not n or n % SERVE_PAGED_LAYERS))
+                  or (k not in EXAMPLES_KERNELS and n)}
+    emit("examples", seconds=phase_s, walls_s=walls, launches=launches,
+         quickstart={"lines": q["lines"], "equal_to_golden": not q_bad, "differs": q_bad,
+                     "miss_ratio": q["miss_ratio"], "speedup": q["speedup"],
+                     "overhead_reduction": q["overhead_reduction"]},
+         serve_paged={**{k: sp[k] for k in ("lines", "params", "requests", "tokens", "steps",
+                                            "seconds", "free_pages", "fork_pages",
+                                            "invariants")},
+                      "tokens_equal_to_plain": tokens_equal,
+                      "plain_run_launches": plain_launches},
+         train_distributed={k: td[k] for k in (
+             "lines", "mesh", "steps", "losses", "grad_norms", "mean_step_s", "restored_step",
+             "last_checkpoint_step", "plan_shape", "restore_bit_identical")},
+         peak_gb=_peak_gb(torch))
+    if q_bad:
+        fail(f"examples: quickstart's {q_bad} differ from {GOLDEN_EXAMPLES.name}")
+    if sp_bad:
+        fail(f"examples: serve_paged's {sp_bad} differ from {SERVE_PAGED_WANT}")
+    if not tokens_equal or plain_launches:
+        fail(f"examples: serve_paged's tokens equal to the plain versions' {tokens_equal}, "
+             f"the plain run launched {plain_launches}")
+    if not td_ok:
+        fail(f"examples: train_distributed: losses {td['losses'][0]} -> {td['losses'][-1]}, "
+             f"mesh {td['mesh']}, restored step {td['restored_step']} of "
+             f"{td['last_checkpoint_step']}, bit-identical {td['restore_bit_identical']}")
+    if launch_bad:
+        fail(f"examples: launches {launch_bad} (expected {want}, paged_attention a multiple "
+             f"of {SERVE_PAGED_LAYERS}, no other kernel)")
+    if not (k5_calls and k6_calls):
+        return {k: launches[k] for k in EXAMPLES_KERNELS}
+    cfg = serve_paged.config()
+    _k5_site(torch, "K5 float32 serve_paged prefill",
+             f"serve_paged: {len(k5_calls) // SERVE_PAGED_LAYERS} prompts of "
+             f"{sorted({c[0][2] for c in k5_calls})} tokens x {SERVE_PAGED_LAYERS} layers, "
+             f"Hq {cfg.num_heads}, Hkv {cfg.num_kv_heads}, D {cfg.head_dim}, float32, causal",
+             k5_calls)
+    _k6_site(torch, "K6 float32 serve_paged decode",
+             f"serve_paged decode: {len(k6_calls) // SERVE_PAGED_LAYERS} steps x "
+             f"{SERVE_PAGED_LAYERS} layers, batch {min(c[0].shape[0] for c in k6_calls)}-"
+             f"{max(c[0].shape[0] for c in k6_calls)}, Hq {cfg.num_heads}, "
+             f"Hkv {cfg.num_kv_heads}, D {cfg.head_dim}, float32, {cfg.kv_page_size}-token pages",
+             k6_calls)
+    return {k: launches[k] for k in EXAMPLES_KERNELS}
+
+
+def _render(obs_report, args) -> tuple:
+    """``obs_report.main(args)``'s exit code and printed lines."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(io.StringIO()):
+        rc = obs_report.main(args)
+    return rc, buf.getvalue().splitlines()
+
+
+def check_runlog(phase: str, logs: list, workers=(), extra=None) -> None:
+    """``runlog_reader``: the port's reader (``repro_torch.bench.obs_report``)
+    over a phase's own run logs, read before the phase's directory goes.
+    ``main`` renders them (``logs[0]`` and its process ``workers``' logs as
+    one comma-joined group) with exit 0, ``--fail-on-event downgrade`` exits
+    0 (the port never downgrades), and ``event_counts`` of every log with a
+    ``run_end`` equals that run's own ``events`` summary; each of ``logs``
+    must hold one.  ``extra(obs_report)`` returns the phase's own fields and
+    failures.  One line; any failure fails the run."""
+    from repro_torch.bench import obs_report
+
+    t0 = time.perf_counter()
+    logs, workers = [pathlib.Path(p) for p in logs], [pathlib.Path(p) for p in workers]
+    row, bad = {"files": len(logs) + len(workers)}, []
+    if logs:
+        specs = ([",".join(map(str, (*logs, *workers)))] if workers
+                 else [str(p) for p in logs])
+        rc, lines = _render(obs_report, specs)
+        rc_ban, _ = _render(obs_report, specs + ["--fail-on-event", "downgrade"])
+        row.update(rc=rc, rc_fail_on_downgrade=rc_ban, rendered_lines=len(lines),
+                   sections=sorted({ln.strip().split(" (")[0] for ln in lines
+                                    if ln.strip().startswith("##")}))
+        if rc or rc_ban:
+            bad.append(f"render exit {rc}, --fail-on-event downgrade exit {rc_ban}")
+        for p in (*logs, *workers):
+            recs = obs_report.load_log(p)
+            end = next((r for r in recs if r.get("kind") == "run_end"), None)
+            if end is None:
+                if p in logs:
+                    bad.append(f"{p.name}: no run_end")
+            elif obs_report.event_counts(recs) != end["summary"]["events"]:
+                bad.append(f"{p.name}: event_counts {obs_report.event_counts(recs)} against "
+                           f"its run's events {end['summary']['events']}")
+        if extra is not None:
+            fields, more = extra(obs_report)
+            row.update(fields)
+            bad += more
+    else:
+        bad.append("no run log")
+    emit("runlog_reader", of=phase, **row, seconds=time.perf_counter() - t0, failures=bad)
+    for b in bad:
+        fail(f"runlog_reader {phase}: {b}")
 
 
 if __name__ == "__main__":

@@ -45,6 +45,8 @@ import tempfile
 import threading
 import time
 
+from repro_torch.bench import obs_report
+
 KILL_DEADLINE_S = 600
 RECOVERY_EVENTS = ("worker_dead", "lease_expire", "redispatch")
 
@@ -73,21 +75,6 @@ def _kill_one_worker(parent: subprocess.Popen, ckpt: pathlib.Path):
                 return pid
         time.sleep(0.05)
     return None
-
-
-def event_counts(paths) -> dict:
-    """Event name -> records, over the run logs ``paths`` (JSONL; a torn
-    last line, as a killed writer leaves, is skipped)."""
-    counts: dict = {}
-    for p in paths:
-        for line in pathlib.Path(p).read_text().splitlines():
-            try:
-                rec = json.loads(line)
-            except json.JSONDecodeError:
-                continue
-            if rec.get("kind") == "event":
-                counts[rec["name"]] = counts.get(rec["name"], 0) + 1
-    return counts
 
 
 def main(argv=None) -> int:
@@ -161,11 +148,12 @@ def main(argv=None) -> int:
             return 1
         runlogs = shard_dir / "runlogs"
         logs = [runlogs / "fig11.jsonl"] + sorted(runlogs.glob("fig11-w*.jsonl"))
-        counts = event_counts([p for p in logs if p.exists()])
+        merged = obs_report.merge_logs([obs_report.load_log(p) for p in logs if p.exists()])
+        counts = obs_report.event_counts(merged)
         missing = [e for e in RECOVERY_EVENTS if not counts.get(e)]
         if missing:
-            print(f"[smoke_sched] FAIL: run logs ({len(logs)} files) missing recovery "
-                  f"events: {missing}; saw {counts}", file=sys.stderr)
+            print(f"[smoke_sched] FAIL: merged run logs ({len(logs)} files) missing "
+                  f"recovery events: {missing}; saw {counts}", file=sys.stderr)
             return 1
         print("[smoke_sched] recovery recorded: "
               + ", ".join(f"{e} x{counts[e]}" for e in RECOVERY_EVENTS), flush=True)

@@ -2,7 +2,8 @@
 
 The port of the JAX package's ``src/repro/runtime/telemetry.py``, record for
 record: the run-log schema is the same (:data:`SCHEMA_VERSION` 1), so the
-JAX package's ``benchmarks/obs_report.py`` reads the port's logs unchanged.
+port's reader ``python -m repro_torch.bench.obs_report`` (and the JAX
+package's own) renders the logs of either package.
 
 * :class:`RunLog` — an append-only JSONL sink, one file per figure/bench
   run, one self-describing record per line (``kind`` = ``run_start`` /

@@ -41,6 +41,7 @@ _FORBIDDEN = [
     re.compile(r"^\s*from\s+repro(\.|\s)", re.M),
     re.compile(r"^\s*import\s+repro(\.|\s|$)", re.M),
     re.compile(r"\brepro\.(core|kernels|runtime|models)\b"),
+    re.compile(r"^\s*(import|from)\s+benchmarks\b", re.M),
 ]
 
 
@@ -321,3 +322,55 @@ def test_bench_modules_load_no_jax_and_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         kernel_bench.append_entry({"bench": "sweep"}, tmp_path / "h.json")
     assert not (tmp_path / "h.json").exists()
+
+
+def test_examples_and_reader_load_no_jax_and_default_to_the_card():
+    """The run-log reader and the examples load neither JAX, the JAX package
+    nor its benchmark drivers (the reader not even torch); each example left at its
+    default device raises without a card, and runs only with ``--device
+    cpu``."""
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, repro_torch.bench.obs_report as r; "
+         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'numpy'))); "
+         "import repro_torch.examples.quickstart, repro_torch.examples.serve_paged, "
+         "repro_torch.examples.train_distributed; "
+         "print(sorted(m for m in sys.modules "
+         "if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'benchmarks')))"],
+        cwd=ROOT, env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""},
+        capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0 and proc.stdout.split("\n")[:2] == ["[]", "[]"], (
+        proc.stdout + proc.stderr)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the default device is valid")
+    from repro_torch.examples import quickstart, serve_paged, train_distributed
+
+    for example in (quickstart, serve_paged, train_distributed):
+        with pytest.raises(RuntimeError, match="cuda"):
+            example.main([])
+        with pytest.raises(RuntimeError, match="cuda"):
+            example.main(["--device", "cuda"])
+
+
+def test_train_example_leaves_a_foreign_checkpoint_directory_alone(tmp_path):
+    """``train_distributed --ckpt DIR`` empties DIR only when the example
+    wrote it (its mark file) or it is missing or empty: a directory holding
+    anything else, a checkpoint of another run included, makes it refuse
+    before it touches a file or starts a rank."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.examples import train_distributed
+
+    foreign = tmp_path / "runs"
+    ckpt.save(foreign, 7, {"w": torch.arange(4.0)})
+    (foreign / "notes.txt").write_text("mine")
+    before = sorted(p.relative_to(foreign) for p in foreign.rglob("*"))
+    with pytest.raises(FileExistsError, match="did not write"):
+        train_distributed.main(["--device", "cpu", "--ckpt", str(foreign)])
+    assert sorted(p.relative_to(foreign) for p in foreign.rglob("*")) == before
+    assert (foreign / "notes.txt").read_text() == "mine" and ckpt.latest_step(foreign) == 7
+
+    # Missing, then marked by the example: both are taken and emptied.
+    mine = tmp_path / "mine"
+    train_distributed._fresh_ckpt(mine)
+    ckpt.save(mine, 3, {"w": torch.arange(4.0)})
+    train_distributed._fresh_ckpt(mine)
+    assert [p.name for p in mine.iterdir()] == [train_distributed.MARK]

@@ -2,8 +2,9 @@
 through the orchestrator and the streams, held to the JAX package's
 (``tests/test_telemetry.py``): the JSONL schema, nesting, the no-op fast
 path, chunk spans and achieved rates — and the same records as the JAX
-package for the same sweep, read by the JAX package's
-``benchmarks/obs_report.py`` unchanged."""
+package for the same sweep, read by the port's reader
+``repro_torch.bench.obs_report`` (held to the JAX package's
+``benchmarks/obs_report.py`` in ``tests/test_torch_obs_report.py``)."""
 import json
 import logging
 
@@ -11,12 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from benchmarks import obs_report
 from repro.core.orchestrator import SweepRunConfig as JSweepRunConfig
 from repro.core.orchestrator import run_sweep_tlb as jrun_sweep_tlb
 from repro.core.sparta import TLBConfig as JTLBConfig
 from repro.core.sweep import TLBSweepSpec as JTLBSweepSpec
 from repro.runtime import telemetry as jtelemetry
+from repro_torch.bench import obs_report
 from repro_torch.core import benchtime
 from repro_torch.core.orchestrator import (SweepRunConfig, run_sweep_system,
                                            run_sweep_timeline, run_sweep_tlb)

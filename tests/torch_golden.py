@@ -2,7 +2,7 @@
 
 Not a test module (pytest does not collect it).  Run from the repository root
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_golden.py [--only sweeps|timeline|figs]
+    PYTHONPATH=src JAX_PLATFORMS=cpu python tests/torch_golden.py [--only sweeps|timeline|figs|examples]
 
 to rewrite
 
@@ -20,7 +20,11 @@ to rewrite
   the salts its seeds were made with and per partition count the BST-E
   threads' post-warm-up hits and accesses; Fig 9 per (workload, config,
   structure) the hit counts; Fig 6 the deduplicated page stream and the
-  fault counts of both curves; Fig 7 the cycles), and every claim value.
+  fault counts of both curves; Fig 7 the cycles), and every claim value;
+* ``tests/data/torch_golden_examples.json``: ``examples/quickstart.py`` run
+  by the JAX package (~5 s): its printed lines and the numbers behind them
+  (the miss ratio at each partition count, the speedups, the translation
+  overheads), which ``repro_torch.examples.quickstart`` must equal.
 
 ``chip_smoke.py`` reads the files on the card, without JAX;
 ``tests/test_torch_golden.py`` recomputes small ``hash_table`` entries so the
@@ -47,6 +51,8 @@ DATA = pathlib.Path(__file__).resolve().parent / "data"
 GOLDEN = DATA / "torch_golden_sweeps.json"
 GOLDEN_TIMELINE = DATA / "torch_golden_timeline.json"
 GOLDEN_FIGS = DATA / "torch_golden_figs.json"
+GOLDEN_EXAMPLES = DATA / "torch_golden_examples.json"
+ROOT = DATA.parents[1]
 
 W4 = ("bst_external", "bst_internal", "hash_table", "skip_list")
 WARMUP_FRAC = 0.25
@@ -489,6 +495,35 @@ def figs_golden() -> dict:
     }
 
 
+def jax_quickstart() -> dict:
+    """``examples/quickstart.py`` run in this process by the JAX package:
+    its printed lines and the numbers it printed, at full precision (each
+    ``tlbsim.miss_ratio`` result is recorded as the example calls it)."""
+    import contextlib
+    import io
+    import runpy
+
+    real, miss = tlbsim.miss_ratio, []
+
+    def recording(*args, **kw):
+        miss.append((kw.get("num_partitions", 1), real(*args, **kw)))
+        return miss[-1][1]
+
+    out = io.StringIO()
+    tlbsim.miss_ratio = recording
+    try:
+        with contextlib.redirect_stdout(out):
+            g = runpy.run_path(str(ROOT / "examples" / "quickstart.py"), run_name="__main__")
+    finally:
+        tlbsim.miss_ratio = real
+    base, sp, ideal = g["base"], g["sp"], g["ideal"]
+    before, after = base.access.translation_overhead, sp.access.translation_overhead
+    return {"accesses": g["tr"].num_accesses, "miss_ratio": {str(P): m for P, m in miss},
+            "speedup": sp.speedup_over(base), "ideal_speedup": ideal.speedup_over(base),
+            "overhead_conventional": before, "overhead_sparta": after,
+            "overhead_reduction": before / after, "lines": out.getvalue().splitlines()}
+
+
 def _write(path: pathlib.Path, out: dict) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(out, indent=1) + "\n")
@@ -527,10 +562,15 @@ def write_figs() -> None:
     print(f"figs in {time.perf_counter() - t0:.1f} s", file=sys.stderr, flush=True)
 
 
+def write_examples() -> None:
+    _write(GOLDEN_EXAMPLES, {"source": "examples/quickstart.py run by the JAX package",
+                             "quickstart": jax_quickstart()})
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Write the port's golden files from JAX.")
-    ap.add_argument("--only", choices=("sweeps", "timeline", "figs"),
-                    help="write only this file (default: all three)")
+    ap.add_argument("--only", choices=("sweeps", "timeline", "figs", "examples"),
+                    help="write only this file (default: all four)")
     args = ap.parse_args(argv)
     if args.only in (None, "sweeps"):
         write_sweeps()
@@ -538,6 +578,8 @@ def main(argv=None) -> None:
         write_timeline()
     if args.only in (None, "figs"):
         write_figs()
+    if args.only in (None, "examples"):
+        write_examples()
 
 
 if __name__ == "__main__":
