@@ -140,7 +140,9 @@ device mesh.  One JSON line per phase:
    JAX test shapes and head dims 32, 64, 128, 160, 256 and 112 (zamba2,
    group 1), ragged prompts, Tq = 1, Tq < Tk, the bf16 kernel's tile edges
    (63, 64, 65 and 129 query rows; causal and not), B = 2 and one
-   4,096-token call at qwen3's heads; unmapped pages, a context of 0 and
+   4,096-token call at qwen3's heads, the float32 kernel's edges (15-17 and
+   63-65 rows, qwen3's group of 5 at 1 and 37 tokens, Tq > Tk, non-causal,
+   head dims 16 and 160); unmapped pages, a context of 0 and
    contexts that end mid-page; and the split K6's edges
    (``tests/_paged_cases.py``): contexts on and past the splits'
    boundaries, a split of unmapped pages, one page, B = 1 at 4,096 and
@@ -181,9 +183,9 @@ device mesh.  One JSON line per phase:
    within 5e-4 in float32 (the JAX package's scan tolerance) and 2e-2 in
    bf16 (one bf16 rounding of the output), final states within 5e-4, all
    finite: the JAX test shapes, rwkv6's and zamba2's head shapes (zamba2 at
-   its decays, where the TPU kernel gives NaN), T < chunk, and the bf16
-   tensor-core K8's edges (heads that do not fill a block, N and P below its
-   64-wide tiles); and
+   its decays, where the TPU kernel gives NaN), T < chunk, and the
+   tensor-core K8's edges in bf16 and in float32 (heads that do not fill a
+   block, N and P below its 64-wide tiles, T < chunk); and
    ``scan_chunk_rule``: T % chunk != 0 raises;
 12. ``ssm_exact``: both families at full width in float32, rwkv6 cut to 2
    layers and zamba2 to 2 groups (6 Mamba2 layers): ``make_prefill_step``
@@ -343,10 +345,12 @@ and ``--diff`` of two of bench_run's figure logs exits 0.
    state); ``timing_site`` lines for K5's float32 path and K6 at
    serve_paged's calls, each held to its plain version on those shapes.
 
-Phases 7 and 12 add ``timing_site`` lines for the float32 kernels (K5's FMA
-kernel at ``serve_exact``'s prefill calls; K7's and K8's at ``ssm_exact``'s):
-CUDA events, device time, the plain version, the bound at the float32
-rate (67 TFLOP/s) and, for K5, SDPA on the same float32 inputs.
+Phases 7 and 12 add ``timing_site`` lines for the float32 kernels (K5's
+3xTF32 kernel at ``serve_exact``'s prefill calls; K7's FMA kernel and K8's
+tensor-core kernel at ``ssm_exact``'s): CUDA events, device time, the plain
+version, the bound at the rate of the unit used (K5: three TF32 products
+over 495 TFLOP/s; K7: 67 TFLOP/s; K8: bytes) beside the float32 rate's
+(``bound_ms_f32_rate``) and, for K5, SDPA on the same float32 inputs.
 
 Each phase from 15 on starts from a freed card and reports its peak
 memory.  Then the ``{"kernels": [...]}`` line (K1-K8; K5's and K6's
@@ -1926,13 +1930,13 @@ def _expect_k6(calls) -> dict:
 
 
 def _expect_scan(torch, name: str, calls) -> dict:
-    """K7's or K8's launches over ``calls``: the tensor-core kernel for bf16
-    inputs, the FMA kernel for float32."""
-    mma, fma = SCAN_KERNELS[name]
-    out = {mma: 0, fma: 0}
+    """K7's or K8's launches over ``calls``: the tensor-core kernel (K7's for
+    bf16 inputs, its FMA kernel for float32; K8's for both)."""
+    kernels = SCAN_KERNELS[name]
+    out = dict.fromkeys(kernels, 0)
     for args, _ in calls:
         if args[0].numel():
-            out[mma if args[0].dtype == torch.bfloat16 else fma] += 1
+            out[kernels[0] if args[0].dtype == torch.bfloat16 else kernels[-1]] += 1
     return out
 
 
@@ -2885,6 +2889,7 @@ EXACT_LAYERS = 2                   # serve_exact: qwen3-14b's width, 2 layers, f
 LOGITS_TOL_BF16 = 5e-2             # max |kernel - plain| / max |plain| of bf16 logits
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX package's kernel tolerances
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores (data sheet)
+TF32_FLOPS_PER_S = 495e12          # H100 SXM dense TF32 tensor cores (data sheet)
 F32_FLOPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores (data sheet)
 
 # (B, Hq, Hkv, Tq, Tk, D, causal, dtype): the JAX test shapes
@@ -2893,8 +2898,8 @@ F32_FLOPS_PER_S = 67e12            # H100 SXM float32 outside the tensor cores (
 # Tq = 1; then the bf16 tensor-core kernel's tile edges (64-row
 # warpgroups, 128-row blocks, 128- or 64-key tiles, head dims padded to 64
 # columns) and one long call at qwen3's heads.  tests/test_torch_attention.py
-# holds a plain model of that kernel's arithmetic to JAX's K5 at the bf16
-# cases.
+# holds plain models of the two kernels' arithmetic to JAX's K5: the bf16
+# kernel's at the bf16 cases, the float32 3xTF32 kernel's at the float32 ones.
 FLASH_CHECKS = [
     (1, 4, 2, 64, 64, 32, True, "float32"),
     (2, 8, 8, 96, 96, 64, True, "float32"),
@@ -2934,6 +2939,24 @@ FLASH_CHECKS = [
     (4, 16, 16, 1, 1500, 64, False, "bfloat16"),
     (4, 16, 16, 1, 1500, 64, False, "float32"),
     (4, 16, 16, 32, 32, 64, True, "bfloat16"),
+    # The float32 3xTF32 kernel's edges: 16-row warps and 64-row blocks
+    # (rows = the group's heads x Tq, head-major), qwen3's group of 5 at 1
+    # and 37 tokens (rows packed across heads), one query row, Tq > Tk,
+    # non-causal, and head dims 16 (serve_paged), 112, 160 and 256.
+    (1, 4, 4, 15, 15, 64, True, "float32"),
+    (1, 4, 4, 16, 16, 64, True, "float32"),
+    (1, 4, 4, 17, 17, 64, True, "float32"),
+    (1, 2, 2, 63, 63, 128, True, "float32"),
+    (1, 2, 2, 64, 64, 128, True, "float32"),
+    (1, 2, 2, 65, 65, 128, True, "float32"),
+    (1, 40, 8, 1, 1, 128, True, "float32"),
+    (1, 40, 8, 37, 37, 128, True, "float32"),
+    (1, 8, 2, 1, 300, 128, True, "float32"),
+    (1, 4, 2, 200, 70, 64, True, "float32"),          # Tq > Tk: rows that see no key
+    (1, 4, 4, 90, 90, 64, False, "float32"),
+    (1, 8, 4, 11, 11, 16, True, "float32"),           # serve_paged: head_dim 16
+    (1, 8, 2, 130, 130, 160, False, "float32"),
+    (1, 4, 2, 200, 200, 256, True, "float32"),
 ]
 # (B, Hq, Hkv, D, page, pages, slots, q dtype): the JAX test shapes, then
 # qwen3-14b's serving shape, the other dense head dims and zamba2's shared
@@ -3123,7 +3146,7 @@ def run_serve_exact(torch) -> None:
             and launches["cuda"]["paged_attention"] > 0
             and not any(launches["reference"].values())):
         fail(f"serve_exact: unexpected kernel launches {launches}")
-    # K5's float32 path (the FMA kernel) at this phase's prefill calls.
+    # K5's float32 path (the 3xTF32 kernel) at this phase's prefill calls.
     _k5_site(torch, "K5 float32 serve_exact prefill",
              f"{SERVE_ARCH} at {EXACT_LAYERS} layers, float32: prompts of {list(lengths)} "
              f"tokens x {EXACT_LAYERS} layers, Hq {cfg.num_heads}, Hkv {cfg.num_kv_heads}, "
@@ -3312,7 +3335,7 @@ def _k5_design(torch, D: int, dtype=None) -> dict:
 
 HELD_BATCH = 400                   # calls enqueued behind one held stream
 HELD_CYCLES = 200_000_000          # the hold, ~0.1 s: longer than 400 calls' host time
-K8_KERNELS = ("mamba2_mma_kernel", "mamba2_fma_kernel")
+K8_KERNELS = ("mamba2_mma_kernel",)
 SCAN_KERNELS = {"rwkv6_scan": ("rwkv6_mma_kernel", "rwkv6_scan_kernel"),
                 "mamba2_scan": K8_KERNELS}
 
@@ -3597,6 +3620,15 @@ MAMBA2_CHECKS = [
     (2, 3, 96, 16, 32, 32, "bfloat16", False),
     (1, 112, 128, 64, 64, 64, "float32", True),
     (1, 112, 128, 64, 64, 64, "bfloat16", True),
+    # The same edges in float32 (x split into bf16 parts): both instances
+    # (1 and 2 heads a block; 224 blocks of two at [4, 111]) with heads that
+    # do not fill the last block, T < chunk, and N, P below 64.
+    (2, 7, 128, 64, 64, 64, "float32", True),
+    (1, 201, 64, 64, 64, 64, "float32", True),
+    (4, 111, 64, 64, 64, 64, "float32", True),
+    (1, 5, 40, 64, 64, 64, "float32", True),
+    (2, 3, 96, 16, 32, 32, "float32", False),
+    (2, 3, 96, 48, 40, 32, "float32", True),
 ]
 
 
@@ -3803,7 +3835,8 @@ def run_ssm_exact(torch) -> None:
                  f"tokens equal {prefill_tokens_equal}/{decode_tokens_equal}")
         if l_kern != want or any(l_plain.values()):
             fail(f"ssm_exact {arch}: launches {l_kern} (expected {want}), plain {l_plain}")
-        # The scans' float32 path (the FMA kernels) at this phase's calls.
+        # The scans' float32 paths (K7's FMA kernel, K8's tensor-core kernel)
+        # at this phase's calls.
         for k, (tag, _, kernel, plain, function, replaces) in scans.items():
             if calls[k]:
                 emit("timing_site", site=f"{tag} float32 ssm_exact prefill", kernel=k,
@@ -4064,21 +4097,18 @@ def _once_ms(torch, fn) -> float:
 
 
 def _mamba2_design(torch, calls, t_bytes: float, t_ops_f32: float) -> dict:
-    """K8's design and heads a block at the first of ``calls``, and its bound
-    both at the rate of the unit the design uses (bf16 tensor cores,
-    989 TFLOP/s, for the tensor-core kernel) and at the float32 rate."""
+    """K8's design and heads a block at the first of ``calls`` (x's dtype
+    picks the layout), and its bound both at the rate of the unit the
+    design uses (bf16 tensor cores, 989 TFLOP/s) and at the float32 rate."""
     from repro_torch.kernels.mamba2_scan import kernel as k8
 
     x = calls[0][0][0]
-    d = k8.design(x.dtype)
-    out = {"design": d, "bound_ms_f32_rate": max(t_bytes, t_ops_f32)}
-    if d != "fma":
-        plan = k8.heads_plan(x.shape[0], x.shape[1], k8.sm_count(0))
-        out.update(heads_per_block=plan.heads_per_block, blocks=plan.blocks,
-                   blocks_per_sm=plan.blocks_per_sm,
-                   bound_ms_tensor_core=max(t_bytes, t_ops_f32 * F32_FLOPS_PER_S
-                                            / BF16_FLOPS_PER_S))
-    return out
+    plan = k8.heads_plan(x.shape[0], x.shape[1], k8.sm_count(0), x.dtype)
+    return {"design": k8.design(x.dtype), "bound_ms_f32_rate": max(t_bytes, t_ops_f32),
+            "heads_per_block": plan.heads_per_block, "blocks": plan.blocks,
+            "blocks_per_sm": plan.blocks_per_sm,
+            "bound_ms_tensor_core": max(t_bytes, t_ops_f32 * F32_FLOPS_PER_S
+                                        / BF16_FLOPS_PER_S)}
 
 
 def _rwkv6_design(torch, calls, t_bytes: float, t_ops_f32: float) -> dict:
@@ -4394,7 +4424,7 @@ def _k5_site(torch, site: str, shape: str, calls: list) -> dict:
         nbytes, flops = nbytes + b, flops + f
     seq = [(inputs[key], key[3]) for key in calls]
     ms = _event_ms(torch, lambda: [flash_attention_cuda(*a, causal=c) for a, c in seq], reps=1)
-    name = "flash_wgmma_kernel" if calls[0][2] == torch.bfloat16 else "flash_fwd_kernel"
+    name = "flash_wgmma_kernel" if calls[0][2] == torch.bfloat16 else "flash_tf32_kernel"
     dev_ms = _device_ms(torch, lambda: [flash_attention_cuda(*a, causal=c) for a, c in seq],
                         {name: len(seq)},
                         [lambda a=a, c=c: flash_attention_cuda(*a, causal=c) for a, c in seq])
@@ -4404,13 +4434,18 @@ def _k5_site(torch, site: str, shape: str, calls: list) -> dict:
         *a, is_causal=c, enable_gqa=True) for a, c in seq], reps=1)
     lib_held_ms = _held_ms(torch, [lambda a=a, c=c: F.scaled_dot_product_attention(
         *a, is_causal=c, enable_gqa=True) for a, c in seq])
-    rate = BF16_FLOPS_PER_S if calls[0][2] == torch.bfloat16 else F32_FLOPS_PER_S
+    # The bound at the rate of the unit used: bf16 on the tensor cores, or
+    # float32 in 3xTF32 (three TF32 products a product); and at the CUDA
+    # cores' float32 rate.
+    rate = BF16_FLOPS_PER_S if calls[0][2] == torch.bfloat16 else TF32_FLOPS_PER_S / 3
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / rate * 1e3
     line = dict(site=site, kernel="flash_attention", function="flash_attention_pallas",
                 replaces="src/repro/kernels/flash_attention/kernel.py:133", shape=shape,
                 launches=len(calls), max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=lib_ms,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_ms_f32_rate=max(t_bytes, flops / F32_FLOPS_PER_S * 1e3),
+                library_ms=lib_ms,
                 library="torch.nn.functional.scaled_dot_product_attention(is_causal="
                         f"{calls[0][3]}, enable_gqa=True)",
                 library_device_ms_events=lib_held_ms, bytes=nbytes, operations=flops,

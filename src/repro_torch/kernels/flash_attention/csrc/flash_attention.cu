@@ -51,17 +51,40 @@
 // prologue and epilogue run with nothing beside them, and the softmax's
 // exponentials on the special-function unit; see PERF.md.
 //
-// float32 (simt::flash_fwd_kernel): the exact kernel of the first port, kept
-// for the float32 engine runs, whose tokens must equal the plain versions':
-// the tensor cores take float32 only as TF32, some three decimal digits.  A block of 4 warps takes 32
-// query rows; a tile has 32 keys, one per lane; q, k, v are staged in
-// shared memory (K rows padded to D + 1 floats against bank conflicts) and
-// both products are FMA loops on the float32 cores.
+// float32 (tf32::flash_tf32_kernel): the float32 engine runs, whose tokens
+// must equal the plain versions', on the tensor cores in 3xTF32.  One TF32
+// product keeps some three decimal digits, so each float32 operand is split
+// in registers into its TF32 rounding (to nearest, ties away, as cvt.rna
+// rounds) and the TF32 rounding of the residual, and each product is
+// hi hi + hi lo + lo hi (mma.sync m16n8k8 tf32, float32 accumulators): ~21
+// bits, float32-grade.  P is split the same way before P V; the softmax is
+// float32 as above.  A block of 4 warps takes 64 rows, 16 a warp: the
+// (query head of the group, position) pairs of one (batch, KV head),
+// flattened head-major, so each K / V tile is loaded once for the whole
+// group and short prompts fill whole tiles; each row masks by its own
+// position, and the block stops at the last key its last-seeing row can
+// see.  K and V tiles of 32 keys come through a ring of 2 stages of 16-byte
+// cp.async copies (tile j + 1 in flight while tile j is consumed); Q and K
+// rows are padded to 8 or 24 floats mod 32 and V rows to 4 or 12 mod 16, so
+// the fragment loads hit distinct banks, and V is read as it lies.  Blocks
+// of the last rows (the most keys) start first.  Head dims are built at
+// 16, 32, 64, 112, 128, 160 and 256 columns (others round up).  Bound: the
+// operations at the rate of the unit used, three TF32 products over 495
+// TFLOP/s, 165 TFLOP/s of float32 work (67 on the CUDA cores); at
+// serve_exact's prefill (qwen3-14b, 2 layers) 0.0523 ms against 0.1287 at
+// the float32 rate.  What holds it back: every warp splits every K and V
+// element it reads (the block's four warps split each tile four times) and
+// its Q fragments again for each tile, so the integer work of the splits
+// rivals the mma.sync issue; a block keeps a tile's products in dependent
+// chains, and two blocks fit an SM at head dim 128 (shared memory).
 //
-// Measured (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W; PERF.md,
-// K5): bf16 at 303 TFLOP/s over qwen3-14b's 320 prefill calls (1.27x the
-// time of scaled_dot_product_attention) and 342 TFLOP/s over zamba2-7b's
-// 27 (1.38x), 31% and 35% of the bound.
+// Measured (chip_smoke.py and bench/float32_sites.py on an NVIDIA H100
+// 80GB HBM3 at 700.00 W; PERF.md, K5): bf16 at 303 TFLOP/s over qwen3-14b's
+// 320 prefill calls (1.27x the time of scaled_dot_product_attention) and
+// 342 TFLOP/s over zamba2-7b's 27 (1.38x), 31% and 35% of the bound;
+// float32 at serve_exact's 10 prefill calls 0.774 ms of device time, 11.1
+// TFLOP/s (the CUDA cores' FMA kernel it replaced: 1.35 ms on the same
+// calls), 6.8% of the 3xTF32 bound, half SDPA's float32 device time.
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
@@ -71,163 +94,306 @@
 
 namespace {
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 2^x on the special-function unit (2 ulp; results below 2^-126 flush to 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---------------------------------------------------------------------------
-// float32: FMA loops on the CUDA cores.
+// float32: 3xTF32 mma.sync on the tensor cores, tiles brought by cp.async.
 // ---------------------------------------------------------------------------
-namespace simt {
+namespace tf32 {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 8;                  // query rows per warp
-constexpr int kBlockQ = kWarps * kRows;   // query rows per block
-constexpr int kBlockK = 32;               // keys per tile, one per lane
-constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBlockQ = 16 * kWarps;      // rows a block, 16 a warp
+constexpr int kBlockK = 32;               // keys a tile
+constexpr int kStages = 2;                // K / V tiles in the cp.async ring
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
+// Row strides in floats.  Q and K: the float2 fragment loads of a half-warp
+// (rows g, columns 2t) hit distinct banks when the stride is 8 or 24 mod 32;
+// V: the scalar loads of P V's B operand (rows 2t and 2t + 1, column g) do
+// when it is 4 or 12 mod 16.
+__host__ __device__ constexpr int ld_qk(int D) { return D + (D % 16 == 0 ? 8 : 16); }
+__host__ __device__ constexpr int ld_v(int D) { return D + 4; }
+// Q once, then the ring's K and V tiles.
+constexpr int smem_bytes(int D) {
+  return 4 * (kBlockQ * ld_qk(D) + kStages * kBlockK * (ld_qk(D) + ld_v(D)));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
+// 16 bytes from global to shared memory, or 16 zero bytes where !in.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Returns once at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// MAXPER: accumulator columns per lane (D <= 32 * MAXPER).
-template <int MAXPER>
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds a finite x (to nearest, ties
+// away from zero: the magnitude's low 13 bits rounded off), in two integer
+// operations; the conversion instruction costs more than both.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo + (|x| 2^-22 at most): hi is x rounded to TF32, lo the
+// residual rounded the same way.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d += a b, m16n8k8, TF32 operands, float32 accumulators.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a b in 3xTF32, a split, b = (b0, b1) split here: the two small
+// products (lo hi, hi lo) before the large one.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  mma(d, al, bh0, bh1);
+  mma(d, ah, bl0, bl1);
+  mma(d, ah, bh0, bh1);
+}
+
+// The A fragment of m16n8k8 (rows g and g + 8, k-slots t and t + 4) from
+// four float32 values, split into TF32 parts.
+__device__ __forceinline__ void split_a(float r0k0, float r1k0, float r0k1, float r1k1,
+                                        uint32_t (&ah)[4], uint32_t (&al)[4]) {
+  split_tf32(r0k0, ah[0], al[0]);
+  split_tf32(r1k0, ah[1], al[1]);
+  split_tf32(r0k1, ah[2], al[2]);
+  split_tf32(r1k1, ah[3], al[3]);
+}
+
+// The block's rows are (query head of the group, query position) pairs of
+// one (batch, KV head), flattened head-major: row r is query head
+// hk G + r / Tq at position r % Tq, so a block's Q rows (and O rows) are
+// contiguous and every K / V tile serves the whole group.  Warp w owns rows
+// 16 w ... 16 w + 15 of the block; in the mma fragment layout this thread
+// holds rows g and g + 8 and, of each 8-key block j of S, the keys 8 j + 2 t
+// and 8 j + 2 t + 1.  In both products the k-slots t and t + 4 of a fragment
+// hold the columns (or keys) 2 t and 2 t + 1 of their 8-block: a product
+// sums over k in any order, so Q and K load as float2, and S's accumulator
+// pairs are P's A fragment as they lie (V's rows 2 t, 2 t + 1 match them).
+// DN: the head dim rounded up to a built width (the accumulator's columns).
+template <int DN>
+__global__ void __launch_bounds__(kThreads) flash_tf32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, int Hq, int Hkv, int Tq, int Tk, int D, float scale,
+    float* __restrict__ o, int Hq, int Hkv, int Tq, int Tk, int D, float scale_log2,
     int causal) {
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                         // [kBlockQ][D]
-  float* ks = qs + kBlockQ * D;             // [kBlockK][D + 1]
-  float* vs = ks + kBlockK * (D + 1);       // [kBlockK][D]
+  const int LQ = ld_qk(D), LV = ld_v(D), chunks = D / 4;   // 16-byte chunks a row
+  float* qs = smem;                                           // [kBlockQ][LQ]
+  float* ks = qs + kBlockQ * LQ;                              // stages x [kBlockK][LQ]
+  float* vs = ks + kStages * kBlockK * LQ;                    // stages x [kBlockK][LV]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (Hq / Hkv);
-  const size_t q_base = ((size_t)b * Hq + h) * Tq * D;
-  const size_t kv_base = ((size_t)b * Hkv + hk) * Tk * D;
-  const int shift = Tk - Tq;                // decode alignment
+  const int g = lane >> 2, t = lane & 3;
+  const int G = Hq / Hkv, rows = G * Tq;
+  // Row blocks from the last (the most keys) to the first, each over every
+  // (batch, KV head), so the longest blocks start first.
+  const int r0 = (gridDim.y - 1 - blockIdx.y) * kBlockQ;
+  const int bhk = blockIdx.x;                                 // b Hkv + hk
+  const size_t q_base = (size_t)bhk * G * Tq * D;             // the group's row 0
+  const size_t kv_base = (size_t)bhk * Tk * D;
+  const int shift = Tk - Tq;                                  // decode alignment
 
-  for (int e = tid; e < kBlockQ * D; e += kThreads) {
-    const int r = e / D;
-    qs[e] = q0 + r < Tq ? q[q_base + (size_t)q0 * D + e] : 0.f;
-  }
+  // Each row's last visible key (-1: none; rows past the group see none).
+  auto last_key = [&](int r) {
+    if (r >= rows) return -1;
+    return causal ? min(Tk - 1, r % Tq + shift) : Tk - 1;
+  };
+  // The block stops at the last key its last-seeing row can see: its last
+  // row, or the last position of a head that ends inside the block.
+  const int r_last = min(r0 + kBlockQ, rows) - 1;
+  const int k_end = 1 + (r0 / Tq != r_last / Tq ? Tk - 1 : last_key(r_last));
+  const int n_kt = k_end > 0 ? (k_end + kBlockK - 1) / kBlockK : 0;
 
-  float m[kRows], l[kRows], acc[kRows][MAXPER];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < MAXPER; ++i) acc[r][i] = 0.f;
-  }
+  const int rw = r0 + 16 * warp;                              // the warp's first row
+  const int lim0 = last_key(rw + g), lim1 = last_key(rw + g + 8);
+  const int w_min = __reduce_min_sync(0xffffffffu, min(lim0, lim1));
+  const int w_end = __reduce_max_sync(0xffffffffu, max(lim0, lim1)) + 1;
 
-  // Keys past the last row's diagonal are masked for every row: stop there.
-  const int last_q = min(q0 + kBlockQ, Tq) - 1;
-  const int k_end = causal ? min(Tk, last_q + shift + 1) : Tk;
-  const float* qrow = qs + warp * kRows * D;
-  const float* krow = ks + lane * (D + 1);
-
-  for (int k0 = 0; k0 < k_end; k0 += kBlockK) {
-    __syncthreads();                        // the previous tile is consumed
-#pragma unroll 4
-    for (int e = tid; e < kBlockK * D; e += kThreads) {
-      const int j = e / D, d = e - j * D;
-      const bool in = k0 + j < Tk;
-      const size_t g = kv_base + (size_t)k0 * D + e;
-      ks[j * (D + 1) + d] = in ? k[g] : 0.f;
-      vs[e] = in ? v[g] : 0.f;      // padded V rows are 0, never NaN
+  auto load_kv = [&](int j) {
+    const int k0 = j * kBlockK, s = j % kStages;
+    float* kt = ks + s * kBlockK * LQ;
+    float* vt = vs + s * kBlockK * LV;
+    for (int e = tid; e < kBlockK * chunks; e += kThreads) {
+      const int row = e / chunks, c = 4 * (e - row * chunks);
+      const bool in = k0 + row < Tk;                          // rows past Tk are zeros
+      const size_t src = kv_base + (size_t)(in ? k0 + row : 0) * D + c;
+      cp_async16(kt + row * LQ + c, k + src, in);
+      cp_async16(vt + row * LV + c, v + src, in);
     }
+  };
+
+  if (n_kt > 0) {
+    for (int e = tid; e < kBlockQ * chunks; e += kThreads) {
+      const int row = e / chunks, c = 4 * (e - row * chunks);
+      const bool in = r0 + row < rows;
+      cp_async16(qs + row * LQ + c, q + q_base + (size_t)(in ? r0 + row : 0) * D + c, in);
+    }
+    load_kv(0);
+  }
+  cp_async_commit();
+
+  float acc[DN / 8][4];
+#pragma unroll
+  for (int i = 0; i < DN / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;   // log2 domain; l per thread
+  const float* qw = qs + (16 * warp + g) * LQ + 2 * t;
+
+  for (int j = 0; j < n_kt; ++j) {
+    if (j + 1 < n_kt) load_kv(j + 1);                         // in flight during tile j
+    cp_async_commit();
+    cp_async_wait<1>();                                       // tile j (and Q) have landed
     __syncthreads();
+    const int k0 = j * kBlockK;
+    if (k0 < w_end) {
+      const float* kt = ks + (j % kStages) * kBlockK * LQ + g * LQ + 2 * t;
+      const float* vt = vs + (j % kStages) * kBlockK * LV + 2 * t * LV + g;
 
-    float s[kRows];
+      // S = Q K^T over the head dim, 8 columns a step.
+      float sc[kBlockK / 8][4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    for (int d = 0; d < D; d += 4) {        // D % 8 == 0
-      const float k_0 = krow[d], k_1 = krow[d + 1], k_2 = krow[d + 2], k_3 = krow[d + 3];
+      for (int n = 0; n < kBlockK / 8; ++n)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(qrow + r * D + d);
-        s[r] = fmaf(qv.x, k_0, s[r]);
-        s[r] = fmaf(qv.y, k_1, s[r]);
-        s[r] = fmaf(qv.z, k_2, s[r]);
-        s[r] = fmaf(qv.w, k_3, s[r]);
-      }
-    }
-
-    const int kpos = k0 + lane;
+        for (int e = 0; e < 4; ++e) sc[n][e] = 0.f;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qi = q0 + warp * kRows + r;
-      const bool valid = kpos < Tk && (!causal || kpos <= qi + shift);
-      const float sr = valid ? s[r] * scale : kNegInf;
-      const float m_new = fmaxf(m[r], warp_max(sr));
-      const float alpha = expf(m[r] - m_new);
-      const float p = valid ? expf(sr - m_new) : 0.f;
-      l[r] = l[r] * alpha + warp_sum(p);
+      for (int kk = 0; kk < DN / 8; ++kk) {
+        if (8 * kk < D) {
+          const float2 qa = *reinterpret_cast<const float2*>(qw + 8 * kk);
+          const float2 qb = *reinterpret_cast<const float2*>(qw + 8 * LQ + 8 * kk);
+          uint32_t ah[4], al[4];
+          split_a(qa.x, qb.x, qa.y, qb.y, ah, al);
 #pragma unroll
-      for (int i = 0; i < MAXPER; ++i) acc[r][i] *= alpha;
-      m[r] = m_new;
-      s[r] = p;                             // this lane's probability
-    }
-
-    const int nk = min(kBlockK, Tk - k0);
-    for (int j = 0; j < nk; ++j) {
-      float pj[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) pj[r] = __shfl_sync(kFull, s[r], j);
-      const float* vrow = vs + j * D;
-#pragma unroll
-      for (int i = 0; i < MAXPER; ++i) {
-        const int d = lane + 32 * i;
-        if (d < D) {
-          const float vd = vrow[d];
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) acc[r][i] = fmaf(pj[r], vd, acc[r][i]);
+          for (int n = 0; n < kBlockK / 8; ++n) {
+            const float2 kb = *reinterpret_cast<const float2*>(kt + 8 * n * LQ + 8 * kk);
+            mma3(sc[n], ah, al, kb.x, kb.y);
+          }
         }
       }
-    }
-  }
 
+      // The online softmax of the tile (the scale folded into log2 e).
+      const bool mask = k0 + kBlockK - 1 > w_min;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qi = q0 + warp * kRows + r;
-    if (qi < Tq) {
-      const float denom = l[r] > 0.f ? l[r] : 1.f;
+      for (int n = 0; n < kBlockK / 8; ++n) {
+        const int c = k0 + 8 * n + 2 * t;
 #pragma unroll
-      for (int i = 0; i < MAXPER; ++i) {
-        const int d = lane + 32 * i;
-        if (d < D) o[q_base + (size_t)qi * D + d] = acc[r][i] / denom;
+        for (int e = 0; e < 4; ++e) {
+          const int lim = e < 2 ? lim0 : lim1;
+          sc[n][e] = mask && c + (e & 1) > lim ? -INFINITY : sc[n][e] * scale_log2;
+        }
       }
+      float x0 = -INFINITY, x1 = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < kBlockK / 8; ++n) {
+        x0 = fmaxf(x0, fmaxf(sc[n][0], sc[n][1]));
+        x1 = fmaxf(x1, fmaxf(sc[n][2], sc[n][3]));
+      }
+      // The four threads of a row hold its keys 2 t, 2 t + 1 of each block.
+      x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 1));
+      x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, 2));
+      x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 1));
+      x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, 2));
+      const float n0 = fmaxf(m0, x0), n1 = fmaxf(m1, x1);
+      // A row with no visible key yet keeps p = 0 and alpha = 0 (its sums are 0).
+      const float b0 = n0 == -INFINITY ? 0.f : n0, b1 = n1 == -INFINITY ? 0.f : n1;
+      const float a0 = exp2_approx(m0 - b0), a1 = exp2_approx(m1 - b1);
+      m0 = n0;
+      m1 = n1;
+      l0 *= a0;
+      l1 *= a1;
+#pragma unroll
+      for (int n = 0; n < kBlockK / 8; ++n) {
+        sc[n][0] = exp2_approx(sc[n][0] - b0);
+        sc[n][1] = exp2_approx(sc[n][1] - b0);
+        sc[n][2] = exp2_approx(sc[n][2] - b1);
+        sc[n][3] = exp2_approx(sc[n][3] - b1);
+        l0 += sc[n][0] + sc[n][1];
+        l1 += sc[n][2] + sc[n][3];
+      }
+#pragma unroll
+      for (int i = 0; i < DN / 8; ++i) {
+        acc[i][0] *= a0;
+        acc[i][1] *= a0;
+        acc[i][2] *= a1;
+        acc[i][3] *= a1;
+      }
+
+      // O += P V: S's accumulator pairs are P's A fragment; V as it lies.
+#pragma unroll
+      for (int n = 0; n < kBlockK / 8; ++n) {
+        uint32_t ph[4], pl[4];
+        split_a(sc[n][0], sc[n][2], sc[n][1], sc[n][3], ph, pl);
+        const float* vn = vt + 8 * n * LV;
+#pragma unroll
+        for (int i = 0; i < DN / 8; ++i)
+          if (8 * i < D) mma3(acc[i], ph, pl, vn[8 * i], vn[LV + 8 * i]);
+      }
+    }
+    __syncthreads();                                          // tile j's stage is free
+  }
+  cp_async_wait<0>();
+
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = l0 > 0.f ? l0 : 1.f, d1 = l1 > 0.f ? l1 : 1.f;   // 0 where l == 0
+  float* o0 = o + q_base + (size_t)(rw + g) * D;
+  float* o1 = o0 + (size_t)8 * D;
+#pragma unroll
+  for (int i = 0; i < DN / 8; ++i) {
+    const int col = 8 * i + 2 * t;
+    if (col < D) {
+      if (rw + g < rows) *reinterpret_cast<float2*>(o0 + col) =
+          make_float2(acc[i][0] / d0, acc[i][1] / d0);
+      if (rw + g + 8 < rows) *reinterpret_cast<float2*>(o1 + col) =
+          make_float2(acc[i][2] / d1, acc[i][3] / d1);
     }
   }
 }
 
-template <int MAXPER>
-int launch_fma(const void* q, const void* k, const void* v, void* o, int B, int Hq,
-           int Hkv, int Tq, int Tk, int D, float scale, int causal,
-           cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)kBlockQ * D + (size_t)kBlockK * (D + 1) +
-                                       (size_t)kBlockK * D);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<MAXPER>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+template <int DN>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
+           int Tq, int Tk, int D, float scale, int causal, cudaStream_t stream) {
+  const int smem = smem_bytes(D);
+  const cudaError_t err =
+      cudaFuncSetAttribute(flash_tf32_kernel<DN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Tq + kBlockQ - 1) / kBlockQ, Hq, B);
-  flash_fwd_kernel<MAXPER><<<grid, kThreads, smem, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, Hq, Hkv, Tq, Tk, D, scale, causal);
+  const dim3 grid(B * Hkv, (Hq / Hkv * Tq + kBlockQ - 1) / kBlockQ);
+  flash_tf32_kernel<DN><<<grid, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, Hq, Hkv, Tq, Tk, D,
+      scale * 1.4426950408889634f, causal);
   return (int)cudaGetLastError();
 }
 
-
-}  // namespace simt
+}  // namespace tf32
 
 // ---------------------------------------------------------------------------
 // bfloat16: wgmma on the tensor cores, tiles brought by TMA.
@@ -265,10 +431,6 @@ struct Plan {
   static constexpr int kStages = ring_smem(DP, kBlockK, 3) <= kSmemLimit ? 3 : 2;
   static constexpr int kSmem = ring_smem(DP, kBlockK, kStages);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -337,13 +499,6 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// 2^x on the special-function unit (2 ulp; results below 2^-126 flush to 0).
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Named barriers 1 and 2 hand the turn to issue wgmma between the two
@@ -918,12 +1073,22 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
   const int plan[7] = {plan_dp,      plan_bq,   plan_bk,   plan_stages,
                        plan_threads, plan_smem, plan_width};
   if (dtype == 0) {
-    const int smem = 4 * (simt::kBlockQ * D + simt::kBlockK * (D + 1) + simt::kBlockK * D);
-    if (plan[0] != D || plan[1] != simt::kBlockQ || plan[2] != simt::kBlockK || plan[3] != 1 ||
-        plan[4] != simt::kThreads || plan[5] != smem || plan[6] != D)
+    // The accumulator's width: the head dim rounded up to a width built below.
+    const int dn = D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : D <= 112 ? 112 : D <= 128 ? 128
+                 : D <= 160 ? 160 : 256;
+    if (plan[0] != tf32::ld_qk(D) || plan[1] != tf32::kBlockQ || plan[2] != tf32::kBlockK ||
+        plan[3] != tf32::kStages || plan[4] != tf32::kThreads || plan[5] != tf32::smem_bytes(D) ||
+        plan[6] != dn)
       return (int)cudaErrorInvalidValue;
-    return D <= 128 ? simt::launch_fma<4>(q, k, v, o, B, Hq, Hkv, Tq, Tk, D, scale, causal, s)
-                    : simt::launch_fma<8>(q, k, v, o, B, Hq, Hkv, Tq, Tk, D, scale, causal, s);
+    switch (dn) {
+      case 16: return tf32::launch<16>(q, k, v, o, B, Hq, Hkv, Tq, Tk, D, scale, causal, s);
+      case 32: return tf32::launch<32>(q, k, v, o, B, Hq, Hkv, Tq, Tk, D, scale, causal, s);
+      case 64: return tf32::launch<64>(q, k, v, o, B, Hq, Hkv, Tq, Tk, D, scale, causal, s);
+      case 112: return tf32::launch<112>(q, k, v, o, B, Hq, Hkv, Tq, Tk, D, scale, causal, s);
+      case 128: return tf32::launch<128>(q, k, v, o, B, Hq, Hkv, Tq, Tk, D, scale, causal, s);
+      case 160: return tf32::launch<160>(q, k, v, o, B, Hq, Hkv, Tq, Tk, D, scale, causal, s);
+      default: return tf32::launch<256>(q, k, v, o, B, Hq, Hkv, Tq, Tk, D, scale, causal, s);
+    }
   }
   // The product width: the head dim rounded up to a width built below.
   const int width = D <= 64 ? 64 : D <= 112 ? 112 : D <= 128 ? 128 : D <= 160 ? 160 : 256;

@@ -2,8 +2,12 @@
 
 ``csrc/flash_attention.cu`` holds the kernels and says which Pallas TPU
 kernel they replace and what bounds them on the card: bfloat16 inputs take
-the tensor-core kernel (``wgmma`` tiles fed by TMA), float32 inputs the
-exact FMA kernel.  :func:`tile_plan` computes the tiles a launch uses, and
+the ``wgmma`` kernel (tiles fed by TMA), float32 inputs the 3xTF32 kernel
+(``mma.sync`` on split TF32 operands, tiles fed by ``cp.async``); both run
+on the tensor cores.  The float32 kernel is bound by its three TF32
+products (0.0523 ms at ``serve_exact``'s 10 prefill calls) and took 0.774 ms
+there (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md, K5 float32).
+:func:`tile_plan` computes the tiles a launch uses, and
 the C side refuses a plan that differs from the one it was built with.
 :func:`flash_attention_cuda` checks its inputs, allocates the output,
 launches the kernel on PyTorch's current stream and counts the launch in
@@ -27,8 +31,9 @@ launches = 0
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 SMEM_LIMIT = 232_448       # shared memory one block may use on the H100 (opt-in)
-TMA_ALIGN = 16             # bytes: TMA's global base alignment
+COPY_ALIGN = 16            # bytes: the base alignment of TMA's and cp.async's copies
 WGMMA_WIDTHS = (64, 112, 128, 160, 256)   # product widths the bf16 kernel is built for
+TF32_WIDTHS = (16, 32, 64, 112, 128, 160, 256)   # accumulator widths of the float32 kernel
 
 
 def check_head_dim(D: int) -> None:
@@ -39,14 +44,14 @@ def check_head_dim(D: int) -> None:
 
 class TilePlan(NamedTuple):
     """The tiles of one launch, as ``csrc/flash_attention.cu`` builds them."""
-    design: str          # "wgmma+tma" (bfloat16) or "fma" (float32)
-    head_dim: int        # padded in shared memory (bf16: a multiple of 64)
+    design: str          # "wgmma+tma" (bfloat16) or "mma.sync+3xtf32" (float32)
+    head_dim: int        # padded in shared memory (bf16: a multiple of 64; float32: Q, K rows)
     block_q: int         # query rows per block
     block_k: int         # keys per KV tile
     stages: int          # K / V tiles in flight
     threads: int
     smem_bytes: int
-    width: int           # columns the products cover (bf16: >= D, a multiple of 16)
+    width: int           # columns the products cover (>= D; bf16 a multiple of 16)
 
 
 def tile_plan(D: int, dtype: torch.dtype) -> TilePlan:
@@ -56,8 +61,10 @@ def tile_plan(D: int, dtype: torch.dtype) -> TilePlan:
     (TMA's 128-byte swizzled box); 128 keys a tile up to a padded 128, 64
     above; Q once, K and V in a ring of 3 stages where they fit (2 at a
     padded 256), 1,024 bytes of alignment slack and the ring's mbarriers.
-    float32: 32 query rows, 32 keys, q / k / v staged as float32 (K rows
-    padded to D + 1)."""
+    float32: 4 warps of 16 rows, 32 keys a tile, K and V in a ring of 2
+    stages, all float32 in shared memory; Q and K rows padded to 8 or 24
+    floats mod 32, V rows to 4 or 12 mod 16 (the fragment loads' banks);
+    accumulators the head dim rounded up to a built width."""
     check_head_dim(D)
     if dtype == torch.bfloat16:
         width = next(w for w in WGMMA_WIDTHS if w >= D)
@@ -69,7 +76,11 @@ def tile_plan(D: int, dtype: torch.dtype) -> TilePlan:
 
         stages = 3 if smem(3) <= SMEM_LIMIT else 2
         return TilePlan("wgmma+tma", dp, bq, bk, stages, 3 * 128, smem(stages), width)
-    return TilePlan("fma", D, 32, 32, 1, 128, 4 * (32 * D + 32 * (D + 1) + 32 * D), D)
+    ld_qk, ld_v = D + (8 if D % 16 == 0 else 16), D + 4
+    bq, bk, stages = 64, 32, 2
+    smem = 4 * (bq * ld_qk + stages * bk * (ld_qk + ld_v))
+    width = next(w for w in TF32_WIDTHS if w >= D)
+    return TilePlan("mma.sync+3xtf32", ld_qk, bq, bk, stages, 128, smem, width)
 
 
 def flash_attention_cuda(
@@ -103,11 +114,10 @@ def flash_attention_cuda(
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"Hq={Hq} must be a multiple of Hkv={Hkv}")
     plan = tile_plan(D, q.dtype)
-    if plan.design == "wgmma+tma":
-        for name, x in (("q", q), ("k", k), ("v", v)):
-            if x.data_ptr() % TMA_ALIGN:
-                raise ValueError(f"{name} must start on a {TMA_ALIGN}-byte aligned address "
-                                 f"for TMA")
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % COPY_ALIGN:
+            raise ValueError(f"{name} must start on a {COPY_ALIGN}-byte aligned address "
+                             f"for the kernel's 16-byte copies")
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o

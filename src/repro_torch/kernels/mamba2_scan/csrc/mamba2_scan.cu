@@ -24,7 +24,7 @@
 // returns NaN for nearly every head (tests/test_torch_ssm_kernels.py).  Both
 // kernels here stay finite there.  logc is a warp scan of A dt.
 //
-// bfloat16 x: the tensor-core kernel (mamba2_mma_kernel).  The TPU grid
+// The tensor-core kernel (mamba2_mma_kernel), for x in bf16 or float32.  The TPU grid
 // (B, H, T/C) walks chunks in order with S in VMEM scratch; CUDA blocks carry
 // nothing between them, so a block owns HB heads of one batch row (one
 // warpgroup of 128 threads a head, kernel.py's heads_plan choosing HB by
@@ -46,20 +46,31 @@
 // float32 checks (the split, ldmatrix and mma helpers are in mma_bf16.cuh,
 // shared with K7).  The decay arithmetic stays in float32.
 //
-// float32 x: the FMA kernel (mamba2_fma_kernel), one block of 256 threads a
-// (b, h), S in shared memory, the products as FMA loops on the float32 cores.
+// float32 x (the float32 runs: ssm_exact, ssm_full_depth) takes the same
+// kernel, instantiated on float: x is staged as bf16 high and low parts (one
+// more [64][72] tile a head, 9,216 bytes), so where x meets a split operand
+// (att x, B_dec^T x) the product has three terms, hi hi + lo hi + hi lo,
+// and D x reads hi + lo; y is stored in float32.  The split keeps ~16 bits
+// of every operand, well inside the float32 checks' 5e-4.  Blocks take two
+// heads or one (at four, 128 registers a thread, the third product spills).
+// Bound at ssm_exact (zamba2-7b, 6 calls [2, 112, 128, 64]): bytes, x and
+// y in float32 plus dt, B, C and the state, 18.6 MB a call, 0.0333 ms over
+// the 6 calls (chip_smoke.py counts them); measured 0.18 ms of device time
+// there, where the CUDA cores' FMA kernel it replaced took 0.82 ms
+// (chip_smoke.py and bench/float32_sites.py on an NVIDIA H100 80GB HBM3 at
+// 700.00 W; PERF.md, K8): 112 blocks of two heads, two chunks each, leave
+// the card mostly idle.
 //
 // Bound on this card: at zamba2-7b's prefill (B = 4, H = 112, T = 2048,
 // P = N = 64, C = 64, bf16 x) a call moves ~249 MB (x read and y written in
 // bf16, dt, B, C and the state in float32), 74.5 us at 3.35 TB/s (6.05 ms
 // over zamba2's 81 calls); the recurrence itself needs 19.0 GFLOP, 0.283 ms
-// at the float32 rate (67 TFLOP/s; 22.93 ms over the 81 calls, the bound
-// the kernel table carried for the FMA kernel) and 0.019 ms at the bf16
-// tensor-core rate (989 TFLOP/s), and even the split products this kernel
-// runs (~58 GFLOP at two heads a block, key blocks past the diagonal
-// skipped) take 0.059 ms there.  So at the rate of the unit used the bound
-// is bytes, and that is the bound the kernel table uses from now on
-// (chip_smoke.py prints both).
+// at the float32 rate (67 TFLOP/s; 22.93 ms over the 81 calls) and 0.019
+// ms at the bf16 tensor-core rate (989 TFLOP/s), and even the split
+// products this kernel runs (~58 GFLOP at two heads a block, key blocks
+// past the diagonal skipped) take 0.059 ms there.  So at the rate of the
+// unit used the bound is bytes, for either dtype of x (chip_smoke.py prints
+// both).
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,16 +81,10 @@ namespace {
 
 using namespace mma_bf16;
 
-constexpr int kFmaThreads = 256;
 constexpr int kTileRows = 64;            // a chunk padded to 64 rows
 constexpr int kLd = 72;                  // bf16 row of a 64-column tile, padded
 constexpr int kLdF = 68;                 // float32 row of C B^T, padded
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 // logc of one chunk by warp scan: lane l takes positions 2l and 2l + 1 of
 // up to 64 (a_t = A dt_t, 0 past the chunk); returns them in lc0, lc1.
@@ -96,111 +101,7 @@ __device__ __forceinline__ void chunk_logc(float a0, float a1, int lane, float& 
 }
 
 // ---------------------------------------------------------------------------
-// float32 x: the FMA kernel.
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kFmaThreads) mamba2_fma_kernel(
-    const T* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
-    const float* __restrict__ Bm, const float* __restrict__ Cm, const float* __restrict__ Dv,
-    T* __restrict__ y, float* __restrict__ s_out, int H, int T_len, int P, int N, int C) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = N + 1;                     // padded row of B and C
-  float* S = smem;                          // [N][P]
-  float* xs = S + N * P;                    // [C][P]
-  float* bs = xs + C * P;                   // [C][ld]: B, then B dt exp(logc[C-1] - logc[s])
-  float* cs = bs + C * ld;                  // [C][ld]: C, then C exp(logc[t])
-  float* att = cs + C * ld;                 // [C][C]
-  float* lc = att + C * C;                  // [C]: logc
-  float* dts = lc + C;                      // [C]
-
-  const int tid = threadIdx.x;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const size_t xbase = ((size_t)b * H + h) * T_len * P;
-  const size_t dbase = ((size_t)b * H + h) * T_len;
-  const size_t bbase = (size_t)b * T_len * N;
-  const float a_h = A[h], d_h = Dv[h];
-
-  for (int e = tid; e < N * P; e += kFmaThreads) S[e] = 0.f;
-
-  for (int t0 = 0; t0 < T_len; t0 += C) {
-    __syncthreads();                        // the previous chunk is consumed
-    const size_t xb = xbase + (size_t)t0 * P, bb = bbase + (size_t)t0 * N;
-    for (int e = tid; e < C * P; e += kFmaThreads) xs[e] = to_f32(x[xb + e]);
-    for (int e = tid; e < C * N; e += kFmaThreads) {
-      const int t = e / N, n = e - t * N;
-      bs[t * ld + n] = Bm[bb + e];
-      cs[t * ld + n] = Cm[bb + e];
-    }
-    if (tid < 32) {                         // inclusive prefix sum of A dt, a warp scan
-      const int t = 2 * tid;
-      const float d0 = t < C ? dt[dbase + t0 + t] : 0.f;
-      const float d1 = t + 1 < C ? dt[dbase + t0 + t + 1] : 0.f;
-      float l0, l1;
-      chunk_logc(a_h * d0, a_h * d1, tid, l0, l1);
-      if (t < C) {
-        lc[t] = l0;
-        dts[t] = d0;
-      }
-      if (t + 1 < C) {
-        lc[t + 1] = l1;
-        dts[t + 1] = d1;
-      }
-    }
-    __syncthreads();
-
-    // Intra-chunk weights, causal and inclusive.
-    for (int e = tid; e < C * C; e += kFmaThreads) {
-      const int t = e / C, s = e - t * C;
-      float acc = 0.f;
-      if (s <= t) {
-        const float* ct = cs + t * ld;
-        const float* bsr = bs + s * ld;
-        for (int n = 0; n < N; ++n) acc = fmaf(ct[n], bsr[n], acc);
-        acc *= dts[s] * expf(lc[t] - lc[s]);
-      }
-      att[e] = acc;
-    }
-    __syncthreads();
-
-    // C -> C exp(logc[t]) and B -> B dt exp(logc[C-1] - logc[s]).
-    const float l_last = lc[C - 1];
-    for (int e = tid; e < C * N; e += kFmaThreads) {
-      const int t = e / N, n = e - t * N;
-      cs[t * ld + n] *= expf(lc[t]);
-      bs[t * ld + n] *= dts[t] * expf(l_last - lc[t]);
-    }
-    __syncthreads();
-
-    // y = inter + intra + D x, from the state on entry.
-    for (int e = tid; e < C * P; e += kFmaThreads) {
-      const int t = e / P, p = e - t * P;
-      const float* ct = cs + t * ld;
-      float acc = 0.f;
-      for (int n = 0; n < N; ++n) acc = fmaf(ct[n], S[n * P + p], acc);
-      const float* at = att + t * C;
-      for (int s = 0; s <= t; ++s) acc = fmaf(at[s], xs[s * P + p], acc);
-      acc = fmaf(d_h, xs[e], acc);
-      store(y + xb + e, acc);
-    }
-    __syncthreads();
-
-    // S = exp(logc[C-1]) S + B_dec^T x.
-    const float decay = expf(l_last);
-    for (int e = tid; e < N * P; e += kFmaThreads) {
-      const int n = e / P, p = e - n * P;
-      float acc = S[e] * decay;
-      for (int s = 0; s < C; ++s) acc = fmaf(bs[s * ld + n], xs[s * P + p], acc);
-      S[e] = acc;
-    }
-  }
-  __syncthreads();
-  float* so = s_out + ((size_t)b * H + h) * N * P;
-  for (int e = tid; e < N * P; e += kFmaThreads) so[e] = S[e];
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16 x: the tensor-core kernel.
+// The tensor-core kernel.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void wg_barrier(int id) {
@@ -210,20 +111,69 @@ __device__ __forceinline__ void wg_barrier(int id) {
 // Shared memory of the tensor-core kernel, in bytes: B and C as bf16 high
 // and low parts [64][72] each, C B^T float32 [64][68], then per head x
 // [64][72] bf16, a region of two [64][72] bf16 tiles (S's parts, then
-// B_dec's), and logc, dt, exp(logc) and dt exp(logc[C-1] - logc) [64] float32.
+// B_dec's), logc, dt, exp(logc) and dt exp(logc[C-1] - logc) [64] float32,
+// and for float32 x its bf16 low parts [64][72].
 constexpr int kTileBytes = kTileRows * kLd * 2;
 constexpr int kSharedBytes = 4 * kTileBytes + kTileRows * kLdF * 4;
-constexpr int kHeadBytes = 3 * kTileBytes + 4 * kTileRows * 4;
+template <typename XT>
+constexpr int kHeadBytes = 3 * kTileBytes + 4 * kTileRows * 4 + (sizeof(XT) == 4 ? kTileBytes : 0);
 
 // Offsets within one head's region.
 constexpr int kHeadX = 0, kHeadR = kTileBytes, kHeadVec = 3 * kTileBytes;
+constexpr int kHeadXlo = kHeadVec + 4 * kTileRows * 4;
 
-template <int HB>
-__global__ void __launch_bounds__(128 * HB, 4 / HB < 2 ? 1 : 4 / HB) mamba2_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
+__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float v0, float v1, bool both,
+                                           bool vec) {
+  if (both && vec) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    dst[0] = __float2bfloat16(v0);
+    if (both) dst[1] = __float2bfloat16(v1);
+  }
+}
+__device__ __forceinline__ void store_pair(float* dst, float v0, float v1, bool both, bool vec) {
+  if (both && vec) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+  } else {
+    dst[0] = v0;
+    if (both) dst[1] = v1;
+  }
+}
+
+// d0, d1 += a x over x's 16 x 16 block at (x's parts) xh, xlo: a split
+// into bf16 parts, x exact in bf16 (a_hi x + a_lo x) or, with kSplitX, also
+// split (a_hi x_hi + a_lo x_hi + a_hi x_lo).  Transposed loads: x is [s][p].
+template <bool kSplitX>
+__device__ __forceinline__ void mma_x(float (&d0)[4], float (&d1)[4], const uint32_t (&ah)[4],
+                                      const uint32_t (&al)[4], const __nv_bfloat16* xh,
+                                      const __nv_bfloat16* xlo) {
+  uint32_t bx[4];
+  ldsm_x4_t(smem_addr(xh), bx);
+  mma(d0, ah, bx[0], bx[1]);
+  mma(d0, al, bx[0], bx[1]);
+  mma(d1, ah, bx[2], bx[3]);
+  mma(d1, al, bx[2], bx[3]);
+  if constexpr (kSplitX) {
+    ldsm_x4_t(smem_addr(xlo), bx);
+    mma(d0, ah, bx[0], bx[1]);
+    mma(d1, ah, bx[2], bx[3]);
+  }
+}
+
+// XT: x's and y's type, bf16 (x exact in bf16) or float (x split into bf16
+// high and low parts like the other float32 operands).  bf16 blocks of HB
+// heads run 4 / HB to an SM (128 registers a thread); float blocks, whose
+// head regions are a tile larger, run 1 (HB = 2) or 2 (HB = 1) to an SM by
+// shared memory, and take the registers that leaves (at 128 a thread, the
+// third product with x spilled).
+template <typename XT, int HB>
+__global__ void __launch_bounds__(128 * HB, sizeof(XT) == 4 || 4 / HB < 2 ? 1 : 4 / HB)
+    mamba2_mma_kernel(
+    const XT* __restrict__ x, const float* __restrict__ dt,
     const float* __restrict__ A, const float* __restrict__ Bm, const float* __restrict__ Cm,
-    const float* __restrict__ Dv, __nv_bfloat16* __restrict__ y, float* __restrict__ s_out,
+    const float* __restrict__ Dv, XT* __restrict__ y, float* __restrict__ s_out,
     int H, int T_len, int P, int N, int C) {
+  constexpr bool kSplitX = sizeof(XT) == 4;
   extern __shared__ __align__(128) unsigned char sm[];
   __nv_bfloat16* Bhi = reinterpret_cast<__nv_bfloat16*>(sm);
   __nv_bfloat16* Blo = Bhi + kTileRows * kLd;
@@ -238,8 +188,9 @@ __global__ void __launch_bounds__(128 * HB, 4 / HB < 2 ? 1 : 4 / HB) mamba2_mma_
   const int head = blockIdx.x * HB + q;
   const bool active = head < H;
 
-  unsigned char* hb = sm + kSharedBytes + q * kHeadBytes;
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(hb + kHeadX);   // [64][kLd]
+  unsigned char* hb = sm + kSharedBytes + q * kHeadBytes<XT>;
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(hb + kHeadX);   // [64][kLd] (x's high parts)
+  __nv_bfloat16* xl = reinterpret_cast<__nv_bfloat16*>(hb + kHeadXlo); // float32 x: low parts
   __nv_bfloat16* Rhi = reinterpret_cast<__nv_bfloat16*>(hb + kHeadR);  // S, then B_dec
   __nv_bfloat16* Rlo = Rhi + kTileRows * kLd;
   float* lcs = reinterpret_cast<float*>(hb + kHeadVec);                // logc
@@ -250,7 +201,7 @@ __global__ void __launch_bounds__(128 * HB, 4 / HB < 2 ? 1 : 4 / HB) mamba2_mma_
   const float a_h = active ? A[head] : 0.f, d_h = active ? Dv[head] : 0.f;
   const size_t xbase = ((size_t)b * H + head) * T_len * P;
   const size_t dbase = ((size_t)b * H + head) * T_len;
-  const bool x_vec = P == kTileRows && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const bool x_vec = !kSplitX && P == kTileRows && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
 
   // The head's state, rows 16w + g (+ 8), columns 8j + 2c (+ 1).
   float S[8][4];
@@ -300,6 +251,17 @@ __global__ void __launch_bounds__(128 * HB, 4 / HB < 2 ? 1 : 4 / HB) mamba2_mma_
             *reinterpret_cast<uint4*>(xs + t * kLd + cc) = make_uint4(0, 0, 0, 0);
         }
         asm volatile("cp.async.commit_group;\n" ::: "memory");
+      } else if constexpr (kSplitX) {
+        for (int e = tq; e < kTileRows * 32; e += 128) {
+          const int t = e >> 5, p = 2 * (e & 31);
+          const XT* src = x + xb + (size_t)t * P + p;
+          const float x0 = t < C && p < P ? src[0] : 0.f;
+          const float x1 = t < C && p + 1 < P ? src[1] : 0.f;
+          uint32_t hi, lo;
+          split2(x0, x1, hi, lo);
+          *reinterpret_cast<uint32_t*>(xs + t * kLd + p) = hi;
+          *reinterpret_cast<uint32_t*>(xl + t * kLd + p) = lo;
+        }
       } else {
         for (int e = tq; e < kTileRows * kTileRows; e += 128) {
           const int t = e >> 6, p = e & 63;
@@ -445,12 +407,8 @@ __global__ void __launch_bounds__(128 * HB, 4 / HB < 2 ? 1 : 4 / HB) mamba2_mma_
         const int br = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
         for (int j = 0; j < 8; j += 2) {
-          uint32_t bx[4];
-          ldsm_x4_t(smem_addr(xs + br * kLd + 8 * j + (lane >> 4) * 8), bx);
-          mma(yacc[j], ah, bx[0], bx[1]);
-          mma(yacc[j], al, bx[0], bx[1]);
-          mma(yacc[j + 1], ah, bx[2], bx[3]);
-          mma(yacc[j + 1], al, bx[2], bx[3]);
+          const int off = br * kLd + 8 * j + (lane >> 4) * 8;
+          mma_x<kSplitX>(yacc[j], yacc[j + 1], ah, al, xs + off, xl + off);
         }
       }
     }
@@ -463,19 +421,17 @@ __global__ void __launch_bounds__(128 * HB, 4 / HB < 2 ? 1 : 4 / HB) mamba2_mma_
 #pragma unroll
         for (int hr = 0; hr < 2; ++hr) {
           const int t = hr ? r1 : r0;
-          const float2 xv = __bfloat1622float2(
+          float2 xv = __bfloat1622float2(
               *reinterpret_cast<const __nv_bfloat162*>(xs + t * kLd + col));
+          if constexpr (kSplitX) {
+            const float2 xlv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(xl + t * kLd + col));
+            xv = make_float2(xv.x + xlv.x, xv.y + xlv.y);
+          }
           const float v0 = fmaf(d_h, xv.x, yacc[j][2 * hr]);
           const float v1 = fmaf(d_h, xv.y, yacc[j][2 * hr + 1]);
-          if (t < C && col < P) {
-            __nv_bfloat16* dst = y + yb + (size_t)t * P + col;
-            if (col + 1 < P && (P & 1) == 0) {
-              *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
-            } else {
-              dst[0] = __float2bfloat16(v0);
-              if (col + 1 < P) dst[1] = __float2bfloat16(v1);
-            }
-          }
+          if (t < C && col < P)
+            store_pair(y + yb + (size_t)t * P + col, v0, v1, col + 1 < P, (P & 1) == 0);
         }
       }
     }
@@ -515,12 +471,8 @@ __global__ void __launch_bounds__(128 * HB, 4 / HB < 2 ? 1 : 4 / HB) mamba2_mma_
         const int br = 16 * kk + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
         for (int j = 0; j < 8; j += 2) {
-          uint32_t bx[4];
-          ldsm_x4_t(smem_addr(xs + br * kLd + 8 * j + (lane >> 4) * 8), bx);
-          mma(S[j], ah, bx[0], bx[1]);
-          mma(S[j], al, bx[0], bx[1]);
-          mma(S[j + 1], ah, bx[2], bx[3]);
-          mma(S[j + 1], al, bx[2], bx[3]);
+          const int off = br * kLd + 8 * j + (lane >> 4) * 8;
+          mma_x<kSplitX>(S[j], S[j + 1], ah, al, xs + off, xl + off);
         }
       }
     }
@@ -540,56 +492,54 @@ __global__ void __launch_bounds__(128 * HB, 4 / HB < 2 ? 1 : 4 / HB) mamba2_mma_
   }
 }
 
-template <typename T>
-int launch_fma(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
-               const void* D, void* y, void* s, int B, int H, int T_len, int P, int N, int C,
-               cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)N * P + (size_t)C * P +
-                                       2 * (size_t)C * (N + 1) + (size_t)C * C + 2 * C);
-  cudaError_t err = cudaFuncSetAttribute(mamba2_fma_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  mamba2_fma_kernel<T><<<dim3(H, B), kFmaThreads, smem, stream>>>(
-      (const T*)x, (const float*)dt, (const float*)A, (const float*)Bm, (const float*)Cm,
-      (const float*)D, (T*)y, (float*)s, H, T_len, P, N, C);
-  return (int)cudaGetLastError();
-}
-
-template <int HB>
+template <typename XT, int HB>
 int launch_mma(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
                const void* D, void* y, void* s, int B, int H, int T_len, int P, int N, int C,
                int smem, cudaStream_t stream) {
-  if (smem != kSharedBytes + HB * kHeadBytes) return (int)cudaErrorInvalidValue;
+  if (smem != kSharedBytes + HB * kHeadBytes<XT>) return (int)cudaErrorInvalidValue;
   static bool attr = false;                 // the attribute, once per instance
   if (!attr) {
-    cudaError_t err = cudaFuncSetAttribute(mamba2_mma_kernel<HB>,
+    cudaError_t err = cudaFuncSetAttribute(mamba2_mma_kernel<XT, HB>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     attr = true;
   }
-  mamba2_mma_kernel<HB><<<dim3((H + HB - 1) / HB, B), 128 * HB, smem, stream>>>(
-      (const __nv_bfloat16*)x, (const float*)dt, (const float*)A, (const float*)Bm,
-      (const float*)Cm, (const float*)D, (__nv_bfloat16*)y, (float*)s, H, T_len, P, N, C);
+  mamba2_mma_kernel<XT, HB><<<dim3((H + HB - 1) / HB, B), 128 * HB, smem, stream>>>(
+      (const XT*)x, (const float*)dt, (const float*)A, (const float*)Bm, (const float*)Cm,
+      (const float*)D, (XT*)y, (float*)s, H, T_len, P, N, C);
   return (int)cudaGetLastError();
+}
+
+// The instances: 1, 2 or 4 heads a block for bf16 x; 1 or 2 for float32 x.
+template <typename XT>
+int launch_dtype(const void* x, const void* dt, const void* A, const void* Bm, const void* Cm,
+                 const void* D, void* y, void* s, int B, int H, int T_len, int P, int N, int C,
+                 int heads_per_block, int smem, cudaStream_t st) {
+  switch (heads_per_block) {
+    case 1: return launch_mma<XT, 1>(x, dt, A, Bm, Cm, D, y, s, B, H, T_len, P, N, C, smem, st);
+    case 2: return launch_mma<XT, 2>(x, dt, A, Bm, Cm, D, y, s, B, H, T_len, P, N, C, smem, st);
+    case 4:
+      if constexpr (sizeof(XT) == 2)
+        return launch_mma<XT, 4>(x, dt, A, Bm, Cm, D, y, s, B, H, T_len, P, N, C, smem, st);
+      return (int)cudaErrorInvalidValue;
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core kernel,
-// with kernel.py's heads_plan: heads a block and shared memory a block,
-// which this side checks against its layout).  The wrapper has checked the
-// shapes, 0 < P, N <= 64, 0 < C <= 64, T % C == 0 and T > 0.
+// dtype: 0 = float32, 1 = bfloat16, both the tensor-core kernel with
+// kernel.py's heads_plan (heads a block and shared memory a block, which
+// this side checks against the dtype's layout).  The wrapper has checked
+// the shapes, 0 < P, N <= 64, 0 < C <= 64, T % C == 0 and T > 0.
 extern "C" int mamba2_scan_launch(const void* x, const void* dt, const void* A,
                                   const void* Bm, const void* Cm, const void* D, void* y,
                                   void* s, int B, int H, int T_len, int P, int N, int C,
                                   int dtype, int heads_per_block, int smem, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_fma<float>(x, dt, A, Bm, Cm, D, y, s, B, H, T_len, P, N, C, st);
-  switch (heads_per_block) {
-    case 1: return launch_mma<1>(x, dt, A, Bm, Cm, D, y, s, B, H, T_len, P, N, C, smem, st);
-    case 2: return launch_mma<2>(x, dt, A, Bm, Cm, D, y, s, B, H, T_len, P, N, C, smem, st);
-    case 4: return launch_mma<4>(x, dt, A, Bm, Cm, D, y, s, B, H, T_len, P, N, C, smem, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (dtype == 0)
+    return launch_dtype<float>(x, dt, A, Bm, Cm, D, y, s, B, H, T_len, P, N, C,
+                               heads_per_block, smem, st);
+  return launch_dtype<__nv_bfloat16>(x, dt, A, Bm, Cm, D, y, s, B, H, T_len, P, N, C,
+                                     heads_per_block, smem, st);
 }

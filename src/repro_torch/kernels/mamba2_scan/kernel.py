@@ -3,14 +3,16 @@
 ``csrc/mamba2_scan.cu`` holds the kernels and says which Pallas TPU kernel
 they replace, why they exponentiate only differences of cumulative
 log-decays (the TPU kernel overflows at zamba2's decays), and what bounds
-them on the card: bfloat16 x takes the tensor-core kernel (``mma.sync`` on
-split bf16 operands), float32 x the FMA kernel.  :func:`heads_plan` chooses
-how many heads of a batch row a tensor-core block takes; the C side refuses
-a plan that does not match its layout.  :func:`mamba2_scan_cuda` checks its
-inputs, allocates the outputs, launches the kernel on PyTorch's current
-stream and counts the launch in :data:`launches`.  Given CPU tensors it runs
-the plain version (``ref.py``) instead; given CUDA tensors it launches the
-kernel or raises.
+them on the card: x in bfloat16 or float32 takes the tensor-core kernel
+(``mma.sync`` on split bf16 operands; float32 x split too).  Both are
+bound by bytes: for float32 x at ``ssm_exact``'s 6 calls 0.0333 ms, against
+0.18 ms measured (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md, K8 float32).
+:func:`heads_plan` chooses how many heads of a batch row a block takes; the
+C side refuses a plan that does not match its layout for x's dtype.
+:func:`mamba2_scan_cuda` checks its inputs, allocates the outputs, launches
+the kernel on PyTorch's current stream and counts the launch in
+:data:`launches`.  Given CPU tensors it runs the plain version (``ref.py``)
+instead; given CUDA tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -30,13 +32,19 @@ from repro_torch.kernels.rwkv6_scan.kernel import check, chunk_of
 launches = 0
 
 MAX_DIM = 64             # head dim P and state size N the shared-memory layout takes
-HEADS_PER_BLOCK = (4, 2, 1)   # the tensor-core kernel's instances
+HEADS_PER_BLOCK = (4, 2, 1)   # the tensor-core kernel's instances for bf16 x
+# float32 x: at four heads a block (128 registers a thread) the third product
+# with x spills, so its blocks take two heads or one.
+HEADS_PER_BLOCK_F32 = (2, 1)
 TILE = 64                # a chunk and N, P padded to 64 x 64 tiles
 # Shared memory of the tensor-core kernel: B and C as bf16 high and low
 # parts [64][72], C B^T float32 [64][68]; per head x [64][72] bf16, two
-# [64][72] bf16 tiles, four [64] float32 vectors.
-SHARED_BYTES = 4 * TILE * 72 * 2 + TILE * 68 * 4
-HEAD_BYTES = 3 * TILE * 72 * 2 + 4 * TILE * 4
+# [64][72] bf16 tiles, four [64] float32 vectors, and for float32 x its
+# bf16 low parts, one more [64][72] tile.
+TILE_BYTES = TILE * 72 * 2
+SHARED_BYTES = 4 * TILE_BYTES + TILE * 68 * 4
+HEAD_BYTES = {torch.bfloat16: 3 * TILE_BYTES + 4 * TILE * 4,
+              torch.float32: 4 * TILE_BYTES + 4 * TILE * 4}
 SM_BYTES = 233_472       # shared memory of one SM (H100), 1 KB of it reserved a block
 SM_THREADS_AT_128_REGS = 512   # 65,536 registers at 128 a thread
 
@@ -49,31 +57,31 @@ class HeadsPlan(NamedTuple):
     smem_bytes: int
 
 
-def _plan(B: int, H: int, hb: int) -> Tuple[int, int, int]:
-    smem = SHARED_BYTES + hb * HEAD_BYTES
+def _plan(B: int, H: int, hb: int, dtype: torch.dtype) -> Tuple[int, int, int]:
+    smem = SHARED_BYTES + hb * HEAD_BYTES[dtype]
     per_sm = min(SM_BYTES // (smem + 1024), SM_THREADS_AT_128_REGS // (128 * hb))
     return B * -(-H // hb), per_sm, smem
 
 
-def heads_plan(B: int, H: int, sms: int) -> HeadsPlan:
-    """Heads a block by occupancy: the fewest heads resident on the busiest
-    SM over all waves (a warpgroup's products share the SM's tensor cores
-    with the others'), then the most heads a block (C B^T formed once for
-    them; at zamba2's prefill four heads a block ran 3-4% faster than two,
-    with the same four heads on the busiest SM)."""
+def heads_plan(B: int, H: int, sms: int, dtype: torch.dtype = torch.bfloat16) -> HeadsPlan:
+    """Heads a block for x of ``dtype`` by occupancy: the fewest heads
+    resident on the busiest SM over all waves (a warpgroup's products share
+    the SM's tensor cores with the others'), then the most heads a block
+    (C B^T formed once for them; at zamba2's prefill four heads a block ran
+    3-4% faster than two, with the same four heads on the busiest SM)."""
     def cost(hb):
-        blocks, per_sm, _ = _plan(B, H, hb)
+        blocks, per_sm, _ = _plan(B, H, hb, dtype)
         waves = -(-blocks // (sms * per_sm))
         return (waves * hb * min(per_sm, -(-blocks // sms)), -hb)
 
-    hb = min(HEADS_PER_BLOCK, key=cost)
-    blocks, per_sm, smem = _plan(B, H, hb)
+    hb = min(HEADS_PER_BLOCK if dtype == torch.bfloat16 else HEADS_PER_BLOCK_F32, key=cost)
+    blocks, per_sm, smem = _plan(B, H, hb, dtype)
     return HeadsPlan(hb, blocks, per_sm, smem)
 
 
 def design(dtype: torch.dtype) -> str:
-    """The kernel x of this dtype takes."""
-    return "mma.sync+split-bf16" if dtype == torch.bfloat16 else "fma"
+    """The kernel x of this dtype takes: the tensor-core kernel for both."""
+    return "mma.sync+split-bf16"
 
 
 def mamba2_scan_cuda(
@@ -112,17 +120,14 @@ def mamba2_scan_cuda(
     if B == 0 or H == 0 or T == 0:
         return y, s
     Cc = chunk_of(T, chunk)
-    hb, smem = 0, 0
-    if x.dtype == torch.bfloat16:
-        plan = heads_plan(B, H, sm_count(dev.index))
-        hb, smem = plan.heads_per_block, plan.smem_bytes
+    plan = heads_plan(B, H, sm_count(dev.index), x.dtype)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cdll.mamba2_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), C.data_ptr(),
             D.data_ptr(), y.data_ptr(), s.data_ptr(), B, H, T, P, N, Cc,
-            DTYPE_CODES[x.dtype], hb, smem, stream)
+            DTYPE_CODES[x.dtype], plan.heads_per_block, plan.smem_bytes, stream)
     lib.check(err, "mamba2_scan_launch")
     launches += 1
     note_launch("mamba2_scan")

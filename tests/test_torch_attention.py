@@ -2,10 +2,11 @@
 attention) against the JAX package: its naive oracles, its blocked jnp scan
 and its Pallas kernels run by the interpreter, on the shapes of
 tests/test_kernels.py, within 2e-5 in float32 (2e-2 in bfloat16), the JAX
-package's own tolerances.  Inputs come from numpy seeds.  For K5's bf16
-tensor-core kernel, its tile plan against the card's shared memory for
-every configured head dim, and a plain model of its arithmetic against
-JAX's Pallas K5 at chip_smoke.py's bf16 cases."""
+package's own tolerances.  Inputs come from numpy seeds.  For K5's two
+tensor-core kernels, their tile plans against the card's shared memory for
+every configured head dim, and plain models of their arithmetic against
+JAX's Pallas K5: the bf16 kernel's at chip_smoke.py's bf16 cases, the
+float32 3xTF32 kernel's at its float32 cases."""
 import importlib.util
 import math
 import pathlib
@@ -210,7 +211,7 @@ def test_cuda_mode_raises_on_cpu_tensors_and_wrappers_take_the_plain_version():
 
 
 # ---------------------------------------------------------------------------
-# K5's bf16 tensor-core kernel: its tile plan and its arithmetic.
+# K5's tensor-core kernels: their tile plans and their arithmetic.
 # ---------------------------------------------------------------------------
 
 _HEAD_DIMS = sorted({registry.get_config(a).head_dim for a in registry.ARCH_IDS} - {0}
@@ -231,7 +232,10 @@ def test_tile_plan_fits_the_card(D):
     assert plan.block_k % 16 == 0 and plan.block_q % 64 == 0
     assert plan.threads == 128 * (plan.block_q // 64 + 1) and plan.stages >= 2
     f32 = tile_plan(D, torch.float32)
-    assert f32.design == "fma" and f32.smem_bytes <= SMEM_LIMIT and f32.width == D
+    assert f32.design == "mma.sync+3xtf32" and f32.smem_bytes <= SMEM_LIMIT
+    assert f32.block_q % 16 == 0 and f32.threads == 32 * (f32.block_q // 16)
+    assert f32.block_k % 8 == 0 and f32.stages >= 2 and f32.head_dim >= D
+    assert f32.width % 8 == 0 and D <= f32.width <= 256
 
 
 def _wgmma_model(q, k, v, *, causal: bool, block_k: int) -> torch.Tensor:
@@ -264,15 +268,15 @@ def _wgmma_model(q, k, v, *, causal: bool, block_k: int) -> torch.Tensor:
     return (acc * inv[..., None]).reshape(B, Hq, Tq, D).bfloat16()
 
 
-def _chip_smoke_flash_checks():
+def _chip_smoke_flash_checks(dtype: str):
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke_cases", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return [c[:7] for c in mod.FLASH_CHECKS if c[7] == "bfloat16"]
+    return [c[:7] for c in mod.FLASH_CHECKS if c[7] == dtype]
 
 
-@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal", _chip_smoke_flash_checks())
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal", _chip_smoke_flash_checks("bfloat16"))
 def test_wgmma_arithmetic_matches_jax_pallas(B, Hq, Hkv, Tq, Tk, D, causal):
     """Rounding P to bf16 (and nothing else) keeps the bf16 kernel within the
     JAX package's bf16 tolerance of its Pallas K5 (interpreted, in blocks of
@@ -282,3 +286,73 @@ def test_wgmma_arithmetic_matches_jax_pallas(B, Hq, Hkv, Tq, Tk, D, causal):
                      kernel_mode="pallas_interpret")
     got = _wgmma_model(tq, tk, tv, causal=causal, block_k=tile_plan(D, torch.bfloat16).block_k)
     _close(got, want, BF16_TOL)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties away
+    from zero, 10 mantissa bits (the magnitude's low 13 bits cleared)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in 3xTF32: each operand split into its TF32 rounding and the
+    TF32 rounding of the residual, the products lo hi + hi lo + hi hi in
+    float32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _tf32x3_model(q, k, v, *, causal: bool, block_k: int) -> torch.Tensor:
+    """The float32 kernel's arithmetic in plain torch: each (batch, KV head)
+    takes its group's rows flattened head-major (row r: query head r // Tq
+    of the group at position r % Tq), each row masks by its own position;
+    KV tiles of ``block_k`` keys; S = Q K^T and O += P V in 3xTF32; the
+    running max in the log2 domain with the scale folded into log2 e;
+    o = acc / l (0 where l == 0)."""
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale_log2 = math.log2(math.e) / math.sqrt(D)
+    rows = q.float().reshape(B, Hkv, G * Tq, D)
+    lim = torch.arange(G * Tq) % Tq + Tk - Tq if causal else torch.full((G * Tq,), Tk - 1)
+    m = torch.full((B, Hkv, G * Tq), -math.inf)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(rows)
+    for k0 in range(0, Tk, block_k):
+        kc, vc = k[:, :, k0:k0 + block_k].float(), v[:, :, k0:k0 + block_k].float()
+        seen = (k0 + torch.arange(kc.shape[2]))[None, :] <= lim[:, None]
+        s = (_mm3(rows, kc.transpose(2, 3)) * scale_log2).masked_fill(~seen, -math.inf)
+        n = torch.maximum(m, s.amax(-1))
+        base = torch.where(n == -math.inf, 0.0, n)
+        alpha = torch.exp2(m - base)
+        p = torch.exp2(s - base[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + _mm3(p, vc)
+        m = n
+    out = acc / torch.where(l > 0, l, 1.0)[..., None]
+    return out.reshape(B, Hq, Tq, D)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,causal", _chip_smoke_flash_checks("float32"))
+def test_tf32x3_arithmetic_matches_jax_pallas(B, Hq, Hkv, Tq, Tk, D, causal):
+    """3xTF32 products keep the float32 kernel within the JAX package's
+    float32 tolerance of its Pallas K5 (interpreted, in blocks of 1,024 rows
+    for speed) at every float32 case chip_smoke.py runs on the card."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(B, Hq, Hkv, Tq, Tk, D, "float32", seed=Tq + D)
+    want = jax_flash(jq, jk, jv, causal=causal, block_q=1024, block_k=1024,
+                     kernel_mode="pallas_interpret")
+    got = _tf32x3_model(tq, tk, tv, causal=causal, block_k=tile_plan(D, torch.float32).block_k)
+    _close(got, want, F32_TOL)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    """The model's TF32 rounding: 10 mantissa bits kept, halfway cases away
+    from zero for either sign, and hi + lo within 2^-22 of x."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1 + ulp / 2, 1 + ulp / 4, 1 + 3 * ulp / 4, -(1 + ulp / 2), 3.0])
+    assert _tf32(x).tolist() == [1 + ulp, 1.0, 1 + ulp, -(1 + ulp), 3.0]
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(10_000).astype(np.float32))
+    hi = _tf32(y)
+    assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
+    assert float(((y - hi - _tf32(y - hi)).abs() / y.abs()).max()) <= 2.0 ** -22

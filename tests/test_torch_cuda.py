@@ -421,6 +421,16 @@ _FLASH_CASES = [
     (4, 16, 16, 1500, 1500, 64, False, torch.bfloat16),
     (4, 16, 16, 1, 1500, 64, False, torch.bfloat16),
     (4, 16, 16, 32, 32, 64, True, torch.bfloat16),
+    # The float32 3xTF32 kernel's edges: 16-row warps and 64-row blocks of
+    # (query head, position) rows, a group of 5 packed across heads, Tq > Tk
+    # and head dims 16 and 160.
+    (1, 4, 4, 17, 17, 64, True, torch.float32),
+    (1, 2, 2, 65, 65, 128, True, torch.float32),
+    (1, 40, 8, 37, 37, 128, True, torch.float32),
+    (1, 40, 8, 1, 1, 128, True, torch.float32),
+    (1, 4, 2, 200, 70, 64, True, torch.float32),
+    (1, 8, 4, 11, 11, 16, True, torch.float32),
+    (1, 8, 2, 130, 130, 160, False, torch.float32),
 ]
 
 
@@ -670,6 +680,9 @@ _MAMBA2_CASES = [
     (2, 3, 96, 16, 32, 32, torch.bfloat16, False),
     (2, 6, 256, 64, 64, 64, torch.float32, True),
     (2, 6, 256, 64, 64, 64, torch.bfloat16, True),
+    # float32 x at the tensor-core kernel's edges.
+    (1, 5, 40, 64, 64, 64, torch.float32, True),
+    (2, 3, 96, 16, 32, 32, torch.float32, False),
 ]
 
 
@@ -709,14 +722,26 @@ def test_mamba2_tensor_core_kernel_takes_any_heads_per_block_on_card(B, H, hb):
     (heads that do not fill the last block of a batch row leave its
     warpgroups masked), at zamba2's head shape and decays, against the plain
     version."""
+    _heads_per_block_case(B, H, hb, torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,H,hb", [(1, 7, 1), (1, 201, 2), (4, 111, 2)])
+def test_mamba2_float32_kernel_takes_any_heads_per_block_on_card(B, H, hb):
+    """The same for the float32 instances (x split into bf16 parts, the
+    head's region one tile larger; one or two heads a block), y within
+    5e-4."""
+    _heads_per_block_case(B, H, hb, torch.float32)
+
+
+def _heads_per_block_case(B, H, hb, dtype):
     from repro_torch.kernels.mamba2_scan import kernel as k8
 
     dev = _card()
-    assert k8.heads_plan(B, H, k8.sm_count(dev.index or 0)).heads_per_block == hb
+    assert k8.heads_plan(B, H, k8.sm_count(dev.index or 0), dtype).heads_per_block == hb
     rng = np.random.default_rng(17 + hb)
     T, P, N = 128, 64, 64
     x = torch.from_numpy(rng.standard_normal((B, H, T, P)).astype(np.float32) * 0.5).to(
-        dev, torch.bfloat16)
+        dev, dtype)
     dt = torch.nn.functional.softplus(torch.from_numpy(
         rng.normal(0.0, 0.63, (B, H, T)).astype(np.float32))).to(dev)
     A = -torch.linspace(1.0, 8.0, H, device=dev)
@@ -727,7 +752,7 @@ def test_mamba2_tensor_core_kernel_takes_any_heads_per_block_on_card(B, H, hb):
     y_ref, s_ref = k8.mamba2_scan_ref(x, dt, A, Bm, C, D)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(s).all())
-    _close(y, y_ref, _SCAN_TOL[torch.bfloat16])
+    _close(y, y_ref, _SCAN_TOL[dtype])
     _close(s, s_ref, _SCAN_TOL[torch.float32])
 
 

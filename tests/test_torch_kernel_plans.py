@@ -12,10 +12,12 @@ package on the CPU.
   contexts of 0, splits past the context and splits whose pages are all
   unmapped.
 * K8's :func:`heads_plan` gives every head of every batch row one
-  warpgroup.  A plain model of the tensor-core kernel's chunked form with
+  warpgroup, for x in bf16 and in float32 (whose layout stages x's low
+  parts too).  A plain model of the tensor-core kernel's chunked form with
   its operand rounding (every float32 operand split into bf16 high and low
-  parts; x exact in bf16) equals JAX's ``mamba2_scan_ref`` at zamba2's
-  decays, the state within 5e-4 (the float32 check the kernel is held to).
+  parts; x exact in bf16, or float32 x split as well) equals JAX's
+  ``mamba2_scan_ref`` at zamba2's decays, the state within 5e-4 (the
+  float32 check the kernel is held to).
 """
 import math
 
@@ -28,7 +30,8 @@ from repro.kernels.mamba2_scan.ref import mamba2_scan_ref as jax_mamba2_ref
 from repro.kernels.paged_attention.ref import merge_partials as jax_merge
 from repro.kernels.paged_attention.ref import paged_attention_ref as jax_paged_ref
 from repro_torch.kernels.flash_attention.kernel import SMEM_LIMIT
-from repro_torch.kernels.mamba2_scan.kernel import HEADS_PER_BLOCK, heads_plan
+from repro_torch.kernels.mamba2_scan.kernel import (HEAD_BYTES, HEADS_PER_BLOCK,
+                                                    HEADS_PER_BLOCK_F32, SHARED_BYTES, heads_plan)
 from repro_torch.kernels.paged_attention.kernel import TILE, split_plan
 
 H100_SMS = 132
@@ -250,6 +253,34 @@ def test_heads_plan_picks_each_instance():
             for B, H in ((1, 7), (1, 201), (4, 111))] == [1, 2, 4]
 
 
+@pytest.mark.parametrize("B,H", [(4, 112), (2, 112), (1, 8), (1, 5), (2, 3), (4, 4),
+                                 (1, 112), (3, 7), (1, 7), (1, 201), (4, 111)])
+def test_heads_plan_float32_covers_every_head_once(B, H):
+    """float32 x: each head's region holds x's bf16 low parts too (one more
+    [64][72] tile), blocks take two heads or one, and the plan still fits a
+    block and covers every head."""
+    plan = heads_plan(B, H, H100_SMS, torch.float32)
+    hb = plan.heads_per_block
+    assert HEAD_BYTES[torch.float32] == HEAD_BYTES[torch.bfloat16] + 64 * 72 * 2
+    assert plan.smem_bytes == SHARED_BYTES + hb * HEAD_BYTES[torch.float32] <= SMEM_LIMIT
+    assert hb in HEADS_PER_BLOCK_F32 and plan.blocks == B * -(-H // hb)
+    assert plan.blocks_per_sm >= 1
+    seen = [(b, blk * hb + slot) for b in range(B) for blk in range(plan.blocks // B)
+            for slot in range(hb) if blk * hb + slot < H]
+    assert sorted(seen) == [(b, h) for b in range(B) for h in range(H)]
+
+
+def test_heads_plan_float32_picks_each_instance():
+    """The two float32 instances (four heads a block would spill at 128
+    registers a thread), at the shapes the card tests run them, and zamba2's
+    ssm_exact prefill ([2, 112] heads): two heads a block, one wave."""
+    assert HEADS_PER_BLOCK_F32 == (2, 1)
+    assert [heads_plan(B, H, H100_SMS, torch.float32).heads_per_block
+            for B, H in ((1, 7), (1, 201), (4, 111))] == [1, 2, 2]
+    plan = heads_plan(2, 112, H100_SMS, torch.float32)
+    assert plan.heads_per_block == 2 and plan.blocks == 112 <= H100_SMS * plan.blocks_per_sm
+
+
 def test_heads_plan_at_zamba2_fills_the_card():
     """zamba2-7b's prefill (4 x 112 heads): four heads a block, one wave of
     112 blocks."""
@@ -272,18 +303,20 @@ def _split(v):
     return hi, (v - hi).bfloat16().float()
 
 
-def _k8_model(x, dt, A, Bm, C, D, chunk):
+def _k8_model(x, dt, A, Bm, C, D, chunk, split_x=False):
     """The tensor-core kernel's chunked form in float32: C B^T, C S, att x
     and B_dec^T x as sums of bf16 parts' products (hi hi + hi lo + lo hi
-    between two split operands, hi x + lo x with x), the decay arithmetic in
-    float32, exponents only of differences of in-chunk cumulative
-    log-decays."""
+    between two split operands, hi x + lo x with x exact in bf16; with
+    ``split_x``, float32 x split too: hi x_hi + lo x_hi + hi x_lo, and D x
+    from x_hi + x_lo), the decay arithmetic in float32, exponents only of
+    differences of in-chunk cumulative log-decays."""
     B_, H, T, P = x.shape
     N = Bm.shape[-1]
     S = torch.zeros((B_, H, N, P))
     ys = []
     for t0 in range(0, T, chunk):
         xc, dtc = x[:, :, t0:t0 + chunk], dt[:, :, t0:t0 + chunk]
+        xh, xl = _split(xc) if split_x else (xc, torch.zeros_like(xc))
         L = xc.shape[2]
         Bh, Bl = _split(Bm[:, t0:t0 + L])
         Ch, Cl = _split(C[:, t0:t0 + L])
@@ -295,19 +328,21 @@ def _k8_model(x, dt, A, Bm, C, D, chunk):
         ah, al = _split(att)
         Sh, Sl = _split(S)
         inter = Ch[:, None] @ Sh + Ch[:, None] @ Sl + Cl[:, None] @ Sh
-        ys.append(inter * torch.exp(lc)[..., None] + ah @ xc + al @ xc
-                  + D[None, :, None, None] * xc)
+        ys.append(inter * torch.exp(lc)[..., None] + ah @ xh + al @ xh + ah @ xl
+                  + D[None, :, None, None] * (xh + xl))
         wdec = dtc * torch.exp(lc[..., -1:] - lc)
         dh, dl = _split((Bh + Bl)[:, None] * wdec[..., None])              # [B, H, L, N]
-        S = (S * torch.exp(lc[..., -1])[..., None, None] + dh.transpose(2, 3) @ xc
-             + dl.transpose(2, 3) @ xc)
+        S = (S * torch.exp(lc[..., -1])[..., None, None] + dh.transpose(2, 3) @ xh
+             + dl.transpose(2, 3) @ xh + dh.transpose(2, 3) @ xl)
     return torch.cat(ys, 2), S
 
 
-def _zamba2_inputs(seed, B, H, T, P, N):
+def _zamba2_inputs(seed, B, H, T, P, N, x_bf16=True):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((B, H, T, P)).astype(np.float32) * 0.5)
-    x = x.bfloat16().float().numpy()                 # x is exact in bf16 on this path
+    if x_bf16:
+        x = x.bfloat16().float()                     # x is exact in bf16 on the bf16 path
+    x = x.numpy()
     dt = np.log1p(np.exp(rng.normal(0.0, 0.63, (B, H, T)))).astype(np.float32)
     A = -np.linspace(1.0, 8.0, H, dtype=np.float32)
     Bm, C = (rng.standard_normal((B, T, N)).astype(np.float32) * 0.5 for _ in range(2))
@@ -330,3 +365,25 @@ def test_k8_split_bf16_model_matches_jax_at_zamba2_decays(B, H, T, P, N, chunk):
     # The kernel rounds y to bf16 once: within the bf16 output tolerance.
     np.testing.assert_allclose(y.bfloat16().float().numpy(), np.asarray(jy),
                                atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("B,H,T,P,N,chunk", [
+    (2, 8, 256, 64, 64, 64),      # zamba2's head shape, four chunks
+    (1, 5, 40, 64, 64, 40),       # T < chunk: one short chunk
+    (2, 3, 96, 16, 32, 32),       # N, P below the 64-wide tiles
+])
+def test_k8_float32_x_model_matches_jax_at_zamba2_decays(B, H, T, P, N, chunk):
+    """float32 x (the float32 path): x split into bf16 parts like the other
+    operands keeps y and the state within 5e-4 of JAX's reference, and the
+    split matters (x rounded to bf16 alone would not be float32-grade)."""
+    ins = _zamba2_inputs(B * 100 + T, B, H, T, P, N, x_bf16=False)
+    x32 = torch.from_numpy(ins[0])
+    assert not torch.equal(x32, x32.bfloat16().float())
+    y, s = _k8_model(*(torch.from_numpy(a) for a in ins), chunk, split_x=True)
+    jy, js = jax_mamba2_ref(*(jnp.asarray(a) for a in ins))
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all())
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), atol=STATE_TOL, rtol=STATE_TOL)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=STATE_TOL, rtol=STATE_TOL)
+    rounded = (torch.from_numpy(a) for a in (x32.bfloat16().float().numpy(), *ins[1:]))
+    _, s_bf16 = _k8_model(*rounded, chunk)
+    assert float((s_bf16 - torch.from_numpy(np.asarray(js))).abs().max()) > STATE_TOL
