@@ -185,15 +185,19 @@ device mesh.  One JSON line per phase:
    finite: the JAX test shapes, rwkv6's and zamba2's head shapes (zamba2 at
    its decays, where the TPU kernel gives NaN), T < chunk, and the
    tensor-core K8's edges in bf16 and in float32 (heads that do not fill a
-   block, N and P below its 64-wide tiles, T < chunk); and
-   ``scan_chunk_rule``: T % chunk != 0 raises;
+   block, N and P below its 64-wide tiles, T < chunk), K7's in bf16 and in
+   float32 (T < 16, T equal to the chunk, C = 64, N = 32 and 40, w near 0,
+   strong decays, 136 (b, h)); and ``scan_chunk_rule``: T % chunk != 0
+   raises;
 12. ``ssm_exact``: both families at full width in float32, rwkv6 cut to 2
    layers and zamba2 to 2 groups (6 Mamba2 layers): ``make_prefill_step``
    through the kernels equals its run through the plain versions, and
    ``forward`` at every position equals a decode loop from
    ``init_decode_state``, within 1e-3 of the logits' scale with equal greedy
    tokens; ``ssm_full_depth``: the same decode-against-prefill check at full
-   depth in float32; ``ssm_bf16``: at 2 layers / 2 groups in bf16, the
+   depth in float32, with the phase's K7 and K8 launches and a
+   ``timing_site`` line for K7 at rwkv6's 24 float32 prefill calls;
+   ``ssm_bf16``: at 2 layers / 2 groups in bf16, the
    decode loop's last-position logits within 1.5 times the JAX package's
    own decode-against-forward gap at that configuration
    (``tests/ssm_bf16_gap.py``);
@@ -346,10 +350,10 @@ and ``--diff`` of two of bench_run's figure logs exits 0.
    serve_paged's calls, each held to its plain version on those shapes.
 
 Phases 7 and 12 add ``timing_site`` lines for the float32 kernels (K5's
-3xTF32 kernel at ``serve_exact``'s prefill calls; K7's FMA kernel and K8's
-tensor-core kernel at ``ssm_exact``'s): CUDA events, device time, the plain
+3xTF32 kernel at ``serve_exact``'s prefill calls; K7's and K8's
+tensor-core kernels at ``ssm_exact``'s): CUDA events, device time, the plain
 version, the bound at the rate of the unit used (K5: three TF32 products
-over 495 TFLOP/s; K7: 67 TFLOP/s; K8: bytes) beside the float32 rate's
+over 495 TFLOP/s; K7, K8: bytes) beside the float32 rate's
 (``bound_ms_f32_rate``) and, for K5, SDPA on the same float32 inputs.
 
 Each phase from 15 on starts from a freed card and reports its peak
@@ -1930,13 +1934,13 @@ def _expect_k6(calls) -> dict:
 
 
 def _expect_scan(torch, name: str, calls) -> dict:
-    """K7's or K8's launches over ``calls``: the tensor-core kernel (K7's for
-    bf16 inputs, its FMA kernel for float32; K8's for both)."""
+    """K7's or K8's launches over ``calls``: the tensor-core kernel, for
+    both dtypes."""
     kernels = SCAN_KERNELS[name]
     out = dict.fromkeys(kernels, 0)
     for args, _ in calls:
         if args[0].numel():
-            out[kernels[0] if args[0].dtype == torch.bfloat16 else kernels[-1]] += 1
+            out[kernels[0]] += 1
     return out
 
 
@@ -3336,8 +3340,7 @@ def _k5_design(torch, D: int, dtype=None) -> dict:
 HELD_BATCH = 400                   # calls enqueued behind one held stream
 HELD_CYCLES = 200_000_000          # the hold, ~0.1 s: longer than 400 calls' host time
 K8_KERNELS = ("mamba2_mma_kernel",)
-SCAN_KERNELS = {"rwkv6_scan": ("rwkv6_mma_kernel", "rwkv6_scan_kernel"),
-                "mamba2_scan": K8_KERNELS}
+SCAN_KERNELS = {"rwkv6_scan": ("rwkv6_mma_kernel",), "mamba2_scan": K8_KERNELS}
 
 
 def _split_plans(torch, calls) -> list:
@@ -3602,6 +3605,20 @@ RWKV6_CHECKS = [
     (2, 32, 256, 64, 32, "bfloat16", (0.75, 0.999)),
     (2, 32, 256, 64, 32, "float32", (1e-3, 0.05)),
     (1, 4, 20, 64, 32, "float32", (0.75, 0.999)),
+    # The tensor-core kernel's edges in float32 (r, k, v staged as float32,
+    # v split into bf16 parts): T < 16, T equal to the chunk, C = 64 (both
+    # chunk-64 instances: 16 columns at 4 (b, h), 64 at 136), N = 32, N = 40
+    # (a partial slice), w near 0 (log w at its floor, zeros included),
+    # strong decays, and 136 (b, h) (more blocks than SMs).
+    (1, 2, 8, 64, 32, "float32", (0.75, 0.999)),
+    (2, 4, 32, 64, 32, "float32", (0.75, 0.999)),
+    (1, 4, 128, 64, 64, "float32", (0.75, 0.999)),
+    (4, 34, 128, 64, 64, "float32", (0.75, 0.999)),
+    (2, 2, 64, 32, 32, "float32", (0.75, 0.999)),
+    (1, 2, 64, 40, 32, "float32", (0.75, 0.999)),
+    (1, 2, 64, 64, 32, "float32", (0.0, 1e-44)),
+    (2, 4, 96, 64, 32, "float32", (1e-3, 0.05)),
+    (4, 34, 64, 64, 32, "float32", (0.75, 0.999)),
 ]
 # (B, H, T, P, N, chunk, dtype, zamba2 decays): the JAX test shapes, then
 # zamba2-7b's head shape at its decays (A = -linspace(1, 8, H), dt =
@@ -3835,8 +3852,8 @@ def run_ssm_exact(torch) -> None:
                  f"tokens equal {prefill_tokens_equal}/{decode_tokens_equal}")
         if l_kern != want or any(l_plain.values()):
             fail(f"ssm_exact {arch}: launches {l_kern} (expected {want}), plain {l_plain}")
-        # The scans' float32 paths (K7's FMA kernel, K8's tensor-core kernel)
-        # at this phase's calls.
+        # The scans' float32 paths (both the tensor-core kernels) at this
+        # phase's calls.
         for k, (tag, _, kernel, plain, function, replaces) in scans.items():
             if calls[k]:
                 emit("timing_site", site=f"{tag} float32 ssm_exact prefill", kernel=k,
@@ -3856,8 +3873,14 @@ def run_ssm_full_depth(torch) -> None:
     with the same greedy token.  This is where the decode path is held to
     the prefill at full depth.  In bf16 it is held to it at ``ssm_exact``'s
     depth (phase 12c), where the JAX package's own gap is read on the CPU
-    (``tests/ssm_bf16_gap.py``); phase 13 reports the full-depth bf16 gap."""
+    (``tests/ssm_bf16_gap.py``); phase 13 reports the full-depth bf16 gap.
+    The phase's scan launches are counted (the prefill's: one K7 or K8 a
+    layer; the recurrent decode launches none), and K7's float32 prefill
+    calls at full depth are timed as a ``timing_site`` line."""
     from repro_torch import models
+    from repro_torch.kernels.rwkv6_scan import ops as k7ops
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
     from repro_torch.train.train_step import make_prefill_step
 
     for arch in SSM_ARCHS:
@@ -3866,20 +3889,39 @@ def run_ssm_full_depth(torch) -> None:
         params = models.init(cfg, seed=SSM_SEED, device="cuda")
         prompts = torch.tensor(_prompts(cfg, [SSM_EXACT_TOKENS] * 2, SSM_SEED + 2),
                                dtype=torch.int32, device="cuda")
-        want = make_prefill_step(cfg)(params, {"tokens": prompts}).float()
+        before, calls = _launches(), []
+        undo = _recording(k7ops, "rwkv6_scan_cuda", calls)
+        try:
+            want = make_prefill_step(cfg)(params, {"tokens": prompts}).float()
+        finally:
+            undo()
         last, _, _ = _decode_loop(torch, cfg, params, prompts, 0, keep_all=False)
         torch.cuda.synchronize()
+        launches = _family_launches(torch, before)
         rel = _rel_err(torch, last, want)
         equal = torch.equal(last.argmax(-1), want.argmax(-1))
         emit("ssm_full_depth", arch=arch, layers=cfg.num_layers, d_model=cfg.d_model,
              dtype="float32", prompts=2, prompt_tokens=SSM_EXACT_TOKENS,
              decode_vs_prefill_max_rel_err=rel, tolerance=SSM_EXACT_TOL,
-             greedy_tokens_equal=equal, seconds=time.perf_counter() - t0,
+             greedy_tokens_equal=equal, launches_kernels=launches,
+             seconds=time.perf_counter() - t0,
              peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         if rel > SSM_EXACT_TOL or not equal:
             fail(f"ssm_full_depth {arch}: decode logits differ from the prefill's by {rel} "
                  f"of their scale (tolerance {SSM_EXACT_TOL}), tokens equal {equal}")
-        del params
+        scan = "rwkv6_scan" if cfg.family == "ssm" else "mamba2_scan"
+        if launches[scan] != cfg.num_layers:
+            fail(f"ssm_full_depth {arch}: {scan} launched {launches[scan]} times, "
+                 f"expected {cfg.num_layers}")
+        if calls:
+            emit("timing_site", site="K7 float32 ssm_full_depth prefill", kernel="rwkv6_scan",
+                 function="rwkv6_scan_pallas",
+                 replaces="src/repro/kernels/rwkv6_scan/kernel.py:112",
+                 shape=f"{arch} at full depth, float32: {_scan_shape(calls)}",
+                 launches=len(calls), library_ms=None,
+                 **_scan_timing(torch, "rwkv6_scan", rwkv6_scan_cuda, rwkv6_scan_ref, calls,
+                                0.0))
+        del params, calls
         torch.cuda.empty_cache()
 
 
@@ -4113,22 +4155,20 @@ def _mamba2_design(torch, calls, t_bytes: float, t_ops_f32: float) -> dict:
 
 def _rwkv6_design(torch, calls, t_bytes: float, t_ops_f32: float) -> dict:
     """K7's design and column plan at the first of ``calls`` (columns a
-    block, slices a (b, h), blocks launched), and its bound both at the rate
-    of the unit the design uses (bf16 tensor cores, 989 TFLOP/s, for the
-    tensor-core kernel) and at the float32 rate."""
+    block, slices a (b, h), blocks launched, blocks an SM; r's dtype picks
+    the layout), and its bound both at the rate of the unit the design uses
+    (bf16 tensor cores, 989 TFLOP/s) and at the float32 rate."""
     from repro_torch.kernels.rwkv6_scan import kernel as k7
 
     (r, *_), kw = calls[0]
-    d = k7.design(r.dtype)
-    out = {"design": d, "bound_ms_f32_rate": max(t_bytes, t_ops_f32)}
-    if d != "fma":
-        B, H, T, N = r.shape
-        plan = k7.cols_plan(B, H, N, k7.chunk_of(T, kw.get("chunk", 32)), k7.sm_count(0))
-        out.update(cols_per_block=plan.cols_per_block, column_slices=plan.slices,
-                   blocks=plan.blocks, blocks_per_sm=plan.blocks_per_sm,
-                   bound_ms_tensor_core=max(t_bytes, t_ops_f32 * F32_FLOPS_PER_S
-                                            / BF16_FLOPS_PER_S))
-    return out
+    B, H, T, N = r.shape
+    plan = k7.cols_plan(B, H, N, k7.chunk_of(T, kw.get("chunk", 32)), k7.sm_count(0), r.dtype)
+    return {"design": k7.design(r.dtype), "bound_ms_f32_rate": max(t_bytes, t_ops_f32),
+            "cols_per_block": plan.cols_per_block, "column_slices": plan.slices,
+            "blocks": plan.blocks, "blocks_per_sm": plan.blocks_per_sm,
+            "smem_bytes": plan.smem_bytes,
+            "bound_ms_tensor_core": max(t_bytes, t_ops_f32 * F32_FLOPS_PER_S
+                                        / BF16_FLOPS_PER_S)}
 
 
 def _rwkv6_plans_ms(torch, kernel, calls) -> dict:
@@ -4140,11 +4180,11 @@ def _rwkv6_plans_ms(torch, kernel, calls) -> dict:
     real, out = k7.cols_plan, {}
     try:
         for nc in k7.COLS_PER_BLOCK:
-            def forced(B, H, N, C, sms, nc=nc):
+            def forced(B, H, N, C, sms, dtype=torch.bfloat16, nc=nc):
                 slices = -(-N // nc)
-                return real(B, H, N, C, sms)._replace(
+                return real(B, H, N, C, sms, dtype)._replace(
                     cols_per_block=nc, slices=slices, blocks=B * H * slices,
-                    smem_bytes=k7.shared_bytes(C, nc))
+                    smem_bytes=k7.shared_bytes(C, nc, dtype))
             k7.cols_plan = forced
             out[str(nc)] = _event_ms(torch, lambda: [kernel(*a, **kw) for a, kw in calls],
                                      reps=1)
@@ -4164,7 +4204,7 @@ def _scan_timing(torch, name: str, kernel, plain, calls, err: float) -> dict:
     call held against the plain version, the plain version's time over the
     first ``SCAN_PLAIN_CALLS`` calls beside the kernel's there
     (``ms_at_plain_shape``), the bound, the design's own fields and
-    ``device_ms``; K7's tensor-core design adds ``cols_plan_ms``."""
+    ``device_ms``; K7 adds ``cols_plan_ms``."""
     nbytes = ops = 0
     for args, kw in calls:
         x = args[0]
@@ -4184,9 +4224,8 @@ def _scan_timing(torch, name: str, kernel, plain, calls, err: float) -> dict:
     extra.update(_device_ms(torch, lambda: [kernel(*a, **kw) for a, kw in calls],
                             _expect_scan(torch, name, calls), [lambda a=a, kw=kw: kernel(*a, **kw)
                                                  for a, kw in calls]))
-    if extra["design"] != "fma":         # the products run at the bf16 tensor-core rate
-        t_ops = ops / BF16_FLOPS_PER_S * 1e3
-    if name == "rwkv6_scan" and extra["design"] != "fma":
+    t_ops = ops / BF16_FLOPS_PER_S * 1e3     # the products run at the bf16 tensor-core rate
+    if name == "rwkv6_scan":
         extra["cols_plan_ms"] = _rwkv6_plans_ms(torch, kernel, calls)
     head = calls[:SCAN_PLAIN_CALLS]
     plain_ms = _once_ms(torch, lambda: [plain(*a) for a, kw in head])

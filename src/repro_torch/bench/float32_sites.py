@@ -7,10 +7,14 @@ The sites are the calls ``chip_smoke.py``'s float32 phases make:
   D 128), causal prefills of 300, 37, 513, 1 and 256 tokens x 2 layers;
 * ``K5 serve_paged``: the serve_paged example's model (Hq 8, Hkv 4, D 16),
   its 8 prompts x 4 layers;
+* ``K7 ssm_exact``: the RWKV6 scan at rwkv6-1.6b's heads, 2 calls
+  [2, 32, 128, 64], chunk 32, at its initial decays
+  (w = exp(-exp(-1 + 0.5 z)), the decay LoRA's base of -1);
 * ``K8 ssm_exact``: the Mamba2 scan at zamba2-7b's heads, 6 calls
   [2, 112, 128, 64], chunk 64, at its decays;
 
-and one bf16 control, ``K8 bf16 prefill``: 8 of zamba2-7b's prefill calls
+and two bf16 controls, ``K7 bf16 prefill`` and ``K8 bf16 prefill``: 8 of
+rwkv6-1.6b's prefill calls [4, 32, 2048, 64] and 8 of zamba2-7b's
 [4, 112, 2048, 64].  Each checkout runs in a process of its own (its
 ``src`` first on ``sys.path``, its kernels built from its sources) on the
 same seeded inputs.  A site's device time is the median over ``--reps``
@@ -49,6 +53,8 @@ def _sites(torch):
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.kernels.mamba2_scan.kernel import mamba2_scan_cuda
     from repro_torch.kernels.mamba2_scan.ref import mamba2_scan_ref
+    from repro_torch.kernels.rwkv6_scan.kernel import rwkv6_scan_cuda
+    from repro_torch.kernels.rwkv6_scan.ref import rwkv6_scan_ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -74,19 +80,31 @@ def _sites(torch):
         return ([lambda a=a: mamba2_scan_cuda(*a, chunk=64) for a in args],
                 [lambda a=a: mamba2_scan_ref(*a) for a in args[:1]], "mamba2_")
 
+    def k7(B, H, T, N, n, dtype):
+        args = []
+        for _ in range(n):
+            r, k, v = ((randn(B, H, T, N) * 0.5).to(dtype) for _ in range(3))
+            w = torch.exp(-torch.exp(-1.0 + 0.5 * randn(B, H, T, N)))
+            args.append((r, k, v, w, randn(H, N) * 0.5))
+        return ([lambda a=a: rwkv6_scan_cuda(*a, chunk=32) for a in args],
+                [lambda a=a: rwkv6_scan_ref(*a) for a in args[:1]], "rwkv6_")
+
     sp = serve_paged.config()
     rng = np.random.default_rng(0)                    # the example's prompt lengths
     lengths = []
     for _ in range(8):
         lengths.append(int(rng.integers(4, 12)))
         rng.integers(0, sp.vocab, lengths[-1])
-    zamba = registry.get_config("zamba2-7b")
+    rwkv, zamba = registry.get_config("rwkv6-1.6b"), registry.get_config("zamba2-7b")
+    H7, N7 = rwkv.d_model // rwkv.ssm_headdim, rwkv.ssm_headdim
     H, P, N = zamba.d_model * zamba.ssm_expand // zamba.ssm_headdim, zamba.ssm_headdim, \
         zamba.ssm_state
     return {
         "K5 serve_exact": k5(registry.get_config("qwen3-14b"), (300, 37, 513, 1, 256), 2),
         "K5 serve_paged": k5(sp, lengths, sp.num_layers),
+        "K7 ssm_exact": k7(2, H7, 128, N7, 2, torch.float32),
         "K8 ssm_exact": k8(2, H, 128, P, N, 6, torch.float32),
+        "K7 bf16 prefill": k7(4, H7, 2048, N7, 8, torch.bfloat16),
         "K8 bf16 prefill": k8(4, H, 2048, P, N, 8, torch.bfloat16),
     }
 

@@ -27,7 +27,8 @@
 // so log w is floored at -104 (exp(-104) is below float32's least normal
 // value, so the floor changes no product).
 //
-// bfloat16 r, k, v: the tensor-core kernel (rwkv6_mma_kernel).  CUDA blocks
+// The tensor-core kernel (rwkv6_mma_kernel<T, CP, NC>), for r, k, v in
+// bfloat16 or float32.  CUDA blocks
 // carry nothing between them, so a block walks the chunks of one (b, h) in
 // order; the columns j of v, o and S are independent, so kernel.py's
 // cols_plan may cut them into slices of NC = 16 or 64 columns, one
@@ -57,23 +58,34 @@
 //     ldmatrix from rows padded to 72 bf16): the off-diagonal sub-blocks of
 //     a (split x split), the inter-chunk (r exp(logd[t-1])) S0 (split x
 //     split; S0's parts staged once a chunk), the state update
-//     (k exp(logd[C-1] - logd[s]))^T v (split x exact v) and a v (split a,
-//     causal sub-blocks only).  r, k and v are exact in bf16; a float32
-//     operand is its bf16 high part plus its bf16 residual, and a product of
-//     two split operands is hi hi + hi lo + lo hi (mma_bf16.cuh, shared with
-//     K8), so the state holds the float32 checks.
+//     (k exp(logd[C-1] - logd[s]))^T v and a v (split a, causal sub-blocks
+//     only).  A float32 operand is its bf16 high part plus its bf16
+//     residual, and a product of two split operands is hi hi + hi lo + lo hi
+//     (mma_bf16.cuh, shared with K8), so the state holds the float32 checks.
+//     bf16 v is exact, and its products are hi v + lo v.
 //
-// float32 r, k, v: the FMA kernel (rwkv6_scan_kernel), one block of 256
-// threads a (b, h), S in shared memory, the three products as FMA loops on
-// the float32 cores.
+// float32 r, k, v (the float32 runs: ssm_exact, ssm_full_depth) take the
+// same kernel, instantiated on float.  r and k are staged as float32 rows,
+// so the operands, the sub-blocks' factors, the diagonal sub-blocks and the
+// bonus read them at float32 precision.  v is staged as float32 rows
+// [CP][NC + 4] and split into bf16 high and low parts as its B fragments
+// are formed (four scalar loads a fragment, free of bank conflicts at that
+// row), so (k_dec)^T v and a v take three products where bf16 v takes two.
+// o is stored in float32.  r, k and w are staged once, not in two stages:
+// the diagonal pass is their last reader (exp(logd[C-1]) of the warp's
+// state rows is taken before it ends), so the next chunk's r, k and w are
+// copied while the chunk's products run, and only v has two stages.  That
+// keeps the float32 layout within two blocks an SM at CP = 32 (94,464 bytes
+// at 64 columns) and within a block's 227 KB at CP = 64.
 //
-// Bound on this card (NVIDIA H100 80GB HBM3, 700 W): at rwkv6-1.6b's
-// prefill (B = 4, H = 32, T = 2048, N = 64, C = 32, bf16) a call moves
-// ~203 MB (each input read once, o and S written once): 0.061 ms at
-// 3.35 TB/s.  The recurrence itself needs ~5.5
-// GFLOP, 0.081 ms at the float32 rate and 0.006 ms at the bf16 tensor-core
-// rate, so at the rate of the unit that does the products the bound is
-// bytes (chip_smoke.py prints both).  What the tensor-core kernel spends
+// Bound on this card (NVIDIA H100 80GB HBM3, 700 W): each input read once
+// and o and S written once, against the bytes at 3.35 TB/s and the
+// recurrence's 5 N^2 + 5 N operations a token and head at the bf16
+// tensor-core rate (989 TFLOP/s; a third of it for float32's three
+// products).  At rwkv6-1.6b's prefill (B = 4, H = 32, T = 2048, N = 64,
+// C = 32, bf16) a call moves ~203 MB, 0.061 ms, and needs ~5.5 GFLOP, 0.006
+// ms at the tensor-core rate (0.081 ms at the float32 rate): bound by
+// bytes (chip_smoke.py prints both).  What the kernel spends
 // beyond it: the exponentials of the operands and of the diagonal
 // sub-blocks (~23.5 K a (b, h) chunk at C = 32, two thirds of them the
 // diagonal's) on the special-function units, which every column slice
@@ -82,6 +94,10 @@
 // 4.9x the bytes bound; the FMA design it replaces took 42.3-43.1 ms.  At
 // the prefill of one prompt (B = 1, 32 (b, h)) four 16-column slices a
 // (b, h) take 6.04-6.23 ms over the 24 calls, one 64-column slice 7.08 ms.
+// float32 at ssm_exact (2 calls [2, 32, 128, 64], C = 32) moves 23.1 MB,
+// 0.00689 ms, and takes 0.044 ms of device time (the FMA kernel it
+// replaced 0.202 ms): its 64 blocks fill half of the SMs and each walks
+// its four chunks in a row, so a call is one block's latency, ~22 us.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,110 +108,7 @@ namespace {
 
 using namespace mma_bf16;
 
-constexpr int kThreads = 256;
 constexpr float kLogFloor = -104.f;
-
-__global__ void __launch_bounds__(kThreads) rwkv6_scan_kernel(
-    const float* __restrict__ r, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ w, const float* __restrict__ u, float* __restrict__ o,
-    float* __restrict__ s_out, int H, int T_len, int N, int C) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = N + 1;                     // padded row of r, k, logd
-  float* S = smem;                          // [N][N]
-  float* rq = S + N * N;                    // [C][ld]: r, then r exp(logd[t-1])
-  float* kk = rq + C * ld;                  // [C][ld]: k, then k exp(logd[C-1] - logd[s])
-  float* lg = kk + C * ld;                  // [C][ld]: log w, then logd
-  float* vv = lg + C * ld;                  // [C][N]
-  float* aa = vv + C * N;                   // [C][C]
-  float* beta = aa + C * C;                 // [C]: sum_i r u k
-  float* us = beta + C;                     // [N]
-
-  const int tid = threadIdx.x;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const size_t base = ((size_t)b * H + h) * T_len * N;
-
-  for (int e = tid; e < N * N; e += kThreads) S[e] = 0.f;
-  for (int i = tid; i < N; i += kThreads) us[i] = u[(size_t)h * N + i];
-
-  for (int t0 = 0; t0 < T_len; t0 += C) {
-    __syncthreads();                        // the previous chunk is consumed
-    const size_t cb = base + (size_t)t0 * N;
-    for (int e = tid; e < C * N; e += kThreads) {
-      const int t = e / N, i = e - t * N;
-      rq[t * ld + i] = r[cb + e];
-      kk[t * ld + i] = k[cb + e];
-      lg[t * ld + i] = fmaxf(logf(w[cb + e]), kLogFloor);
-      vv[e] = v[cb + e];
-    }
-    __syncthreads();
-    for (int i = tid; i < N; i += kThreads) {   // inclusive prefix sum per channel
-      float acc = 0.f;
-      for (int t = 0; t < C; ++t) {
-        acc += lg[t * ld + i];
-        lg[t * ld + i] = acc;
-      }
-    }
-    __syncthreads();
-
-    // Intra-chunk weights (strictly causal) and the bonus.
-    for (int e = tid; e < C * C; e += kThreads) {
-      const int t = e / C, s = e - t * C;
-      float acc = 0.f;
-      if (s < t) {
-        const float* rt = rq + t * ld;
-        const float* ks = kk + s * ld;
-        const float* lt = lg + (t - 1) * ld;
-        const float* ls = lg + s * ld;
-        for (int i = 0; i < N; ++i) acc = fmaf(rt[i] * ks[i], __expf(lt[i] - ls[i]), acc);
-      }
-      aa[e] = acc;
-    }
-    for (int t = tid; t < C; t += kThreads) {
-      float acc = 0.f;
-      for (int i = 0; i < N; ++i) acc = fmaf(rq[t * ld + i] * us[i], kk[t * ld + i], acc);
-      beta[t] = acc;
-    }
-    __syncthreads();
-
-    // r -> r exp(logd[t-1]) and k -> k exp(logd[C-1] - logd[s]).
-    const float* llast = lg + (C - 1) * ld;
-    for (int e = tid; e < C * N; e += kThreads) {
-      const int t = e / N, i = e - t * N;
-      if (t > 0) rq[t * ld + i] *= expf(lg[(t - 1) * ld + i]);
-      kk[t * ld + i] *= expf(llast[i] - lg[t * ld + i]);
-    }
-    __syncthreads();
-
-    // o = inter + intra + bonus, from the state on entry.
-    for (int e = tid; e < C * N; e += kThreads) {
-      const int t = e / N, j = e - t * N;
-      const float* qt = rq + t * ld;
-      float acc = 0.f;
-      for (int i = 0; i < N; ++i) acc = fmaf(qt[i], S[i * N + j], acc);
-      const float* at = aa + t * C;
-      for (int s = 0; s < t; ++s) acc = fmaf(at[s], vv[s * N + j], acc);
-      acc = fmaf(beta[t], vv[t * N + j], acc);
-      o[cb + e] = acc;
-    }
-    __syncthreads();
-
-    // S = diag(exp(logd[C-1])) S + k_dec^T v.
-    for (int e = tid; e < N * N; e += kThreads) {
-      const int i = e / N, j = e - i * N;
-      float acc = S[e] * expf(llast[i]);
-      for (int s = 0; s < C; ++s) acc = fmaf(kk[s * ld + i], vv[s * N + j], acc);
-      S[e] = acc;
-    }
-  }
-  __syncthreads();
-  float* so = s_out + ((size_t)b * H + h) * N * N;
-  for (int e = tid; e < N * N; e += kThreads) so[e] = S[e];
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16 r, k, v: the tensor-core kernel.
-// ---------------------------------------------------------------------------
-
 constexpr int kWarps = 8;
 constexpr int kMmaThreads = 32 * kWarps;
 constexpr int kRows = 64;                    // channels, padded
@@ -214,8 +127,12 @@ __device__ __forceinline__ float lg2(float x) {
   asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
-__device__ __forceinline__ float2 bf2(const __nv_bfloat16* p) {
+// Two neighbouring values of a row of r or k as floats.
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
 }
 __device__ __forceinline__ void put2(__nv_bfloat16* hi, __nv_bfloat16* lo, float x0, float x1) {
   uint32_t h, l;
@@ -223,30 +140,75 @@ __device__ __forceinline__ void put2(__nv_bfloat16* hi, __nv_bfloat16* lo, float
   *reinterpret_cast<uint32_t*>(hi) = h;
   *reinterpret_cast<uint32_t*>(lo) = l;
 }
+// d += a b, both operands split: hi hi + hi lo + lo hi.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma(d, ah, bh[0], bh[1]);
+  mma(d, ah, bl[0], bl[1]);
+  mma(d, al, bh[0], bh[1]);
+}
+// The B operand of float32 v's 16 x 8 tile at rows s0, columns j0 (v [s][j],
+// rows of ld floats), split: fragment register e holds rows s0 + 2c + 8e and
+// + 1 of column j0 + g, as high parts in bh[e] and residuals in bl[e].
+__device__ __forceinline__ void v_split(const float* vs, int ld, int s0, int j0, int g, int c,
+                                        uint32_t (&bh)[2], uint32_t (&bl)[2]) {
+  const float* p = vs + (s0 + 2 * c) * ld + j0 + g;
+  split2(p[0], p[ld], bh[0], bl[0]);
+  split2(p[8 * ld], p[9 * ld], bh[1], bl[1]);
+}
+// o's pair (v0, v1) at dst: both when vec (the pair whole and aligned),
+// else v0 and, with second, v1.
+__device__ __forceinline__ void store_o(__nv_bfloat16* dst, float v0, float v1, bool second,
+                                        bool vec) {
+  if (vec) {
+    *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    dst[0] = __float2bfloat16(v0);
+    if (second) dst[1] = __float2bfloat16(v1);
+  }
+}
+__device__ __forceinline__ void store_o(float* dst, float v0, float v1, bool second, bool vec) {
+  if (vec) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+  } else {
+    dst[0] = v0;
+    if (second) dst[1] = v1;
+  }
+}
 
-// Shared memory of one block, in bytes: two stages of r, k [CP][72] bf16,
-// v [CP][NC + 8] bf16 and w [CP][68] float32 (log2 w's prefix in place);
-// the operands r exp(logd[t-1]), k exp(logd[C-1] - logd[s]), the
-// sub-blocks' factors R_q (rows past sub-block q) and K_q (rows of it), each
-// as high and low bf16 tiles; a [CP][CP + 4] float32; S0's parts [64][NC +
-// 8] bf16; u [64] float32.  kernel.py's shared_bytes mirrors kBytes.
-template <int CP, int NC>
+// Shared memory of one block, in bytes: the staged rows of a chunk, r and k
+// [CP][72] bf16 or [CP][68] float32, v [CP][NC + 8] bf16 or [CP][NC + 4]
+// float32, w [CP][68] float32 (log2 w's prefix in place): bf16 in two
+// stages of r, k, v, w; float32 in two stages of v and one of r, k, w.
+// Then the operands r exp(logd[t-1]), k exp(logd[C-1] - logd[s]), the
+// sub-blocks' factors R_q (rows past sub-block q) and K_q (rows of it),
+// each as high and low bf16 tiles; a [CP][CP + 4] float32; S0's parts
+// [64][NC + 8] bf16; u [64] float32.  kernel.py's shared_bytes mirrors
+// kBytes.
+template <typename T, int CP, int NC>
 struct Layout {
-  static constexpr int kLdV = NC + 8;
+  static constexpr bool kF32 = sizeof(T) == 4;
+  static constexpr int kLdR = kF32 ? kLdW : kLdB;                // r, k row, in T
+  static constexpr int kLdV = NC + (kF32 ? 4 : 8);               // v row, in T
+  static constexpr int kLdS = NC + 8;                            // S0's parts row
   static constexpr int kLdA = CP + 4;
   static constexpr int kNQ = CP / 16 - 1;                       // sub-blocks with a later one
   static constexpr int kRqRows = kNQ * CP - 8 * kNQ * (kNQ + 1);  // sum_q (CP - 16 (q + 1))
   static constexpr int kTile = CP * kLdB * 2;
-  static constexpr int kStageK = kTile, kStageV = 2 * kTile;
-  static constexpr int kStageW = kStageV + CP * kLdV * 2;
-  static constexpr int kStage = kStageW + CP * kLdW * 4;
-  static constexpr int kRd = 2 * kStage;
+  static constexpr int kOffK = CP * kLdR * (int)sizeof(T);      // k after r
+  static constexpr int kBytesV = CP * kLdV * (int)sizeof(T);
+  static constexpr int kOffV = kF32 ? 0 : 2 * kOffK;            // in a stage
+  static constexpr int kOffW = kF32 ? 2 * kOffK : 2 * kOffK + kBytesV;
+  static constexpr int kStage = kF32 ? kBytesV : kOffW + CP * kLdW * 4;
+  static constexpr int kRkw = 2 * kStage;                       // float32: r, k, w
+  static constexpr int kRd = kRkw + (kF32 ? kOffW + CP * kLdW * 4 : 0);
   static constexpr int kKd = kRd + 2 * kTile;
   static constexpr int kRq = kKd + 2 * kTile;
   static constexpr int kKq = kRq + 2 * kRqRows * kLdB * 2;
   static constexpr int kA = kKq + 2 * kNQ * 16 * kLdB * 2;
   static constexpr int kS = kA + CP * kLdA * 4;
-  static constexpr int kU = kS + 2 * kRows * kLdV * 2;
+  static constexpr int kU = kS + 2 * kRows * kLdS * 2;
   static constexpr int kBytes = kU + kRows * 4;
 };
 
@@ -284,9 +246,10 @@ __device__ __forceinline__ void log_decay_scan(float* ld, int C, int N, int w, i
   for (int q = 0; q < TL; ++q) ld[(t0 + q) * kLdW + i] = run[q] + carry;
 }
 
-// n bf16 (4 or 8, 8- or 16-byte aligned) as floats.
+// n values of a row (4 or 8) as floats: bf16 8- or 16-byte aligned, float32
+// 16-byte aligned.
 template <int n>
-__device__ __forceinline__ void bf_load(const __nv_bfloat16* p, float* x) {
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* x) {
   uint32_t wd[n / 2];
   if constexpr (n == 8) {
     const uint4 q = *reinterpret_cast<const uint4*>(p);
@@ -302,10 +265,8 @@ __device__ __forceinline__ void bf_load(const __nv_bfloat16* p, float* x) {
     x[2 * e + 1] = f.y;
   }
 }
-
-// n float32 (4 or 8, 16-byte aligned).
 template <int n>
-__device__ __forceinline__ void f_load(const float* p, float* x) {
+__device__ __forceinline__ void load_row(const float* p, float* x) {
 #pragma unroll
   for (int e = 0; e < n; e += 4) {
     const float4 q = *reinterpret_cast<const float4*>(p + e);
@@ -313,14 +274,18 @@ __device__ __forceinline__ void f_load(const float* p, float* x) {
   }
 }
 
-template <int CP, int NC>
+// T: r's, k's, v's and o's type, bf16 (v exact in bf16) or float (v split
+// into bf16 parts like the other float32 operands).
+template <typename T, int CP, int NC>
 __global__ void __launch_bounds__(kMmaThreads, CP == 32 ? 2 : 1) rwkv6_mma_kernel(
-    const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const float* __restrict__ w,
-    const float* __restrict__ u, __nv_bfloat16* __restrict__ o, float* __restrict__ s_out,
-    int H, int T_len, int N, int C, int vec) {
-  using Lay = Layout<CP, NC>;
-  constexpr int kLdV = Lay::kLdV, kLdA = Lay::kLdA, kNQ = Lay::kNQ;
+    const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
+    const float* __restrict__ w, const float* __restrict__ u, T* __restrict__ o,
+    float* __restrict__ s_out, int H, int T_len, int N, int C, int vec) {
+  using Lay = Layout<T, CP, NC>;
+  constexpr bool kF32 = Lay::kF32;
+  constexpr int kLdR = Lay::kLdR, kLdV = Lay::kLdV, kLdS = Lay::kLdS, kLdA = Lay::kLdA;
+  constexpr int kNQ = Lay::kNQ;
+  constexpr int E = 16 / (int)sizeof(T);       // elements of r, k, v a 16-byte copy
   constexpr int MT = CP / 16;                  // 16-token sub-blocks
   constexpr int NT = NC / 8;                   // 8-column tiles of the slice
   constexpr int NTS = NT / 2;                  // the state's column tiles a warp holds
@@ -337,7 +302,7 @@ __global__ void __launch_bounds__(kMmaThreads, CP == 32 ? 2 : 1) rwkv6_mma_kerne
   __nv_bfloat16* Kql = Kqh + kNQ * 16 * kLdB;
   float* Am = reinterpret_cast<float*>(sm + Lay::kA);
   __nv_bfloat16* Sh = reinterpret_cast<__nv_bfloat16*>(sm + Lay::kS);
-  __nv_bfloat16* Sl = Sh + kRows * kLdV;
+  __nv_bfloat16* Sl = Sh + kRows * kLdS;
   float* us = reinterpret_cast<float*>(sm + Lay::kU);
 
   const int tid = threadIdx.x, lane = tid & 31, wp = tid >> 5;
@@ -346,64 +311,84 @@ __global__ void __launch_bounds__(kMmaThreads, CP == 32 ? 2 : 1) rwkv6_mma_kerne
   const size_t base = ((size_t)b * H + h) * T_len * N;
   const int vcols = min(NC, N - j0);           // the slice's columns
 
-  // Both stages zeroed (the copies fill rows t < C and channels i < N only,
-  // so the padding stays zero), a zeroed (its upper triangles are never
-  // written), u.
-  for (int e = tid; e < 2 * Lay::kStage / 16; e += kMmaThreads)
+  // The staged rows zeroed (the copies fill rows t < C and channels i < N
+  // only, so the padding stays zero), a zeroed (its upper triangles are
+  // never written), u.
+  for (int e = tid; e < Lay::kRd / 16; e += kMmaThreads)
     reinterpret_cast<uint4*>(sm)[e] = make_uint4(0, 0, 0, 0);
   for (int e = tid; e < CP * kLdA; e += kMmaThreads) Am[e] = 0.f;
   for (int i = tid; i < kRows; i += kMmaThreads) us[i] = i < N ? u[(size_t)h * N + i] : 0.f;
   __syncthreads();
 
-  auto load_chunk = [&](int st, int t0) {
-    unsigned char* sp = sm + st * Lay::kStage;
-    __nv_bfloat16* rs = reinterpret_cast<__nv_bfloat16*>(sp);
-    __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(sp + Lay::kStageK);
-    __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(sp + Lay::kStageV);
-    float* ws = reinterpret_cast<float*>(sp + Lay::kStageW);
+  // The chunk at t0 into stage st: its r, k and w (with_rkw; float32 into
+  // their one region) and its v (with_v); one commit_group for the 16-byte
+  // copies.  ptxas schedules the bf16 instances otherwise, 1.2% slower at
+  // rwkv6's prefill, when the pointers are passed in or the loop's first
+  // statements below are reordered.
+  auto load_chunk = [&](int st, int t0, bool with_rkw, bool with_v) {
+    unsigned char* sv = sm + st * Lay::kStage;
+    unsigned char* sr = kF32 ? sm + Lay::kRkw : sv;
+    T* rs = reinterpret_cast<T*>(sr);
+    T* ks = reinterpret_cast<T*>(sr + Lay::kOffK);
+    T* vs = reinterpret_cast<T*>(sv + Lay::kOffV);
+    float* ws = reinterpret_cast<float*>(sr + Lay::kOffW);
     const size_t cb = base + (size_t)t0 * N;
     if (vec == 2) {                            // N = 64: whole rows, shifts only
-      constexpr int V8 = NC / 8;
-      for (int e = tid; e < C * 8; e += kMmaThreads) {
-        const int t = e >> 3, q = e & 7;
-        cp_async16(rs + t * kLdB + 8 * q, r + cb + (size_t)t * kRows + 8 * q);
-        cp_async16(ks + t * kLdB + 8 * q, k + cb + (size_t)t * kRows + 8 * q);
+      constexpr int RE = kRows / E, RS = E == 8 ? 3 : 4;   // copies a row, log2 of it
+      constexpr int VE = NC / E;
+      if (with_rkw) {
+        for (int e = tid; e < C * RE; e += kMmaThreads) {
+          const int t = e >> RS, q = e & (RE - 1);
+          cp_async16(rs + t * kLdR + E * q, r + cb + (size_t)t * kRows + E * q);
+          cp_async16(ks + t * kLdR + E * q, k + cb + (size_t)t * kRows + E * q);
+        }
+        for (int e = tid; e < C * 16; e += kMmaThreads) {
+          const int t = e >> 4, q = e & 15;
+          cp_async16(ws + t * kLdW + 4 * q, w + cb + (size_t)t * kRows + 4 * q);
+        }
       }
-      for (int e = tid; e < C * 16; e += kMmaThreads) {
-        const int t = e >> 4, q = e & 15;
-        cp_async16(ws + t * kLdW + 4 * q, w + cb + (size_t)t * kRows + 4 * q);
-      }
-      for (int e = tid; e < C * V8; e += kMmaThreads) {
-        const int t = e / V8, q = e % V8;
-        cp_async16(vs + t * kLdV + 8 * q, v + cb + (size_t)t * kRows + j0 + 8 * q);
+      if (with_v) {
+        for (int e = tid; e < C * VE; e += kMmaThreads) {
+          const int t = e / VE, q = e % VE;
+          cp_async16(vs + t * kLdV + E * q, v + cb + (size_t)t * kRows + j0 + E * q);
+        }
       }
       asm volatile("cp.async.commit_group;\n" ::: "memory");
     } else if (vec) {                          // N % 8 == 0, 16-byte aligned bases
-      const int n8 = N >> 3, n4 = N >> 2, v8 = vcols >> 3;
-      for (int e = tid; e < C * n8; e += kMmaThreads) {
-        const int t = e / n8, q = e - t * n8;
-        cp_async16(rs + t * kLdB + 8 * q, r + cb + (size_t)t * N + 8 * q);
-        cp_async16(ks + t * kLdB + 8 * q, k + cb + (size_t)t * N + 8 * q);
+      constexpr int ES = E == 8 ? 3 : 2;       // log2 E
+      const int nE = N >> ES, n4 = N >> 2, vE = vcols >> ES;
+      if (with_rkw) {
+        for (int e = tid; e < C * nE; e += kMmaThreads) {
+          const int t = e / nE, q = e - t * nE;
+          cp_async16(rs + t * kLdR + E * q, r + cb + (size_t)t * N + E * q);
+          cp_async16(ks + t * kLdR + E * q, k + cb + (size_t)t * N + E * q);
+        }
+        for (int e = tid; e < C * n4; e += kMmaThreads) {
+          const int t = e / n4, q = e - t * n4;
+          cp_async16(ws + t * kLdW + 4 * q, w + cb + (size_t)t * N + 4 * q);
+        }
       }
-      for (int e = tid; e < C * n4; e += kMmaThreads) {
-        const int t = e / n4, q = e - t * n4;
-        cp_async16(ws + t * kLdW + 4 * q, w + cb + (size_t)t * N + 4 * q);
-      }
-      for (int e = tid; e < C * v8; e += kMmaThreads) {
-        const int t = e / v8, q = e - t * v8;
-        cp_async16(vs + t * kLdV + 8 * q, v + cb + (size_t)t * N + j0 + 8 * q);
+      if (with_v) {
+        for (int e = tid; e < C * vE; e += kMmaThreads) {
+          const int t = e / vE, q = e - t * vE;
+          cp_async16(vs + t * kLdV + E * q, v + cb + (size_t)t * N + j0 + E * q);
+        }
       }
       asm volatile("cp.async.commit_group;\n" ::: "memory");
     } else {
-      for (int e = tid; e < C * N; e += kMmaThreads) {
-        const int t = e / N, i = e - t * N;
-        rs[t * kLdB + i] = r[cb + e];
-        ks[t * kLdB + i] = k[cb + e];
-        ws[t * kLdW + i] = w[cb + e];
+      if (with_rkw) {
+        for (int e = tid; e < C * N; e += kMmaThreads) {
+          const int t = e / N, i = e - t * N;
+          rs[t * kLdR + i] = r[cb + e];
+          ks[t * kLdR + i] = k[cb + e];
+          ws[t * kLdW + i] = w[cb + e];
+        }
       }
-      for (int e = tid; e < C * vcols; e += kMmaThreads) {
-        const int t = e / vcols, q = e - t * vcols;
-        vs[t * kLdV + q] = v[cb + (size_t)t * N + j0 + q];
+      if (with_v) {
+        for (int e = tid; e < C * vcols; e += kMmaThreads) {
+          const int t = e / vcols, q = e - t * vcols;
+          vs[t * kLdV + q] = v[cb + (size_t)t * N + j0 + q];
+        }
       }
     }
   };
@@ -419,24 +404,27 @@ __global__ void __launch_bounds__(kMmaThreads, CP == 32 ? 2 : 1) rwkv6_mma_kerne
     for (int e = 0; e < 4; ++e) S[j][e] = 0.f;
 
   const int nchunks = T_len / C;
-  load_chunk(0, 0);
+  load_chunk(0, 0, true, true);
   for (int ci = 0; ci < nchunks; ++ci) {
     const int st = ci & 1;
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();                           // the chunk is in; the one before consumed
-    if (ci + 1 < nchunks) load_chunk(st ^ 1, (ci + 1) * C);
+    // The next chunk into the other stage (float32: its v; r, k and w
+    // follow once this chunk's diagonal pass has read them).
+    if (ci + 1 < nchunks) load_chunk(st ^ 1, (ci + 1) * C, !kF32, true);
     unsigned char* sp = sm + st * Lay::kStage;
-    const __nv_bfloat16* rs = reinterpret_cast<const __nv_bfloat16*>(sp);
-    const __nv_bfloat16* ks = reinterpret_cast<const __nv_bfloat16*>(sp + Lay::kStageK);
-    const __nv_bfloat16* vs = reinterpret_cast<const __nv_bfloat16*>(sp + Lay::kStageV);
-    float* ld = reinterpret_cast<float*>(sp + Lay::kStageW);
+    unsigned char* sr = kF32 ? sm + Lay::kRkw : sp;
+    const T* rs = reinterpret_cast<const T*>(sr);
+    const T* ks = reinterpret_cast<const T*>(sr + Lay::kOffK);
+    const T* vs = reinterpret_cast<const T*>(sp + Lay::kOffV);
+    float* ld = reinterpret_cast<float*>(sr + Lay::kOffW);
 
     // S0 as bf16 parts [i][j], the B operand of the inter-chunk product.
 #pragma unroll
     for (int j = 0; j < NTS; ++j) {
       const int row = 16 * sm_ + g, col = 8 * (sc * NTS + j) + 2 * c;
-      put2(Sh + row * kLdV + col, Sl + row * kLdV + col, S[j][0], S[j][1]);
-      put2(Sh + (row + 8) * kLdV + col, Sl + (row + 8) * kLdV + col, S[j][2], S[j][3]);
+      put2(Sh + row * kLdS + col, Sl + row * kLdS + col, S[j][0], S[j][1]);
+      put2(Sh + (row + 8) * kLdS + col, Sl + (row + 8) * kLdS + col, S[j][2], S[j][3]);
     }
     log_decay_scan<CP>(ld, C, N, wp, lane);
     __syncthreads();
@@ -451,7 +439,7 @@ __global__ void __launch_bounds__(kMmaThreads, CP == 32 ? 2 : 1) rwkv6_mma_kerne
     for (int it = 0; it < CP * 32 / kMmaThreads; ++it) {
       const int e = tid + it * kMmaThreads;
       const int t = e >> 5, i = 2 * (e & 31);
-      const float2 rv = bf2(rs + t * kLdB + i), kv = bf2(ks + t * kLdB + i);
+      const float2 rv = ld2(rs + t * kLdR + i), kv = ld2(ks + t * kLdR + i);
       const float2 lp = t > 0 ? *reinterpret_cast<const float2*>(ld + (t - 1) * kLdW + i)
                               : make_float2(0.f, 0.f);
       const float2 lt = *reinterpret_cast<const float2*>(ld + t * kLdW + i);
@@ -490,19 +478,19 @@ __global__ void __launch_bounds__(kMmaThreads, CP == 32 ? 2 : 1) rwkv6_mma_kerne
       const int gi = lane & (G - 1), i0 = gi * CPL;
       const int tA = 16 * d + kk, tB = 16 * d + 15 - kk;
       float rc[CPL], lc[CPL];                  // the current row: r[t], logd[t-1]
-      auto load_row = [&](int t) {
-        bf_load<CPL>(rs + t * kLdB + i0, rc);
-        f_load<CPL>(ld + max(t - 1, 0) * kLdW + i0, lc);
+      auto load_t = [&](int t) {
+        load_row<CPL>(rs + t * kLdR + i0, rc);
+        load_row<CPL>(ld + max(t - 1, 0) * kLdW + i0, lc);
       };
       float part[17];                          // 15 pairs, then the two rows' bonus
-      load_row(tA);
+      load_t(tA);
 #pragma unroll
       for (int m = 0; m < 15; ++m) {
-        if (m == kk) load_row(tB);
+        if (m == kk) load_t(tB);
         const int s = 16 * d + (m < kk ? m : m - kk);
         float kv[CPL], ls[CPL];
-        bf_load<CPL>(ks + s * kLdB + i0, kv);
-        f_load<CPL>(ld + s * kLdW + i0, ls);
+        load_row<CPL>(ks + s * kLdR + i0, kv);
+        load_row<CPL>(ld + s * kLdW + i0, ls);
         float p0 = 0.f, p1 = 0.f;
 #pragma unroll
         for (int e = 0; e < CPL; e += 2) {
@@ -515,8 +503,8 @@ __global__ void __launch_bounds__(kMmaThreads, CP == 32 ? 2 : 1) rwkv6_mma_kerne
       for (int m = 15; m < 17; ++m) {
         const int t = m == 15 ? tA : tB;
         float rv[CPL], kv[CPL];
-        bf_load<CPL>(rs + t * kLdB + i0, rv);
-        bf_load<CPL>(ks + t * kLdB + i0, kv);
+        load_row<CPL>(rs + t * kLdR + i0, rv);
+        load_row<CPL>(ks + t * kLdR + i0, kv);
         float p0 = 0.f, p1 = 0.f;
 #pragma unroll
         for (int e = 0; e < CPL; e += 2) {
@@ -538,7 +526,17 @@ __global__ void __launch_bounds__(kMmaThreads, CP == 32 ? 2 : 1) rwkv6_mma_kerne
         }
       }
     }
+    // The decay of the warp's two state rows over the chunk; float32 takes
+    // it here, before the next chunk's w overwrites logd.
+    float d0, d1;
+    if constexpr (kF32) {
+      d0 = ex2(llast[16 * sm_ + g]);
+      d1 = ex2(llast[16 * sm_ + g + 8]);
+    }
     __syncthreads();
+    if constexpr (kF32) {                      // r, k, w are read: the next chunk's
+      if (ci + 1 < nchunks) load_chunk(st, (ci + 1) * C, true, false);
+    }
 
     // The off-diagonal sub-blocks of a: (p, q), q < p, R_q K_q^T.
     {
@@ -603,8 +601,8 @@ __global__ void __launch_bounds__(kMmaThreads, CP == 32 ? 2 : 1) rwkv6_mma_kerne
         ldsm_x4(smem_addr(Rdl + ar * kLdB + ac), al);
         const int br = 16 * kq + (lane & 7) + ((lane >> 3) & 1) * 8;
         const int bc = 16 * np + (lane >> 4) * 8;
-        ldsm_x4_t(smem_addr(Sh + br * kLdV + bc), bh);
-        ldsm_x4_t(smem_addr(Sl + br * kLdV + bc), bl);
+        ldsm_x4_t(smem_addr(Sh + br * kLdS + bc), bh);
+        ldsm_x4_t(smem_addr(Sl + br * kLdS + bc), bl);
         mma(oacc[q][0], ah, bh[0], bh[1]);
         mma(oacc[q][0], ah, bl[0], bl[1]);
         mma(oacc[q][0], al, bh[0], bh[1]);
@@ -617,7 +615,10 @@ __global__ void __launch_bounds__(kMmaThreads, CP == 32 ? 2 : 1) rwkv6_mma_kerne
     // S = exp(logd[C-1]) S + (k exp(logd[C-1] - logd[s]))^T v: A = the
     // operand^T (rows i) by transposed loads from [s][i], B = v [s][j].
     {
-      const float d0 = ex2(llast[16 * sm_ + g]), d1 = ex2(llast[16 * sm_ + g + 8]);
+      if constexpr (!kF32) {
+        d0 = ex2(llast[16 * sm_ + g]);
+        d1 = ex2(llast[16 * sm_ + g + 8]);
+      }
 #pragma unroll
       for (int j = 0; j < NTS; ++j) {
         S[j][0] *= d0;
@@ -633,16 +634,26 @@ __global__ void __launch_bounds__(kMmaThreads, CP == 32 ? 2 : 1) rwkv6_mma_kerne
         const int ac = 16 * sm_ + (mi & 1) * 8;
         ldsm_x4_t(smem_addr(Kdh + ar * kLdB + ac), ah);
         ldsm_x4_t(smem_addr(Kdl + ar * kLdB + ac), al);
-        const int br = 16 * kq + (lane & 7) + ((lane >> 3) & 1) * 8;
+        if constexpr (kF32) {                  // v split: three products
 #pragma unroll
-        for (int j = 0; j < NTS; j += 2) {
-          uint32_t bx[4];       // tiles j and j + 1 (the next 8 columns are padding at NTS = 1)
-          ldsm_x4_t(smem_addr(vs + br * kLdV + 8 * (sc * NTS + j) + (lane >> 4) * 8), bx);
-          mma(S[j], ah, bx[0], bx[1]);
-          mma(S[j], al, bx[0], bx[1]);
-          if (j + 1 < NTS) {
-            mma(S[j + 1], ah, bx[2], bx[3]);
-            mma(S[j + 1], al, bx[2], bx[3]);
+          for (int j = 0; j < NTS; ++j) {
+            uint32_t bh[2], bl[2];
+            v_split(reinterpret_cast<const float*>(vs), kLdV, 16 * kq, 8 * (sc * NTS + j), g,
+                    c, bh, bl);
+            mma3(S[j], ah, al, bh, bl);
+          }
+        } else {
+          const int br = 16 * kq + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+          for (int j = 0; j < NTS; j += 2) {
+            uint32_t bx[4];     // tiles j and j + 1 (the next 8 columns are padding at NTS = 1)
+            ldsm_x4_t(smem_addr(vs + br * kLdV + 8 * (sc * NTS + j) + (lane >> 4) * 8), bx);
+            mma(S[j], ah, bx[0], bx[1]);
+            mma(S[j], al, bx[0], bx[1]);
+            if (j + 1 < NTS) {
+              mma(S[j + 1], ah, bx[2], bx[3]);
+              mma(S[j + 1], al, bx[2], bx[3]);
+            }
           }
         }
       }
@@ -669,13 +680,23 @@ __global__ void __launch_bounds__(kMmaThreads, CP == 32 ? 2 : 1) rwkv6_mma_kerne
           split2(a0.x, a0.y, ah[2 * half], al[2 * half]);
           split2(a1.x, a1.y, ah[2 * half + 1], al[2 * half + 1]);
         }
-        const int br = 16 * kq + (lane & 7) + ((lane >> 3) & 1) * 8;
-        uint32_t bx[4];
-        ldsm_x4_t(smem_addr(vs + br * kLdV + 16 * np + (lane >> 4) * 8), bx);
-        mma(oacc[q][0], ah, bx[0], bx[1]);
-        mma(oacc[q][0], al, bx[0], bx[1]);
-        mma(oacc[q][1], ah, bx[2], bx[3]);
-        mma(oacc[q][1], al, bx[2], bx[3]);
+        if constexpr (kF32) {                  // v split: three products
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            uint32_t bh[2], bl[2];
+            v_split(reinterpret_cast<const float*>(vs), kLdV, 16 * kq, 16 * np + 8 * nt, g, c,
+                    bh, bl);
+            mma3(oacc[q][nt], ah, al, bh, bl);
+          }
+        } else {
+          const int br = 16 * kq + (lane & 7) + ((lane >> 3) & 1) * 8;
+          uint32_t bx[4];
+          ldsm_x4_t(smem_addr(vs + br * kLdV + 16 * np + (lane >> 4) * 8), bx);
+          mma(oacc[q][0], ah, bx[0], bx[1]);
+          mma(oacc[q][0], al, bx[0], bx[1]);
+          mma(oacc[q][1], ah, bx[2], bx[3]);
+          mma(oacc[q][1], al, bx[2], bx[3]);
+        }
       }
       const size_t ob = base + (size_t)ci * C * N;
 #pragma unroll
@@ -685,14 +706,9 @@ __global__ void __launch_bounds__(kMmaThreads, CP == 32 ? 2 : 1) rwkv6_mma_kerne
         for (int hr = 0; hr < 2; ++hr) {
           const int t = 16 * mt + g + 8 * hr;
           if (t < C && col < N) {
-            __nv_bfloat16* dst = o + ob + (size_t)t * N + col;
-            const float v0 = oacc[q][j][2 * hr], v1 = oacc[q][j][2 * hr + 1];
-            if (col + 1 < N && (N & 1) == 0) {
-              *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
-            } else {
-              dst[0] = __float2bfloat16(v0);
-              if (col + 1 < N) dst[1] = __float2bfloat16(v1);
-            }
+            const bool second = col + 1 < N;
+            store_o(o + ob + (size_t)t * N + col, oacc[q][j][2 * hr], oacc[q][j][2 * hr + 1],
+                    second, second && (N & 1) == 0);
           }
         }
       }
@@ -712,14 +728,14 @@ __global__ void __launch_bounds__(kMmaThreads, CP == 32 ? 2 : 1) rwkv6_mma_kerne
   }
 }
 
-template <int CP, int NC>
+template <typename T, int CP, int NC>
 int launch_mma(const void* r, const void* k, const void* v, const void* w, const void* u,
                void* o, void* s, int B, int H, int T_len, int N, int C, int smem,
                cudaStream_t stream) {
-  if (smem != Layout<CP, NC>::kBytes) return (int)cudaErrorInvalidValue;
+  if (smem != Layout<T, CP, NC>::kBytes) return (int)cudaErrorInvalidValue;
   static bool attr = false;                 // the attribute, once per instance
   if (!attr) {
-    cudaError_t err = cudaFuncSetAttribute(rwkv6_mma_kernel<CP, NC>,
+    cudaError_t err = cudaFuncSetAttribute(rwkv6_mma_kernel<T, CP, NC>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     attr = true;
@@ -729,45 +745,43 @@ int launch_mma(const void* r, const void* k, const void* v, const void* w, const
   // 2: N = 64, the loader's indices by shifts.
   const int vec = (N % 8 == 0 && aligned(r) && aligned(k) && aligned(v) && aligned(w))
                       ? (N == kRows ? 2 : 1) : 0;
-  rwkv6_mma_kernel<CP, NC><<<dim3((N + NC - 1) / NC, H, B), kMmaThreads, smem, stream>>>(
-      (const __nv_bfloat16*)r, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (const float*)w, (const float*)u, (__nv_bfloat16*)o, (float*)s, H, T_len, N, C, vec);
+  rwkv6_mma_kernel<T, CP, NC><<<dim3((N + NC - 1) / NC, H, B), kMmaThreads, smem, stream>>>(
+      (const T*)r, (const T*)k, (const T*)v, (const float*)w, (const float*)u, (T*)o,
+      (float*)s, H, T_len, N, C, vec);
   return (int)cudaGetLastError();
 }
 
-int launch_fma(const void* r, const void* k, const void* v, const void* w, const void* u,
-               void* o, void* s, int B, int H, int T_len, int N, int C, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)N * N + 3 * (size_t)C * (N + 1) +
-                                       (size_t)C * N + (size_t)C * C + C + N);
-  cudaError_t err = cudaFuncSetAttribute(rwkv6_scan_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  rwkv6_scan_kernel<<<dim3(H, B), kThreads, smem, stream>>>(
-      (const float*)r, (const float*)k, (const float*)v, (const float*)w, (const float*)u,
-      (float*)o, (float*)s, H, T_len, N, C);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// dtype: 0 = float32 (the FMA kernel), 1 = bfloat16 (the tensor-core
-// kernel, with kernel.py's cols_plan: columns a block and shared memory a
-// block, which this side checks against its layout).  The wrapper has
-// checked the shapes, 0 < N <= 64, 0 < C <= 64, T % C == 0 and T > 0.
-extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
-                                 const void* w, const void* u, void* o, void* s, int B,
-                                 int H, int T_len, int N, int C, int dtype,
-                                 int cols_per_block, int smem, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_fma(r, k, v, w, u, o, s, B, H, T_len, N, C, st);
-#define K7_LAUNCH(NC)                                                                    \
-  (C > 32 ? launch_mma<64, NC>(r, k, v, w, u, o, s, B, H, T_len, N, C, smem, st)        \
-          : launch_mma<32, NC>(r, k, v, w, u, o, s, B, H, T_len, N, C, smem, st))
+// The instances of one dtype: chunks padded to 32 or 64 rows, 16 or 64
+// columns a block.
+template <typename T>
+int launch_dtype(const void* r, const void* k, const void* v, const void* w, const void* u,
+                 void* o, void* s, int B, int H, int T_len, int N, int C, int cols_per_block,
+                 int smem, cudaStream_t st) {
+#define K7_LAUNCH(NC)                                                                       \
+  (C > 32 ? launch_mma<T, 64, NC>(r, k, v, w, u, o, s, B, H, T_len, N, C, smem, st)        \
+          : launch_mma<T, 32, NC>(r, k, v, w, u, o, s, B, H, T_len, N, C, smem, st))
   switch (cols_per_block) {
     case 16: return K7_LAUNCH(16);
     case 64: return K7_LAUNCH(64);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef K7_LAUNCH
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16, both the tensor-core kernel with
+// kernel.py's cols_plan: columns a block and shared memory a block, which
+// this side checks against its layout for the dtype.  The wrapper has
+// checked the shapes, 0 < N <= 64, 0 < C <= 64, T % C == 0 and T > 0.
+extern "C" int rwkv6_scan_launch(const void* r, const void* k, const void* v,
+                                 const void* w, const void* u, void* o, void* s, int B,
+                                 int H, int T_len, int N, int C, int dtype,
+                                 int cols_per_block, int smem, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_dtype<float>(r, k, v, w, u, o, s, B, H, T_len, N, C, cols_per_block, smem,
+                               st);
+  return launch_dtype<__nv_bfloat16>(r, k, v, w, u, o, s, B, H, T_len, N, C, cols_per_block,
+                                     smem, st);
 }

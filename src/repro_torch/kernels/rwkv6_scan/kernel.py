@@ -2,14 +2,17 @@
 
 ``csrc/rwkv6_scan.cu`` holds the kernels and says which Pallas TPU kernel
 they replace, why they exponentiate only differences of cumulative
-log-decays, and what bounds them on the card: bfloat16 r, k, v take the
-tensor-core kernel (``mma.sync`` on split bf16 operands), float32 the FMA
-kernel.  :func:`cols_plan` chooses how many columns of v, o and S a
-tensor-core block takes; the C side refuses a plan that does not match its
-layout.  :func:`rwkv6_scan_cuda` checks its inputs, allocates the outputs,
-launches the kernel on PyTorch's current stream and counts the launch in
-:data:`launches`.  Given CPU tensors it runs the plain version (``ref.py``)
-instead; given CUDA tensors it launches the kernel or raises.
+log-decays, and what bounds them on the card: r, k, v in bfloat16 or
+float32 take the tensor-core kernel (``mma.sync`` on split bf16 operands;
+float32 v split too).  Both are bound by bytes: for float32 at
+``ssm_exact``'s 2 calls 0.00689 ms, against 0.044 ms measured (NVIDIA H100
+80GB HBM3, 700.00 W; PERF.md, K7 float32).  :func:`cols_plan` chooses how
+many columns of v, o and S a block takes; the C side refuses a plan that
+does not match its layout for r's dtype.  :func:`rwkv6_scan_cuda` checks
+its inputs, allocates the outputs, launches the kernel on PyTorch's current
+stream and counts the launch in :data:`launches`.  Given CPU tensors it
+runs the plain version (``ref.py``) instead; given CUDA tensors it launches
+the kernel or raises.
 """
 from __future__ import annotations
 
@@ -31,6 +34,10 @@ MAX_HEAD = 64            # head size N the shared-memory layout takes
 MAX_CHUNK = 64
 COLS_PER_BLOCK = (64, 16)   # the tensor-core kernel's instances
 SM_BYTES = 233_472       # shared memory of one SM (H100), 1 KB of it reserved a block
+# Blocks of 256 threads an SM by registers: 65,536 at 128 a thread, which
+# the chunk-32 instances' launch bounds keep (the chunk-64 ones fit one
+# block an SM by shared memory alone).
+BLOCKS_AT_128_REGS = 2
 # The column-independent work of a chunk (the exponentials of the operands
 # and of a's diagonal sub-blocks, which every column slice recomputes)
 # against the column work of a 64-column block (its products and S): the
@@ -52,29 +59,40 @@ class ColsPlan(NamedTuple):
     smem_bytes: int
 
 
-def shared_bytes(chunk: int, cols: int) -> int:
-    """Shared memory of a tensor-core block (``Layout`` in the source): the
-    chunk padded to 32 or 64 rows, ``cols`` columns a block."""
+def shared_bytes(chunk: int, cols: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Shared memory of a block (``Layout`` in the source): the chunk
+    padded to 32 or 64 rows, ``cols`` columns a block, r, k, v of
+    ``dtype``.  The staged rows: r and k [cp][72] bf16 or [cp][68] float32,
+    v [cp][cols + 8] bf16 or [cp][cols + 4] float32, w [cp][68] float32;
+    bf16 in two stages of all four, float32 in two stages of v and one of
+    r, k and w.  Then six bf16 operand tiles [cp][72] and the sub-blocks'
+    factors (high and low parts), a [cp][cp + 4] float32, S0's parts
+    [64][cols + 8] bf16 and u [64] float32."""
     cp = 32 if chunk <= 32 else 64
+    f32 = dtype == torch.float32
+    esize = 4 if f32 else 2
     nq = cp // 16 - 1
     rq_rows = nq * cp - 8 * nq * (nq + 1)
     tile = cp * 72 * 2
-    stage = 2 * tile + cp * (cols + 8) * 2 + cp * 68 * 4
-    return (2 * stage + 4 * tile + 2 * (rq_rows + 16 * nq) * 72 * 2 + cp * (cp + 4) * 4
+    rkw = 2 * cp * (68 if f32 else 72) * esize + cp * 68 * 4
+    vrows = cp * (cols + (4 if f32 else 8)) * esize
+    staged = rkw + 2 * vrows if f32 else 2 * (rkw + vrows)
+    return (staged + 4 * tile + 2 * (rq_rows + 16 * nq) * 72 * 2 + cp * (cp + 4) * 4
             + 2 * 64 * (cols + 8) * 2 + 64 * 4)
 
 
-def cols_plan(B: int, H: int, N: int, chunk: int, sms: int) -> ColsPlan:
-    """Columns a block by a cost model: a block's chunk costs
-    ``PREP_OVER_COLS`` plus its share of the 64 columns' work, the busiest
-    SM runs its resident blocks' chunks one after another, and every wave
-    pays again.  The cheapest plan wins, the widest on a tie: more slices
-    only where the (b, h) blocks leave SMs idle."""
+def cols_plan(B: int, H: int, N: int, chunk: int, sms: int,
+              dtype: torch.dtype = torch.bfloat16) -> ColsPlan:
+    """Columns a block for r, k, v of ``dtype`` by a cost model: a block's
+    chunk costs ``PREP_OVER_COLS`` plus its share of the 64 columns' work,
+    the busiest SM runs its resident blocks' chunks one after another, and
+    every wave pays again.  The cheapest plan wins, the widest on a tie:
+    more slices only where the (b, h) blocks leave SMs idle."""
     def plan(nc):
-        smem = shared_bytes(chunk, nc)
+        smem = shared_bytes(chunk, nc, dtype)
         slices = -(-N // nc)
         blocks = B * H * slices
-        per_sm = max(1, SM_BYTES // (smem + 1024))
+        per_sm = max(1, min(SM_BYTES // (smem + 1024), BLOCKS_AT_128_REGS))
         return ColsPlan(nc, slices, blocks, per_sm, smem)
 
     def cost(p):
@@ -87,8 +105,8 @@ def cols_plan(B: int, H: int, N: int, chunk: int, sms: int) -> ColsPlan:
 
 
 def design(dtype: torch.dtype) -> str:
-    """The kernel r of this dtype takes."""
-    return "mma.sync+split-bf16" if dtype == torch.bfloat16 else "fma"
+    """The kernel r of this dtype takes: the tensor-core kernel for both."""
+    return "mma.sync+split-bf16"
 
 
 def check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
@@ -141,17 +159,14 @@ def rwkv6_scan_cuda(
     if B == 0 or H == 0 or T == 0:
         return o, s
     C = chunk_of(T, chunk)
-    cols, smem = 0, 0
-    if r.dtype == torch.bfloat16:
-        plan = cols_plan(B, H, N, C, sm_count(dev.index))
-        cols, smem = plan.cols_per_block, plan.smem_bytes
+    plan = cols_plan(B, H, N, C, sm_count(dev.index), r.dtype)
     lib = _build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.cdll.rwkv6_scan_launch(
             r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-            o.data_ptr(), s.data_ptr(), B, H, T, N, C, DTYPE_CODES[r.dtype], cols, smem,
-            stream)
+            o.data_ptr(), s.data_ptr(), B, H, T, N, C, DTYPE_CODES[r.dtype],
+            plan.cols_per_block, plan.smem_bytes, stream)
     lib.check(err, "rwkv6_scan_launch")
     launches += 1
     note_launch("rwkv6_scan")

@@ -638,6 +638,15 @@ _RWKV6_CASES = [
     (1, 2, 64, 64, 32, torch.bfloat16, (0.0, 1e-44)),
     (2, 4, 96, 64, 32, torch.bfloat16, (1e-3, 0.05)),
     (4, 34, 64, 64, 32, torch.bfloat16, (0.75, 0.999)),
+    # The same edges in float32 (r, k and v staged as float32, v split into
+    # bf16 parts), o and S within 5e-4.
+    (1, 2, 8, 64, 32, torch.float32, (0.75, 0.999)),
+    (2, 4, 32, 64, 32, torch.float32, (0.75, 0.999)),
+    (1, 4, 128, 64, 64, torch.float32, (0.75, 0.999)),
+    (1, 2, 64, 40, 32, torch.float32, (0.75, 0.999)),
+    (1, 2, 64, 64, 32, torch.float32, (0.0, 1e-44)),
+    (2, 4, 96, 64, 32, torch.float32, (1e-3, 0.05)),
+    (4, 34, 64, 64, 32, torch.float32, (0.75, 0.999)),
 ]
 
 
@@ -756,39 +765,41 @@ def _heads_per_block_case(B, H, hb, dtype):
     _close(s, s_ref, _SCAN_TOL[torch.float32])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("cols", [16, 64])
 @pytest.mark.parametrize("chunk", [32, 64])
-def test_rwkv6_tensor_core_kernel_takes_any_cols_per_block_on_card(cols, chunk, monkeypatch):
-    """Each instance of the bf16 tensor-core kernel (16 or 64 columns a
-    block; chunks padded to 32 or 64 rows) at rwkv6's head shape, against
-    the plain version: the plan is forced, every slice must cover its
-    columns."""
+def test_rwkv6_tensor_core_kernel_takes_any_cols_per_block_on_card(cols, chunk, dtype,
+                                                                   monkeypatch):
+    """Each instance of the tensor-core kernel (16 or 64 columns a block;
+    chunks padded to 32 or 64 rows; r, k, v in bf16 or float32) at rwkv6's
+    head shape, against the plain version: the plan is forced, every slice
+    must cover its columns."""
     from repro_torch.kernels.rwkv6_scan import kernel as k7
 
     dev = _card()
     real = k7.cols_plan
     forced = []
 
-    def plan(B, H, N, C, sms):
-        p = real(B, H, N, C, sms)
+    def plan(B, H, N, C, sms, dt=torch.bfloat16):
+        p = real(B, H, N, C, sms, dt)
         slices = -(-N // cols)
-        forced.append(cols)
+        forced.append((cols, dt))
         return p._replace(cols_per_block=cols, slices=slices, blocks=B * H * slices,
-                          smem_bytes=k7.shared_bytes(C, cols))
+                          smem_bytes=k7.shared_bytes(C, cols, dt))
 
     monkeypatch.setattr(k7, "cols_plan", plan)
     rng = np.random.default_rng(cols + chunk)
     B, H, T, N = 2, 3, 2 * chunk, 64
     r, k, v = (torch.from_numpy(rng.standard_normal((B, H, T, N)).astype(np.float32) * 0.5)
-               .to(dev, torch.bfloat16) for _ in range(3))
+               .to(dev, dtype) for _ in range(3))
     w = torch.from_numpy(rng.uniform(0.5, 0.999, (B, H, T, N)).astype(np.float32)).to(dev)
     u = torch.from_numpy(rng.standard_normal((H, N)).astype(np.float32) * 0.5).to(dev)
     o, s = k7.rwkv6_scan_cuda(r, k, v, w, u, chunk=chunk)
     o_ref, s_ref = k7.rwkv6_scan_ref(r, k, v, w, u)
     torch.cuda.synchronize()
-    assert forced == [cols]
+    assert forced == [(cols, dtype)]
     assert bool(torch.isfinite(o.float()).all()) and bool(torch.isfinite(s).all())
-    _close(o, o_ref, _SCAN_TOL[torch.bfloat16])
+    _close(o, o_ref, _SCAN_TOL[dtype])
     _close(s, s_ref, _SCAN_TOL[torch.float32])
 
 

@@ -16,12 +16,14 @@ the CPU.
   sub-blocks; the off-diagonal ones as products of factors through the
   sub-block's last token, the diagonal ones per channel; every float32
   operand of a tensor-core product split into a bf16 high part and a bf16
-  residual, one rounding each; r, k, v exact in bf16) equals JAX's
-  ``rwkv6_scan`` within 5e-4 (the JAX package's scan tolerance): at
-  rwkv6-1.6b's initial decays against the reference and the interpreted
-  Pallas kernel, and at strong decays, where the Pallas kernel's
-  k exp(-logd) overflows, against the reference.
-* K7's :func:`cols_plan` covers every column of every (b, h) exactly once.
+  residual, one rounding each; r, k, v exact in bf16, or for the float32
+  instance float32 r, k and v split too) equals JAX's ``rwkv6_scan``
+  within 5e-4 (the JAX package's scan tolerance): at rwkv6-1.6b's initial
+  decays against the reference and the interpreted Pallas kernel, and at
+  strong decays, where the Pallas kernel's k exp(-logd) overflows, against
+  the reference.
+* K7's :func:`cols_plan` covers every column of every (b, h) exactly once
+  for both dtypes, and :func:`shared_bytes` is the C side's layout.
 """
 import _timeline_cases
 import jax.numpy as jnp
@@ -239,20 +241,65 @@ def test_k4_model_matches_jax_on_the_card_tests_edges(name):
 # K7: the column plan and the tensor-core kernel's chunked form.
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("B,H,N,chunk", [
     (4, 32, 64, 32),     # rwkv6-1.6b's prefill
+    (2, 32, 64, 32),     # rwkv6-1.6b at ssm_exact (float32)
     (1, 4, 64, 32), (2, 2, 32, 32), (1, 2, 16, 16), (2, 32, 64, 64), (1, 1, 40, 32),
     (3, 5, 24, 20), (8, 32, 64, 32), (1, 3, 8, 32),
 ])
-def test_cols_plan_covers_every_column_once(B, H, N, chunk):
-    plan = cols_plan(B, H, N, chunk, H100_SMS)
+def test_cols_plan_covers_every_column_once(B, H, N, chunk, dtype):
+    plan = cols_plan(B, H, N, chunk, H100_SMS, dtype)
     nc = plan.cols_per_block
     assert nc in COLS_PER_BLOCK and plan.blocks == B * H * plan.slices
     cols = [j for s in range(plan.slices) for j in range(s * nc, min((s + 1) * nc, N))]
     assert cols == list(range(N))                       # each column once, in order
     assert all(s * nc < N for s in range(plan.slices))   # no empty slice
-    assert plan.smem_bytes == shared_bytes(chunk, nc) <= SMEM_LIMIT
-    assert plan == cols_plan(B, H, N, chunk, H100_SMS)
+    assert plan.smem_bytes == shared_bytes(chunk, nc, dtype) <= SMEM_LIMIT
+    assert 1 <= plan.blocks_per_sm <= 2
+    assert plan == cols_plan(B, H, N, chunk, H100_SMS, dtype)
+
+
+def _c_layout(f32, cp, nc):
+    """The offsets of ``Layout<T, CP, NC>`` in ``csrc/rwkv6_scan.cu``, term
+    by term as the C side writes them, and its total."""
+    esize, ld_b, ld_w = (4 if f32 else 2), 72, 68
+    ld_r, ld_v, ld_s = (ld_w if f32 else ld_b), nc + (4 if f32 else 8), nc + 8
+    nq = cp // 16 - 1
+    rq_rows = nq * cp - 8 * nq * (nq + 1)
+    tile = cp * ld_b * 2
+    off = {"k": cp * ld_r * esize, "v_bytes": cp * ld_v * esize}
+    off["v"] = 0 if f32 else 2 * off["k"]
+    off["w"] = 2 * off["k"] if f32 else 2 * off["k"] + off["v_bytes"]
+    off["stage"] = off["v_bytes"] if f32 else off["w"] + cp * ld_w * 4
+    off["rkw"] = 2 * off["stage"]
+    off["rd"] = off["rkw"] + (off["w"] + cp * ld_w * 4 if f32 else 0)
+    off["kd"] = off["rd"] + 2 * tile
+    off["rq"] = off["kd"] + 2 * tile
+    off["kq"] = off["rq"] + 2 * rq_rows * ld_b * 2
+    off["a"] = off["kq"] + 2 * nq * 16 * ld_b * 2
+    off["s"] = off["a"] + cp * (cp + 4) * 4
+    off["u"] = off["s"] + 2 * 64 * ld_s * 2
+    return off, off["u"] + 64 * 4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("chunk,cp", [(16, 32), (32, 32), (48, 64), (64, 64)])
+@pytest.mark.parametrize("cols", COLS_PER_BLOCK)
+def test_shared_bytes_is_the_c_layout(chunk, cp, cols, dtype):
+    """shared_bytes equals the C side's Layout for every instance (the
+    launcher refuses any other count), every region 16-byte aligned (the
+    cp.async copies and ldmatrix rows), within a block's 227 KB, and the
+    chunk-32 instances two blocks an SM: float32's one stage of r, k and w
+    keeps its 64-column layout (94,464 bytes) below bf16's (96,000)."""
+    f32 = dtype == torch.float32
+    off, total = _c_layout(f32, cp, cols)
+    assert shared_bytes(chunk, cols, dtype) == total <= SMEM_LIMIT
+    assert all(v % 16 == 0 for v in off.values())
+    if cp == 32:
+        assert 2 * (total + 1024) <= 233_472
+    if chunk == 32 and cols == 64:
+        assert total == (94_464 if f32 else 96_000)
 
 
 def test_cols_plan_fills_the_card_only_where_it_is_empty():
@@ -282,13 +329,16 @@ def _split_exact_mm(x, v):
     return xh @ v + _bf16(x - xh) @ v
 
 
-def _k7_model(r, k, v, w, u, chunk):
+def _k7_model(r, k, v, w, u, chunk, split_v=False):
     """The tensor-core kernel's chunked form in float32 on [B, H, T, N]
-    inputs (r, k, v exact in bf16): log2 w floored at -104 log2(e), its
-    prefix down the chunk; per 16-token sub-block q the factors through its
-    last token e_q; a's diagonal sub-blocks per channel (exponentials of
-    differences, s < t) and the bonus on its diagonal; the products split
-    as on the tensor cores."""
+    inputs (r, k, v exact in bf16; with ``split_v``, the float32 instance:
+    r and k as they are, v split into bf16 parts, so its two products are
+    hi hi + hi lo + lo hi): log2 w floored at -104 log2(e), its prefix down
+    the chunk; per 16-token sub-block q the factors through its last token
+    e_q; a's diagonal sub-blocks per channel (exponentials of differences,
+    s < t) and the bonus on its diagonal; the products split as on the
+    tensor cores."""
+    v_mm = _split_mm if split_v else _split_exact_mm
     B, H, T, N = r.shape
     C = min(chunk, T)
     CP = 32 if C <= 32 else 64
@@ -314,17 +364,27 @@ def _k7_model(r, k, v, w, u, chunk):
             a[:, :, blk, blk] = torch.tril(diag, -1)
         a = a + torch.diag_embed((rc * u[None, :, None, :] * kc).sum(-1))
         rd = rc * torch.exp2(ldp)
-        o = _split_mm(rd, S) + _split_exact_mm(torch.tril(a), vc)
+        o = _split_mm(rd, S) + v_mm(torch.tril(a), vc)
         kd = kc * torch.exp2(last - ld)
-        S = S * torch.exp2(last).transpose(2, 3) + _split_exact_mm(kd.transpose(2, 3), vc)
+        S = S * torch.exp2(last).transpose(2, 3) + v_mm(kd.transpose(2, 3), vc)
         outs.append(o[:, :, :C])
     return torch.cat(outs, 2), S
 
 
-def _rwkv6_inputs(seed, B, H, T, N, strong):
+_K7_SHAPES = [     # both K7 model tests
+    (1, 2, 64, 64, 32, False),      # rwkv6's head and chunk, two chunks
+    (1, 2, 128, 64, 64, False),     # C = 64: four sub-blocks, six factored pairs
+    (2, 1, 20, 32, 32, False),      # T < chunk: one short chunk, padded
+    (1, 2, 64, 64, 32, True),       # strong decays
+    (1, 1, 96, 40, 48, True),       # C = 48 in a 64-row tile, N = 40
+]
+
+
+def _rwkv6_inputs(seed, B, H, T, N, strong, bf16=True):
     rng = np.random.default_rng(seed)
-    r, k, v = (torch.from_numpy(rng.standard_normal((B, H, T, N)).astype(np.float32) * 0.5)
-               .bfloat16().float().numpy() for _ in range(3))
+    r, k, v = (rng.standard_normal((B, H, T, N)).astype(np.float32) * 0.5 for _ in range(3))
+    if bf16:                    # exact in bf16, as on the bf16 path
+        r, k, v = (torch.from_numpy(x).bfloat16().float().numpy() for x in (r, k, v))
     if strong:                  # the TPU kernel's k exp(-logd) overflows within a chunk
         w = rng.uniform(1e-3, 0.05, (B, H, T, N)).astype(np.float32)
     else:                       # rwkv6-1.6b at init: exp(-exp(w_base + LoRA)), w_base = -1
@@ -333,13 +393,7 @@ def _rwkv6_inputs(seed, B, H, T, N, strong):
     return r, k, v, w, u
 
 
-@pytest.mark.parametrize("B,H,T,N,chunk,strong", [
-    (1, 2, 64, 64, 32, False),      # rwkv6's head and chunk, two chunks
-    (1, 2, 128, 64, 64, False),     # C = 64: four sub-blocks, six factored pairs
-    (2, 1, 20, 32, 32, False),      # T < chunk: one short chunk, padded
-    (1, 2, 64, 64, 32, True),       # strong decays
-    (1, 1, 96, 40, 48, True),       # C = 48 in a 64-row tile, N = 40
-])
+@pytest.mark.parametrize("B,H,T,N,chunk,strong", _K7_SHAPES)
 def test_k7_model_matches_jax(B, H, T, N, chunk, strong):
     ins = _rwkv6_inputs(T + N, B, H, T, N, strong)
     o, s = _k7_model(*(torch.from_numpy(x) for x in ins), chunk)
@@ -353,3 +407,29 @@ def test_k7_model_matches_jax(B, H, T, N, chunk, strong):
                                 kernel_mode="pallas_interpret")
         np.testing.assert_allclose(o.numpy(), np.asarray(po), atol=SCAN_TOL, rtol=SCAN_TOL)
         np.testing.assert_allclose(s.numpy(), np.asarray(ps), atol=SCAN_TOL, rtol=SCAN_TOL)
+
+
+@pytest.mark.parametrize("B,H,T,N,chunk,strong", _K7_SHAPES)
+def test_k7_float32_model_matches_jax(B, H, T, N, chunk, strong):
+    """The float32 instance (r, k and v not rounded to bf16; r and k read at
+    float32 precision, v split into bf16 parts like the other operands)
+    keeps o and the state within 5e-4 of JAX's reference, and of the
+    interpreted Pallas kernel at rwkv6-1.6b's decays; and the split of v
+    matters: v rounded to bf16 alone misses 5e-4."""
+    ins = _rwkv6_inputs(T + N, B, H, T, N, strong, bf16=False)
+    v32 = torch.from_numpy(ins[2])
+    assert not torch.equal(v32, _bf16(v32))
+    o, s = _k7_model(*(torch.from_numpy(x) for x in ins), chunk, split_v=True)
+    jo, js = jax_rwkv6_scan(*(jnp.asarray(x) for x in ins), kernel_mode="reference")
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(s).all())
+    np.testing.assert_allclose(s.numpy(), np.asarray(js), atol=SCAN_TOL, rtol=SCAN_TOL)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), atol=SCAN_TOL, rtol=SCAN_TOL)
+    if not strong and T % chunk == 0:   # the interpreted Pallas kernel agrees at these decays
+        po, ps = jax_rwkv6_scan(*(jnp.asarray(x) for x in ins), chunk=chunk,
+                                kernel_mode="pallas_interpret")
+        np.testing.assert_allclose(o.numpy(), np.asarray(po), atol=SCAN_TOL, rtol=SCAN_TOL)
+        np.testing.assert_allclose(s.numpy(), np.asarray(ps), atol=SCAN_TOL, rtol=SCAN_TOL)
+    rounded = [torch.from_numpy(x) for x in ins]
+    rounded[2] = _bf16(rounded[2])
+    o_bf16, _ = _k7_model(*rounded, chunk)
+    assert float((o_bf16 - torch.from_numpy(np.array(jo))).abs().max()) > SCAN_TOL
